@@ -1,0 +1,32 @@
+"""petibm-decoupledibpm on PyTorch (counterpart of
+``petibm_tpu/cli/decoupledibpm.py``; reference:
+applications/decoupledibpm/main.cpp).
+
+    python -m petibm_tpu_torch.cli.decoupledibpm -directory <case>
+"""
+
+from __future__ import annotations
+
+import sys
+
+from ..solvers.decoupledibpm import DecoupledIBPMSolver
+from .common import config_from_args, make_parser
+
+
+def main(argv=None) -> int:
+    args = make_parser(
+        "Decoupled IBPM solver (Li et al. 2016), PyTorch/CUDA port"
+    ).parse_args(argv)
+    config = config_from_args(args)
+    solver = DecoupledIBPMSolver(config)
+    print(solver.mesh.info())
+    print(f"device: {solver.device}, dtype: {solver.dtype}")
+    print(f"bodies: {solver.bodies.n_bodies} ({solver.bodies.n_pts} points)")
+    solver.run(progress=True)
+    solver.close()
+    print(solver.timers.report())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

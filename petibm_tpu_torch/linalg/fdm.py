@@ -1,0 +1,229 @@
+"""Direct fast-diagonalization solvers (dense eigenvector transforms).
+
+Counterpart of ``petibm_tpu/linalg/fdm.py`` (fdm.py:218-596) on its dense
+eigh path.  For BN order 1 the pressure operator -D B1 G, and the BC-folded
+momentum Helmholtz operator I/dt - c_imp*nu*L of each velocity component,
+are exact Kronecker sums of 1D operators T_d.  At setup each direction's
+generalized symmetric eigenproblem is solved in host numpy float64; a
+solve is then a dense transform per direction (``torch.matmul`` in the
+working dtype, full float32 on the card: TF32 stays off), a pointwise
+divide by the eigenvalue sum, and the back-transform.
+
+``make_fdm_solver`` wraps a direct solve in KSP stopping semantics: a
+warm-started direct pass, then refinement passes judged on the recurrence
+residual with a stagnation exit.  The loop reads the residual norm on the
+host once per pass.
+
+Not ported yet: the FFT path for periodic uniform axes (ROADMAP item 14)
+and the sharded transform core (ROADMAP item 19).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..types import Field
+from .krylov import SolveResult, _norm, tmap
+from .mg import face_coefficients
+
+
+def _apply_per_axis(mats: list, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Apply mats[d] along direction d's array axis (dim-1-d)."""
+    for d in range(dim):
+        axis = dim - 1 - d
+        m = mats[d]
+        if axis == x.ndim - 1:
+            x = torch.matmul(x, m.T)
+        elif axis == x.ndim - 2:
+            x = torch.matmul(m, x)
+        else:
+            x = torch.tensordot(m, x, dims=([1], [axis])).movedim(0, axis)
+    return x
+
+
+def fdm_config(params: dict) -> dict:
+    """Normalize ``parameters.fdm`` (bool shorthand or knob dict)."""
+    cfg = params.get("fdm", {})
+    if cfg is False:
+        return {"enabled": False}
+    if not isinstance(cfg, dict):
+        return {}
+    return cfg
+
+
+def line_operator(widths: np.ndarray, periodic: bool, scale: float) -> np.ndarray:
+    """Dense 1D FV operator T_d (float64): face coefficient scale/dist,
+    zero flux at non-periodic walls, wraparound where periodic."""
+    n = len(widths)
+    c = scale * face_coefficients(widths, periodic)
+    T = np.zeros((n, n))
+    idx = np.arange(n)
+    T[idx, idx] = c[:-1] + c[1:]
+    T[idx[1:], idx[:-1]] -= c[1:-1]
+    T[idx[:-1], idx[1:]] -= c[1:-1]
+    if periodic and n > 1:
+        T[0, -1] -= c[0]
+        T[-1, 0] -= c[0]
+    return T
+
+
+def _lam_sum(lams: list, dim: int) -> np.ndarray:
+    """Kronecker sum of per-direction eigenvalues over the (z, y[, x])
+    grid."""
+    shape = [len(lams[dim - 1 - ax]) for ax in range(dim)]
+    out = np.zeros(tuple(shape))
+    for d, lam in enumerate(lams):
+        bshape = [1] * dim
+        bshape[dim - 1 - d] = len(lam)
+        out = out + np.asarray(lam).reshape(bshape)
+    return out
+
+
+class FastDiagPoisson:
+    """Direct separable solver of the (positive semidefinite) negated
+    Poisson operator -D B1 G; the all-Neumann constant mode is zeroed."""
+
+    def __init__(self, dxp: list, periodic: list, *, dtype: torch.dtype,
+                 device, scale: float = 1.0, null_rtol: float = 1e-12):
+        """``dxp``: pressure cell widths per direction (x, y[, z]);
+        ``scale``: the dt factor of B1."""
+        self.dim = len(dxp)
+        self.dtype = dtype
+        qs, qts, lams = [], [], []
+        for d in range(self.dim):
+            w = np.asarray(dxp[d], np.float64)
+            T = line_operator(w, periodic[d], scale)
+            # T q = lam W q via S = W^-1/2 T W^-1/2, Q = W^-1/2 V
+            s = 1.0 / np.sqrt(w)
+            lam, V = np.linalg.eigh(T * s[:, None] * s[None, :])
+            Q = s[:, None] * V
+            qs.append(torch.as_tensor(Q, dtype=dtype, device=device))
+            qts.append(torch.as_tensor(Q.T.copy(), dtype=dtype, device=device))
+            lams.append(np.maximum(lam, 0.0))
+        lam_sum = _lam_sum(lams, self.dim)
+        cutoff = null_rtol * lam_sum.max()
+        self.inv_lam = torch.as_tensor(
+            np.where(lam_sum > cutoff,
+                     1.0 / np.where(lam_sum > 0, lam_sum, 1.0), 0.0),
+            dtype=dtype, device=device)
+        self._Q = qs
+        self._Qt = qts
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x = A^+ b.  The plain-sum (nullspace) component of b is projected
+        out first; Q Lam^+ Q^T alone is only a reflexive inverse on
+        stretched grids."""
+        b = b.to(self.dtype)
+        b = b - torch.mean(b)
+        bhat = _apply_per_axis(self._Qt, b, self.dim)
+        return _apply_per_axis(self._Q, bhat * self.inv_lam, self.dim)
+
+
+class FastDiagHelmholtz:
+    """Direct solver of one velocity component's A = I/dt - c_imp*nu*L.
+
+    Each BC-folded 1D operator T_d is symmetric under the W_d = diag(dl)
+    weighting, so T_d = Q_d Lam_d Q_d^-1 with Q_d = W^-1/2 V_d and
+    Q_d^-1 = V_d^T W^1/2 (forward and backward transforms differ)."""
+
+    def __init__(self, lines1d: list, dt: float, cnu: float, *,
+                 dtype: torch.dtype, device):
+        """``lines1d``: per direction a dict with ``dl``, ``dneg``, ``dpos``
+        (n,), ``a0`` ((lo, hi) or None when periodic) and ``periodic``;
+        ``cnu`` = c_implicit * nu."""
+        self.dim = len(lines1d)
+        self.dtype = dtype
+        qs, qinvs, lams = [], [], []
+        for ln in lines1d:
+            dl = np.asarray(ln["dl"], np.float64)
+            cn = 1.0 / (np.asarray(ln["dneg"], np.float64) * dl)
+            cp = 1.0 / (np.asarray(ln["dpos"], np.float64) * dl)
+            n = len(dl)
+            T = np.zeros((n, n))
+            idx = np.arange(n)
+            T[idx, idx] = -(cn + cp)
+            T[idx[1:], idx[:-1]] = cn[1:]
+            T[idx[:-1], idx[1:]] = cp[:-1]
+            if ln["periodic"]:
+                T[0, -1] += cn[0]
+                T[-1, 0] += cp[-1]
+            else:
+                a0_lo, a0_hi = ln["a0"]
+                T[0, 0] += a0_lo * cn[0]      # ghost = a0 * target fold
+                T[-1, -1] += a0_hi * cp[-1]
+            s = np.sqrt(dl)
+            S = T * (s[:, None] / s[None, :])
+            asym = np.abs(S - S.T).max()
+            if asym > 1e-10 * max(1.0, np.abs(S).max()):
+                raise ValueError(
+                    f"velocity 1D operator not W-symmetric (dev {asym:g})")
+            lam, V = np.linalg.eigh(0.5 * (S + S.T))
+            qs.append(torch.as_tensor(V / s[:, None], dtype=dtype,
+                                      device=device))
+            qinvs.append(torch.as_tensor((V * s[:, None]).T.copy(),
+                                         dtype=dtype, device=device))
+            lams.append(lam)
+        denom = 1.0 / dt - cnu * _lam_sum(lams, self.dim)
+        self.inv_lam = torch.as_tensor(1.0 / denom, dtype=dtype,
+                                       device=device)
+        self._Q = qs
+        self._Qinv = qinvs
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        bhat = _apply_per_axis(self._Qinv, b.to(self.dtype), self.dim)
+        return _apply_per_axis(self._Q, bhat * self.inv_lam, self.dim)
+
+
+def helmholtz_lines(mesh, bcset, c: int) -> list:
+    """Per-direction 1D data of velocity component ``c``'s folded
+    Laplacian (the coefficients make_laplacian bakes into its closures)."""
+    out = []
+    for d in range(mesh.dim):
+        line = mesh.lines[Field(c)][d]
+        if mesh.periodic[d]:
+            a0 = None
+        else:
+            a0 = (bcset.specs[(c, 2 * d + 0)].a0,
+                  bcset.specs[(c, 2 * d + 1)].a0)
+        out.append({"dl": line.interior_dl, "dneg": line.dneg(),
+                    "dpos": line.dpos(), "a0": a0,
+                    "periodic": bool(mesh.periodic[d])})
+    return out
+
+
+def make_fdm_solver(fdm, A, opts: dict):
+    """Direct solve + iterative refinement with KSP stopping semantics.
+
+    ``fdm.solve(b)`` is a (near-)exact inverse on a tensor or dict of
+    tensors, ``A`` the matching operator.  Returns ``solve(b, x0) ->
+    SolveResult``: one warm-started direct pass, then passes while the
+    recurrence residual r_{k+1} = r_k - A dx_k is above
+    max(atol, rtol*||b||), still shrinks by at least 10% per pass, and
+    fewer than max_it passes ran.  ``iters`` counts refinement passes."""
+    atol = float(opts.get("atol", 1e-6))
+    rtol = float(opts.get("rtol", 0.0))
+    maxiter = int(opts.get("max_it", 10000))
+
+    def solve(b, x0) -> SolveResult:
+        r = tmap(lambda bi, ax: bi - ax, b, A(x0))
+        dx = fdm.solve(r)
+        x = tmap(lambda xi, di: xi + di, x0, dx)
+        r = tmap(lambda ri, adi: ri - adi, r, A(dx))
+        rnorm = _norm(r)
+        tol = torch.clamp(rtol * _norm(b), min=atol)
+        # one host read for both; the loop compares in the working dtype
+        # (numpy scalars of it), as the JAX while_loop does
+        np_dtype = {torch.float32: np.float32,
+                    torch.float64: np.float64}[rnorm.dtype]
+        tol, rn = (np_dtype(v) for v in torch.stack([tol, rnorm]).tolist())
+        prev, it = np_dtype(np.inf), 0
+        while rn > tol and rn < np_dtype(0.9) * prev and it < maxiter:
+            dx = fdm.solve(r)
+            x = tmap(lambda xi, di: xi + di, x, dx)
+            r = tmap(lambda ri, adi: ri - adi, r, A(dx))
+            prev, rn, it = rn, np_dtype(_norm(r).item()), it + 1
+        return SolveResult(x=x, iters=it, residual=float(rn),
+                           converged=bool(rn <= tol))
+
+    return solve

@@ -1,0 +1,429 @@
+"""Projection-method incompressible Navier-Stokes solver.
+
+Counterpart of ``petibm_tpu/solvers/navierstokes.py``: the subset the 2D
+decoupled-IBPM slice runs.  One time step (Perot 1993 fractional step,
+reference navierstokes.cpp:240-266) is a function over a state dict with
+the JAX package's keys (``q``, ``p``, ``bc``, ``conv``, ``diff``, ``dP``):
+
+  1. rhs1 = -G p + u/dt + AB2 convection + CN diffusion history
+            + a_imp nu Lbc u  (after the convective-BC update)
+  2. u* from the direct FDM Helmholtz solve with refinement
+  3. rhs2 = (D + Dbc) u*, mean removed
+  4. dP from the direct FDM Poisson solve with refinement; its residual
+     operator is the CUDA kernel K1 (``operators/cuda_stencil.py``)
+  5. u = u* - B_N G dP, p += dP; ghost refresh
+
+Every solve reads its residual on the host once per refinement pass, so
+a step is synchronous; the solver stats are host values.
+
+Configurations this slice does not cover raise ``NotImplementedError``
+naming the ROADMAP item; nothing is substituted silently.  HDF5 output
+(grid, snapshots, restarts) is ROADMAP item 16: the port writes the
+iterations (and forces) text logs only, and says once on stderr when a
+save or restart point falls inside the run.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+from ..boundary import BoundarySet
+from ..config import solver_config
+from ..ics import initial_fields
+from ..linalg.fdm import (FastDiagHelmholtz, FastDiagPoisson, fdm_config,
+                          helmholtz_lines, make_fdm_solver)
+from ..linalg.krylov import tmap
+from ..linalg.mg import poisson_level0
+from ..mesh import StaggeredMesh
+from ..operators.bn import make_bn
+from ..operators.convection import make_convection
+from ..operators.cuda_stencil import make_cuda_poisson
+from ..operators.stencil import make_divergence, make_gradient, make_laplacian
+from ..timeintegration import create_time_integration
+from ..utils.timers import StageTimers
+
+VEL_NAMES = ("u", "v", "w")
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def check_supported(config: dict) -> None:
+    """Raise NotImplementedError for the options this slice does not port."""
+    params = config.get("parameters", {})
+    if (len(config.get("mesh", [])) == 3
+            and not bool(params.get("disablePallas", False))):
+        # the JAX 3D path runs the kernels K2a, K2b and K3; without them
+        # only the stencil closures (its disablePallas path) are equal
+        raise _not_ported("the 3D kernels K2a, K2b and K3 (set "
+                          "parameters.disablePallas to run the stencil "
+                          "closures)", "ROADMAP item 10")
+    if int(params.get("BN", 1)) != 1:
+        raise _not_ported("BN > 1", "ROADMAP item 15, the multigrid path")
+    if params.get("sharding") or params.get("distributed"):
+        raise _not_ported("sharding", "ROADMAP item 19")
+    if int(params.get("startStep", 0)) > 0:
+        raise _not_ported("a restart start (startStep > 0)", "ROADMAP item 16")
+    if config.get("probes"):
+        raise _not_ported("probes", "ROADMAP item 17")
+    fdm_cfg = fdm_config(params)
+    if not bool(fdm_cfg.get("enabled", True)):
+        raise _not_ported("fdm: false (Krylov solves)", "ROADMAP items 5, 15")
+    if bool(fdm_cfg.get("fft", False)):
+        raise _not_ported("fdm.fft: true", "ROADMAP item 14")
+    if str(fdm_cfg.get("mode", "direct")) != "direct":
+        raise _not_ported("fdm.mode other than direct (FDM-preconditioned CG)",
+                          "ROADMAP item 5")
+    vopts = solver_config(config, "velocity")
+    cimp = create_time_integration("diffusion", config).implicit_coeff
+    if (not bool(fdm_cfg.get("velocity", True)) or vopts.get("pc_explicit")
+            or cimp * float(config["flow"]["nu"]) <= 0.0):
+        raise _not_ported("the Krylov momentum solve (fdm.velocity: false, "
+                          "an explicit velocity pc, or no implicit "
+                          "diffusion)", "ROADMAP item 5")
+    popts = solver_config(config, "poisson")
+    if popts.get("backend") == "GPU":
+        raise _not_ported("poissonSolver.type: GPU (the pinned pressure)",
+                          "ROADMAP item 13")
+    if popts.get("pc", "mg") not in ("mg", "fdm"):
+        raise _not_ported(f"poisson pc {popts['pc']!r} (Krylov pressure "
+                          "solve)", "ROADMAP item 5")
+
+
+class NavierStokesSolver:
+    """The projection-method solver; the IBM solvers extend it through
+    ``_extra_init`` and ``_build_step``."""
+
+    def __init__(self, config: dict, device=None):
+        """``device``: where fields live (default: cuda when available)."""
+        self.config = config
+        self.timers = StageTimers()
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        check_supported(config)
+        with self.timers.stage("initialize"):
+            self._init(config)
+
+    # ------------------------------------------------------------------
+    def _init(self, config: dict) -> None:
+        params = config.get("parameters", {})
+        self.dt = float(params["dt"])
+        self.nstart = int(params.get("startStep", 0))
+        self.ite = self.nstart
+        self.t = float(params.get("t", 0.0))
+        self.nt = int(params.get("nt", 1))
+        self.nsave = int(params.get("nsave", self.nt))
+        self.nrestart = int(params.get("nrestart", self.nt))
+        self.nu = float(config["flow"]["nu"])
+        dtype_name = params.get("dtype") or "float32"
+        if dtype_name not in _DTYPES:
+            raise ValueError(f"parameters.dtype must be float32 or float64, "
+                             f"got {dtype_name!r}")
+        self.dtype = _DTYPES[dtype_name]
+
+        self.mesh = StaggeredMesh(config)
+        self.output_dir = config.get("output", os.getcwd())
+        self.logs_dir = config.get("logs", self.output_dir)
+        os.makedirs(self.output_dir, exist_ok=True)
+        os.makedirs(self.logs_dir, exist_ok=True)
+        end = self.nstart + self.nt
+        if self.nsave <= end or self.nrestart <= end:
+            print("petibm_tpu_torch: HDF5 snapshots and restart files are not "
+                  "ported yet (ROADMAP item 16); only the text logs are "
+                  "written", file=sys.stderr)
+
+        self.bc = BoundarySet(self.mesh, config)
+
+        # initial conditions (solutionsimple.cpp:122-228), host float64
+        fields0 = initial_fields(config, self.mesh, t=self.t)
+        q = {VEL_NAMES[c]: self._tensor(fields0[VEL_NAMES[c]])
+             for c in range(self.mesh.dim)}
+        self.state = {"q": q, "p": self._tensor(fields0["p"])}
+        self.state["bc"] = self.bc.init_state(q, self.dtype)
+        self.state["dP"] = torch.zeros_like(self.state["p"])
+
+        self.conv_ti = create_time_integration("convection", config)
+        self.diff_ti = create_time_integration("diffusion", config)
+        self.state["conv"] = tuple(tmap(torch.zeros_like, q)
+                                   for _ in range(self.conv_ti.n_explicit))
+        self.state["diff"] = tuple(tmap(torch.zeros_like, q)
+                                   for _ in range(self.diff_ti.n_explicit))
+
+        self._create_operators(config)
+        self._create_solvers(config)
+        self._extra_init(config)
+        self._step_fn = self._build_step()
+
+        self.iter_log_path = os.path.join(
+            self.output_dir, f"iterations-{self.ite}.txt")
+        self._iter_log = open(self.iter_log_path, "w")
+        #: every step's solver stats (host values, without tensors); the
+        #: iterations log holds the first ``_n_logged``
+        self.stats_history: list[dict] = []
+        self._n_logged = 0
+        # reference parity: KSP aborts when a solve diverges
+        # (linsolverksp.cpp:96-104); "warn" prints, "ignore" continues
+        self.divergence_policy = str(params.get("divergence", "abort"))
+        if self.divergence_policy not in ("abort", "warn", "ignore"):
+            raise ValueError(
+                f"parameters.divergence must be abort|warn|ignore, got "
+                f"{self.divergence_policy!r}")
+
+    def _tensor(self, arr) -> torch.Tensor:
+        return torch.as_tensor(arr, dtype=self.dtype, device=self.device)
+
+    def _extra_init(self, config: dict) -> None:
+        """Subclass hook (bodies, extra operators and solvers)."""
+
+    # ------------------------------------------------------------------
+    def _create_operators(self, config: dict) -> None:
+        """Stencil closures (reference createOperators,
+        navierstokes.cpp:317-365)."""
+        mesh, bc = self.mesh, self.bc
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.grad = make_gradient(mesh, **kw)
+        self.div = make_divergence(mesh, bc, **kw)
+        self.lap = make_laplacian(mesh, bc, **kw)
+        self.convect = make_convection(mesh, bc, **kw)
+        # BN order 1 (check_supported refuses others): B_1 = dt * I
+        self.bn = make_bn(self.lap, self.dt,
+                          self.diff_ti.implicit_coeff * self.nu)
+
+        dt, nu, cimp = self.dt, self.nu, self.diff_ti.implicit_coeff
+
+        def A_momentum(u):
+            lu = self.lap(u, None, homogeneous=True)
+            return tmap(lambda a, b: a / dt - cimp * nu * b, u, lu)
+
+        def A_poisson(phi):
+            return self.div(self.bn(self.grad(phi)), None, homogeneous=True)
+
+        self.A_momentum = A_momentum
+        self.A_poisson = A_poisson
+
+    def _create_solvers(self, config: dict) -> None:
+        """Direct FDM momentum and Poisson solves (the FDM-direct branch of
+        the JAX _create_solvers, navierstokes.py:282-457; check_supported
+        has refused every other branch)."""
+        params = config.get("parameters", {})
+        cnu = self.diff_ti.implicit_coeff * self.nu
+        # direct solve + true-residual refinement; transforms in full
+        # precision of the working dtype
+        helm = {VEL_NAMES[c]: FastDiagHelmholtz(
+            helmholtz_lines(self.mesh, self.bc, c), self.dt, cnu,
+            dtype=self.dtype, device=self.device)
+            for c in range(self.mesh.dim)}
+
+        class _HelmDict:
+            @staticmethod
+            def solve(r):
+                return {k: helm[k].solve(v) for k, v in r.items()}
+
+        self.v_solver = make_fdm_solver(_HelmDict, self.A_momentum,
+                                        solver_config(config, "velocity"))
+        self.warm_start = bool(params.get("warmStart", True))
+        self.warm_start_poisson = bool(params.get("warmStartPoisson", True))
+
+        # the direct pressure solve, and the level-0 separable factors
+        # behind K1 (navierstokes.py:459-535 builds a whole MG hierarchy
+        # for those factors)
+        kw = dict(dtype=self.dtype, device=self.device, scale=self.dt)
+        self.poisson_fdm = FastDiagPoisson(self.mesh.dxp, self.mesh.periodic,
+                                           **kw)
+        self.poisson_level = poisson_level0(self.mesh.dxp, self.mesh.periodic,
+                                            **kw)
+
+        def negA_p(phi):
+            return -self.A_poisson(phi)
+
+        self._negA_p = negA_p
+        # K1 for the refinement residual: for BN order 1, -D B1 G equals
+        # the separable level-0 operator (navierstokes.py:386-403)
+        if not bool(params.get("disablePallas", False)):
+            fused = make_cuda_poisson(self.poisson_level)
+            if fused is not None:
+                self._negA_p = fused
+        self.p_solver = make_fdm_solver(self.poisson_fdm, self._negA_p,
+                                        solver_config(config, "poisson"))
+
+    # ------------------------------------------------------------------
+    # step building blocks, shared with the IBM subclasses
+    def _rhs_velocity(self, state):
+        """assembleRHSVelocity (navierstokes.cpp:432-521); returns
+        (rhs1, updated state)."""
+        dt, nu = self.dt, self.nu
+        cimp = self.diff_ti.implicit_coeff
+        q, p, bcstate = state["q"], state["p"], state["bc"]
+        conv, diff = state["conv"], state["diff"]
+
+        gp = self.grad(p)
+        rhs1 = tmap(lambda u, g: u / dt - g, q, gp)
+        if self.conv_ti.explicit_coeffs:
+            # history tuple, newest first
+            conv = (tmap(lambda x: -x, self.convect(q, bcstate)),) + conv[:-1]
+            for c, h in zip(self.conv_ti.explicit_coeffs, conv):
+                rhs1 = tmap(lambda r, x: r + c * x, rhs1, h)
+        if self.diff_ti.explicit_coeffs:
+            lq = tmap(lambda a, b: a + b,
+                      self.lap(q, None, homogeneous=True),
+                      self.lap.correction(bcstate))
+            diff = (tmap(lambda x: nu * x, lq),) + diff[:-1]
+            for c, h in zip(self.diff_ti.explicit_coeffs, diff):
+                rhs1 = tmap(lambda r, x: r + c * x, rhs1, h)
+        # implicit BC correction with the POST-update_eqs a1
+        # (reference navierstokes.cpp:505)
+        bcstate = self.bc.update_eqs(bcstate, q, dt)
+        if cimp != 0.0:
+            rhs1 = tmap(lambda r, x: r + cimp * nu * x,
+                        rhs1, self.lap.correction(bcstate))
+        state = dict(state, bc=bcstate, conv=conv, diff=diff)
+        return rhs1, state
+
+    def _solve_velocity(self, rhs1, state):
+        x0 = (state["q"] if self.warm_start
+              else tmap(torch.zeros_like, state["q"]))
+        return self.v_solver(rhs1, x0)
+
+    def _rhs_poisson(self, ustar, state):
+        """assembleRHSPoisson (navierstokes.cpp:540-563)."""
+        rhs2 = self.div(ustar, state["bc"])
+        return rhs2 - torch.mean(rhs2)  # nullspace-consistent RHS
+
+    def _solve_poisson(self, rhs2, state):
+        """solvePoisson (navierstokes.cpp:566-580)."""
+        x0 = (state["dP"] if self.warm_start_poisson
+              else torch.zeros_like(state["p"]))
+        return self.p_solver(-rhs2, x0)
+
+    def _project_update(self, ustar, dP, state):
+        """applyDivergenceFreeVelocity + updatePressure
+        (navierstokes.cpp:583-615); returns (q, p, dP)."""
+        dP = dP - torch.mean(dP)
+        qnew = tmap(lambda u, g: u - g, ustar, self.bn(self.grad(dP)))
+        return qnew, state["p"] + dP, dP
+
+    def _poisson_project(self, ustar, state):
+        rhs2 = self._rhs_poisson(ustar, state)
+        psol = self._solve_poisson(rhs2, state)
+        qnew, pnew, dP = self._project_update(ustar, psol.x, state)
+        return qnew, pnew, dP, psol
+
+    def _build_step(self):
+        """One time step as a state -> (state, stats) function
+        (advance, navierstokes.cpp:240-266)."""
+
+        def step(state):
+            rhs1, state = self._rhs_velocity(state)
+            vsol = self._solve_velocity(rhs1, state)
+            qnew, pnew, dP, psol = self._poisson_project(vsol.x, state)
+            bcstate = self.bc.update_ghost_values(state["bc"], qnew)
+            stats = {"v_iters": vsol.iters, "v_res": vsol.residual,
+                     "v_ok": vsol.converged,
+                     "p_iters": psol.iters, "p_res": psol.residual,
+                     "p_ok": psol.converged}
+            return dict(state, q=qnew, p=pnew, bc=bcstate, dP=dP), stats
+
+        return step
+
+    # ------------------------------------------------------------------
+    def advance(self) -> None:
+        self.t += self.dt
+        self.ite += 1
+        with self.timers.stage("step"):
+            self.state, stats = self._step_fn(self.state)
+        self._record_stats(self.ite, stats)
+
+    def _record_stats(self, ite: int, stats: dict) -> None:
+        self.stats_history.append(
+            dict({k: v for k, v in stats.items()
+                  if not isinstance(v, torch.Tensor)}, ite=ite))
+
+    def finished(self) -> bool:
+        return self.ite >= self.nstart + self.nt
+
+    # ------------------------------------------------------------------
+    def write(self) -> None:
+        """Per-step outputs (write, navierstokes.cpp:269-308): the
+        iterations log; snapshots wait for ROADMAP item 16."""
+        with self.timers.stage("write"):
+            self.write_lin_solvers_info()
+            if self.ite % self.nsave == 0:
+                self.timers.dump(os.path.join(self.logs_dir,
+                                              f"{self.ite:07d}.log"))
+
+    def _iter_log_stats(self, s: dict) -> list[tuple]:
+        return [(s["v_iters"], s["v_res"]), (s["p_iters"], s["p_res"])]
+
+    def write_lin_solvers_info(self) -> None:
+        """iterations-<start>.txt lines (navierstokes.cpp:766-794), flushed
+        at save points and at the end of the run."""
+        if self.ite % self.nsave == 0 or self.finished():
+            self._flush_iter_log()
+
+    _SOLVER_NAMES = {"v": "velocity", "p": "poisson", "f": "forces"}
+
+    def _flush_iter_log(self) -> None:
+        items = self.stats_history[self._n_logged:]
+        if not items:
+            return
+        self._n_logged = len(self.stats_history)
+        failures = []
+        for s in items:
+            ite = s["ite"]
+            cols = [str(ite)]
+            for iters, res in self._iter_log_stats(s):
+                cols.append(f"{int(iters)}\t{float(res):e}")
+            self._iter_log.write("\t".join(cols) + "\n")
+            for key, val in s.items():
+                if key.endswith("_ok") and not bool(val):
+                    pre = key[:-3]
+                    failures.append((self._SOLVER_NAMES.get(pre, pre), ite,
+                                     int(s[f"{pre}_iters"]),
+                                     float(s[f"{pre}_res"])))
+        self._iter_log.flush()
+        if failures and self.divergence_policy != "ignore":
+            name, step, iters, res = failures[0]
+            msg = (f"{name} solver diverged at time step {step}: "
+                   f"{iters} iterations, residual {res:e} "
+                   f"(+{len(failures) - 1} more failure(s); see "
+                   f"{self.iter_log_path})")
+            if self.divergence_policy == "abort":
+                from ..linalg.krylov import SolverDivergedError
+
+                raise SolverDivergedError(msg)
+            print(f"WARNING: {msg}", file=sys.stderr)
+
+    # ------------------------------------------------------------------
+    def run(self, progress: bool = False) -> None:
+        """Main loop (applications/navierstokes/main.cpp:45-78)."""
+        try:
+            while not self.finished():
+                self.advance()
+                self.write()
+                if progress and (self.ite % self.nsave == 0
+                                 or self.finished()):
+                    print(f"[time step {self.ite}] t = {self.t:.6g}")
+        finally:
+            # a mid-run exception still lands every buffered record on disk
+            self.flush_logs()
+
+    def flush_logs(self) -> None:
+        """Flush the buffered per-step logs (iterations, forces)."""
+        try:
+            self._flush_iter_log()
+        finally:
+            flush_forces = getattr(self, "_flush_forces", None)
+            if flush_forces is not None:
+                flush_forces()
+
+    def close(self) -> None:
+        self._flush_iter_log()
+        if self._iter_log and not self._iter_log.closed:
+            self._iter_log.close()

@@ -1,0 +1,240 @@
+"""The port's copied host modules against their JAX-package originals
+(float64, 1e-12), and the port's import isolation from jax.
+
+petibm_tpu_torch copies the numpy-only host modules (types, timeintegration,
+config, mesh, ics, ibm/body, utils/timers) because importing any module of
+petibm_tpu imports jax (petibm_tpu/__init__.py).  These tests hold each
+copy equal to its original."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import petibm_tpu.config as jconfig
+import petibm_tpu.ibm.body as jbody
+import petibm_tpu.ics as jics
+import petibm_tpu.mesh as jmesh
+import petibm_tpu.timeintegration as jti
+import petibm_tpu.types as jtypes
+import petibm_tpu_torch.config as tconfig
+import petibm_tpu_torch.ibm.body as tbody
+import petibm_tpu_torch.ics as tics
+import petibm_tpu_torch.mesh as tmesh
+import petibm_tpu_torch.timeintegration as tti
+import petibm_tpu_torch.types as ttypes
+from petibm_tpu_torch.utils.timers import StageTimers
+
+from test_mesh import cavity_config, periodic_config
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PI = 3.141592653589793
+
+
+def cylinder_config(tmpdir=None):
+    """The flagship's 450^2 stretched cylinder mesh (bench.py:43-83)."""
+    axes = [{"direction": d, "start": -15.0, "subDomains": [
+        {"end": -0.6, "cells": 120, "stretchRatio": 0.975},
+        {"end": 0.6, "cells": 120, "stretchRatio": 1.0},
+        {"end": 15.0, "cells": 210, "stretchRatio": 1.02}]}
+        for d in ("x", "y")]
+    cfg = cavity_config(4, 4)
+    cfg["mesh"] = axes
+    cfg["flow"]["initialVelocity"] = [1.0, 0.0]
+    cfg["flow"]["boundaryConditions"] = [
+        {"location": "xMinus", "u": ["DIRICHLET", 1.0], "v": ["DIRICHLET", 0.0]},
+        {"location": "xPlus", "u": ["CONVECTIVE", 1.0], "v": ["CONVECTIVE", 1.0]},
+        {"location": "yMinus", "u": ["DIRICHLET", 1.0], "v": ["DIRICHLET", 0.0]},
+        {"location": "yPlus", "u": ["DIRICHLET", 1.0], "v": ["DIRICHLET", 0.0]}]
+    return cfg
+
+
+def tgv3d_config():
+    """A 3D mesh, periodic in z, stretched in x, with symbolic ICs."""
+    cfg = {
+        "mesh": [
+            {"direction": "x", "start": 0.0, "subDomains": [
+                {"end": 1.0, "cells": 7, "stretchRatio": 1.1},
+                {"end": 2.0, "cells": 5, "stretchRatio": 0.9}]},
+            {"direction": "y", "start": -1.0,
+             "subDomains": [{"end": 1.0, "cells": 6, "stretchRatio": 1.0}]},
+            {"direction": "z", "start": 0.0,
+             "subDomains": [{"end": 2 * PI, "cells": 8, "stretchRatio": 1.0}]},
+        ],
+        "flow": {
+            "nu": 0.02,
+            "initialVelocity": ["sin(x) * cos(z) * exp(-nu * t)",
+                                "x * y + t", "cos(y + z)"],
+            "initialPressure": "x**2 - y * z",
+            "boundaryConditions": [
+                {"location": loc, "u": [bct, 0.0], "v": [bct, 0.0],
+                 "w": [bct, 0.0]}
+                for loc, bct in (("xMinus", "DIRICHLET"),
+                                 ("xPlus", "NEUMANN"),
+                                 ("yMinus", "DIRICHLET"),
+                                 ("yPlus", "DIRICHLET"),
+                                 ("zMinus", "PERIODIC"),
+                                 ("zPlus", "PERIODIC"))],
+        },
+    }
+    return cfg
+
+
+def stretched_cavity():
+    cfg = cavity_config(19, 13)
+    cfg["mesh"][0]["subDomains"][0]["stretchRatio"] = 1.15
+    return cfg
+
+
+MESH_CONFIGS = {
+    "cylinder450": cylinder_config,
+    "cavity": stretched_cavity,
+    "periodic": lambda: periodic_config(10, 7),
+    "3d_zperiodic": tgv3d_config,
+}
+
+
+def _close(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=1e-12,
+                               atol=1e-12 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CONFIGS))
+def test_mesh_copy_matches_original(name):
+    cfg = MESH_CONFIGS[name]()
+    a, b = tmesh.StaggeredMesh(cfg), jmesh.StaggeredMesh(cfg)
+    assert a.dim == b.dim and list(a.periodic) == list(b.periodic)
+    _close(a.min, b.min)
+    _close(a.max, b.max)
+    for d in range(a.dim):
+        _close(a.dxp[d], b.dxp[d])
+    for fa, fb in zip(a.fields, b.fields):
+        assert int(fa) == int(fb)
+        assert a.shape(fa) == b.shape(fb)
+        for la, lb in zip(a.lines[fa], b.lines[fb]):
+            assert la.n == lb.n
+            _close(la.coord, lb.coord)
+            _close(la.dl, lb.dl)
+            _close(la.dneg(), lb.dneg())
+            _close(la.dpos(), lb.dpos())
+    assert a.info() == b.info()
+
+
+def test_stretch_grid_copy_matches_original():
+    for args in ((0.0, 2.0, 10, 1.1), (-15.0, -0.6, 120, 0.975),
+                 (0.6, 15.0, 210, 1.02), (0.0, 1.0, 7, 1.0)):
+        _close(tmesh.stretch_grid(*args), jmesh.stretch_grid(*args))
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CONFIGS))
+def test_ics_copy_matches_original(name):
+    cfg = MESH_CONFIGS[name]()
+    if name == "periodic":
+        cfg["flow"]["initialVelocity"] = ["cos(2*pi*x) * sin(y)", "- x * y"]
+        cfg["flow"]["initialPressure"] = "exp(-x) + t"
+    a = tics.initial_fields(cfg, tmesh.StaggeredMesh(cfg), t=0.3)
+    b = jics.initial_fields(cfg, jmesh.StaggeredMesh(cfg), t=0.3)
+    assert sorted(a) == sorted(b)
+    for key in b:
+        _close(a[key], b[key])
+
+
+def _write_body(path, n, dim=2):
+    rng = np.random.default_rng(7)
+    with open(path, "w") as fh:
+        fh.write(f"{n}\n")
+        for row in rng.uniform(-0.4, 0.4, size=(n, dim)):
+            fh.write("\t".join(f"{v:.10e}" for v in row) + "\n")
+
+
+def test_body_copy_matches_original(tmp_path):
+    cfg = cylinder_config()
+    cfg["directory"] = str(tmp_path)
+    _write_body(tmp_path / "a.body", 37)
+    _write_body(tmp_path / "b.body", 11)
+    cfg["bodies"] = [{"type": "points", "file": "a.body"},
+                     {"type": "points", "file": str(tmp_path / "b.body"),
+                      "name": "second"}]
+    a = tbody.BodyPack(cfg, tmesh.StaggeredMesh(cfg))
+    b = jbody.BodyPack(cfg, jmesh.StaggeredMesh(cfg))
+    assert (a.n_bodies, a.n_pts) == (b.n_bodies, b.n_pts)
+    assert a.slices() == b.slices()
+    assert [x.name for x in a.bodies] == [x.name for x in b.bodies]
+    _close(a.all_coords(), b.all_coords())
+    for ba, bb in zip(a.bodies, b.bodies):
+        np.testing.assert_array_equal(ba.mesh_idx(a.mesh), bb.mesh_idx(b.mesh))
+    f = np.random.default_rng(1).standard_normal((a.n_pts, 2))
+    for fa, fb in zip(a.avg_forces(f), b.avg_forces(f)):
+        _close(fa, fb)
+    tbody.write_lagrangian_points(str(tmp_path / "t.body"), a.all_coords())
+    jbody.write_lagrangian_points(str(tmp_path / "j.body"), b.all_coords())
+    _close(np.loadtxt(tmp_path / "t.body"), np.loadtxt(tmp_path / "j.body"))
+
+
+def test_enums_and_time_integration_copies_match():
+    for name in ("Dir", "Field", "BCType", "BCLoc", "ProbeType"):
+        ta, tb = getattr(ttypes, name), getattr(jtypes, name)
+        assert [(m.name, int(m)) for m in ta] == [(m.name, int(m)) for m in tb]
+    for name in ("STR2DIR", "STR2FIELD", "STR2BCTYPE", "STR2BCLOC"):
+        ma, mb = getattr(ttypes, name), getattr(jtypes, name)
+        assert {k: int(v) for k, v in ma.items()} == {
+            k: int(v) for k, v in mb.items()}
+    assert ttypes.FIELD_NAMES == jtypes.FIELD_NAMES
+    assert {k: (v.name, v.implicit_coeff, v.explicit_coeffs)
+            for k, v in tti.SCHEMES.items()} == {
+        k: (v.name, v.implicit_coeff, v.explicit_coeffs)
+        for k, v in jti.SCHEMES.items()}
+
+
+def test_config_copy_matches_original(tmp_path):
+    (tmp_path / "config").mkdir()
+    (tmp_path / "config" / "p.info").write_text(
+        "-poisson_ksp_type cg\n-poisson_ksp_atol 1.0E-08\n"
+        "-poisson_ksp_rtol 0.0\n-poisson_pc_type gamg\n")
+    (tmp_path / "config" / "amgx.info").write_text(
+        "config_version=2\nsolver(s1)=PCG\ns1:tolerance=1e-6\n"
+        "s1:convergence=RELATIVE_INI_CORE\ns1:max_iters=500\n"
+        "s1:preconditioner(amg)=AMG\namg:max_iters=1\n")
+    (tmp_path / "config.yaml").write_text(
+        "parameters:\n  dt: 0.01\n  poissonSolver:\n    type: CPU\n"
+        "    config: config/p.info\n  velocitySolver:\n    type: GPU\n"
+        "    config: config/amgx.info\n  forcesSolver:\n    atol: 1.0e-7\n"
+        "    dense: false\n")
+    a = tconfig.load_config(directory=str(tmp_path))
+    b = jconfig.load_config(directory=str(tmp_path))
+    assert a == b
+    for role in ("poisson", "velocity", "forces"):
+        assert tconfig.solver_config(a, role) == jconfig.solver_config(b, role)
+
+
+def test_timers_copy():
+    timers = StageTimers()
+    with timers.stage("step"):
+        pass
+    with timers.stage("step"):
+        pass
+    assert timers.count == {"step": 2}
+    assert "step" in timers.report()
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            "import petibm_tpu_torch, petibm_tpu_torch.solvers.decoupledibpm, "
+            "petibm_tpu_torch.cli.decoupledibpm, petibm_tpu_torch.convert, "
+            "petibm_tpu_torch.operators.cuda_stencil\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
