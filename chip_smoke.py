@@ -8,14 +8,26 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
-1. build the hand-written kernels from ``petibm_tpu_torch/csrc``;
+1. build the hand-written kernels K1, K2 and K3 from
+   ``petibm_tpu_torch/csrc``, one nvcc per source, all at once;
 2. hold each kernel against its plain PyTorch twin on the card at the
-   shapes of the main path, and time both;
+   shapes of the main paths, and time both (K1 and K2b both at the
+   sphere's pressure shape);
 3. run the 2D decoupled-IBPM cylinder (Re=200, 450^2 stretched grid,
    157 body points, float32; the ``bench.py`` configuration) through
-   ``DecoupledIBPMSolver.run()`` and check that every kernel of the path
-   was launched, as often as the solver stats say;
-4. A/B the same steps with the kernels on and off (``disablePallas``).
+   ``DecoupledIBPMSolver.run()`` and check that K1 was launched as often
+   as the solver stats say;
+4. A/B the 2D steps with the kernels on and off (``disablePallas``);
+5. run the 3D sphere (Re=300, 160x130x130 stretched grid, the 1963-point
+   body of ``examples/decoupledibpm/sphere3dRe300``, float32) through
+   ``run()``: 50 warm-up and 100 timed steps; K1, K2a and K3 launch
+   counts against the stats; Cd and Cl;
+6. run the 3D Taylor-Green vortex (Re=1600, 256^3 periodic, BiCGStab +
+   Jacobi velocity solve, float32) through ``run()`` for 20 steps; K2a,
+   K2b and K3 launch counts against the stats; the kinetic energy does
+   not grow;
+7. A/B short 3D runs with the kernels on and off, and a small 3D case on
+   the card against the plain-PyTorch CPU path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +43,12 @@ import subprocess
 import sys
 import time
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
+                           "sphere3dRe300", "sphere.body")
+KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d")
+DEVICE = "cuda"
+
 
 def _circle(path: str, n: int) -> str:
     """A body file: n points on the circle of diameter 1 at the origin."""
@@ -43,34 +61,42 @@ def _circle(path: str, n: int) -> str:
     return path
 
 
-def _config(tmp: str, axes: list, nu: float, dt: float, npts: int,
-            **params) -> dict:
-    """A decoupled-IBPM cylinder in a uniform stream, built as a dict (the
-    card need not have pyyaml)."""
+def _solver_opts(max_it: int = 1000, **extra) -> dict:
+    return dict({"type": "CPU", "atol": 1e-6, "rtol": 1e-6,
+                 "max_it": max_it}, **extra)
+
+
+def _base(tmp: str, mesh: list, flow: dict, **params) -> dict:
+    """A configuration dict (the card need not have pyyaml); output goes
+    to ``tmp``."""
     os.makedirs(tmp)
-    faces = {"xMinus": ("DIRICHLET", 1.0, 0.0), "xPlus": ("CONVECTIVE", 1.0, 1.0),
-             "yMinus": ("DIRICHLET", 1.0, 0.0), "yPlus": ("DIRICHLET", 1.0, 0.0)}
-    solver = {"type": "CPU", "atol": 1e-6, "rtol": 1e-6, "max_it": 1000}
     parameters = {
-        "dt": dt, "nt": 10, "nsave": 10 ** 6, "nrestart": 10 ** 6,
+        "nt": 10, "nsave": 10 ** 6, "nrestart": 10 ** 6,
         "dtype": "float32", "divergence": "abort",
         "convection": "ADAMS_BASHFORTH_2", "diffusion": "CRANK_NICOLSON",
-        "velocitySolver": dict(solver), "poissonSolver": dict(solver),
-        "forcesSolver": dict(solver)}
+        "velocitySolver": _solver_opts(), "poissonSolver": _solver_opts(),
+        "forcesSolver": _solver_opts()}
     parameters.update(params)
-    return {
-        "directory": tmp, "output": os.path.join(tmp, "output"),
-        "logs": os.path.join(tmp, "logs"),
-        "mesh": [{"direction": d, "start": axes[0], "subDomains": axes[1]}
-                 for d in ("x", "y")],
-        "flow": {"nu": nu, "initialVelocity": [1.0, 0.0],
+    return {"directory": tmp, "output": os.path.join(tmp, "output"),
+            "logs": os.path.join(tmp, "logs"), "mesh": mesh, "flow": flow,
+            "parameters": parameters}
+
+
+def _config(tmp: str, axes: tuple, nu: float, dt: float, npts: int,
+            **params) -> dict:
+    """A decoupled-IBPM cylinder in a uniform stream."""
+    faces = {"xMinus": ("DIRICHLET", 1.0, 0.0), "xPlus": ("CONVECTIVE", 1.0, 1.0),
+             "yMinus": ("DIRICHLET", 1.0, 0.0), "yPlus": ("DIRICHLET", 1.0, 0.0)}
+    cfg = _base(tmp, [{"direction": d, "start": axes[0],
+                       "subDomains": axes[1]} for d in ("x", "y")],
+                {"nu": nu, "initialVelocity": [1.0, 0.0],
                  "boundaryConditions": [
                      {"location": loc, "u": [t, u], "v": [t, v]}
                      for loc, (t, u, v) in faces.items()]},
-        "parameters": parameters,
-        "bodies": [{"type": "points",
-                    "file": _circle(os.path.join(tmp, "circle.body"), npts)}],
-    }
+                **dict({"dt": dt}, **params))
+    cfg["bodies"] = [{"type": "points",
+                      "file": _circle(os.path.join(tmp, "circle.body"), npts)}]
+    return cfg
 
 
 def flagship_config(tmp: str, **params) -> dict:
@@ -89,6 +115,80 @@ def small_config(tmp: str, **params) -> dict:
     24 body points, Re=40)."""
     sub = [{"end": 2.0, "cells": 32, "stretchRatio": 1.0}]
     return _config(tmp, (-2.0, sub), nu=0.025, dt=0.005, npts=24, **params)
+
+
+def sphere_config(tmp: str, **params) -> dict:
+    """examples/decoupledibpm/sphere3dRe300 as a dict: Re=300 (nu 1/300,
+    D = U = 1) on 160x130x130 cells stretched from a uniform 0.04 patch,
+    dt 0.005, the example's 1963-point body, the example's solver
+    settings (FDM velocity and pressure solves, dense force solve)."""
+    def axis(d, end, n_hi, ratio_hi):
+        return {"direction": d, "start": -15.0, "subDomains": [
+            {"end": -0.6, "cells": 50, "stretchRatio": 0.92},
+            {"end": 0.6, "cells": 30, "stretchRatio": 1.0},
+            {"end": end, "cells": n_hi, "stretchRatio": ratio_hi}]}
+
+    faces = [("xMinus", "DIRICHLET", 0.0), ("xPlus", "CONVECTIVE", 1.0),
+             ("yMinus", "DIRICHLET", 0.0), ("yPlus", "DIRICHLET", 0.0),
+             ("zMinus", "DIRICHLET", 0.0), ("zPlus", "DIRICHLET", 0.0)]
+    cfg = _base(tmp, [axis("x", 25.0, 80, 1.06), axis("y", 15.0, 50, 1.087),
+                      axis("z", 15.0, 50, 1.087)],
+                {"nu": 0.00333333333333, "initialVelocity": [1.0, 0.0, 0.0],
+                 "boundaryConditions": [
+                     {"location": loc, "u": [t, 1.0], "v": [t, vw],
+                      "w": [t, vw]} for loc, t, vw in faces]},
+                **dict({"dt": 0.005, "velocitySolver": _solver_opts(
+                    10000, rtol=0.0, kspType="bicgstab"),
+                    "poissonSolver": _solver_opts(20000, rtol=0.0, pc="mg"),
+                    "forcesSolver": _solver_opts(10000, rtol=0.0)}, **params))
+    cfg["bodies"] = [{"type": "points", "file": SPHERE_BODY}]
+    return cfg
+
+
+def tgv3d_config(tmp: str, n: int = 256, **params) -> dict:
+    """examples/navierstokes/taylorgreenvortex3dRe1600 as a dict: Re=1600
+    (nu 0.000625) on an n^3 periodic box [-pi, pi]^3, dt 0.01, BiCGStab +
+    Jacobi velocity solve (fdm.velocity: false), FDM pressure solve.  The
+    initial fields are set by ``tgv3d_initial_state`` (numpy)."""
+    pi = math.pi
+    return _base(tmp, [{"direction": d, "start": -pi, "subDomains": [
+        {"end": pi, "cells": n, "stretchRatio": 1.0}]} for d in "xyz"],
+        {"nu": 0.000625, "initialVelocity": [0.0, 0.0, 0.0],
+         "boundaryConditions": [
+             {"location": d + side, **{f: ["PERIODIC", 0.0] for f in "uvw"}}
+             for d in "xyz" for side in ("Minus", "Plus")]},
+        **dict({"dt": 0.01, "fdm": {"velocity": False},
+                "velocitySolver": _solver_opts(10000, rtol=0.0,
+                                               kspType="bicgstab"),
+                "poissonSolver": _solver_opts(20000, rtol=0.0, pc="mg")},
+               **params))
+
+
+def tgv3d_initial_state(solver) -> None:
+    """The example's symbolic initial conditions, evaluated with numpy at
+    the staggered points and loaded through convert.state_from_numpy:
+    u = sin x cos y cos z, v = -cos x sin y cos z, w = 0,
+    p = (cos 2x + cos 2y)(cos 2z + 2)/16."""
+    import numpy as np
+
+    from petibm_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from petibm_tpu_torch.types import Field
+
+    def grid(field):
+        z, y, x = np.meshgrid(*(solver.mesh.coord(field, d)
+                                for d in (2, 1, 0)), indexing="ij")
+        return x, y, z
+
+    x, y, z = grid(Field.U)
+    u = np.sin(x) * np.cos(y) * np.cos(z)
+    x, y, z = grid(Field.V)
+    v = -np.cos(x) * np.sin(y) * np.cos(z)
+    x, y, z = grid(Field.P)
+    p = (np.cos(2 * x) + np.cos(2 * y)) * (np.cos(2 * z) + 2) / 16
+    state = state_to_numpy(solver.state)
+    state["q"] = {"u": u, "v": v, "w": np.zeros(solver.mesh.shape(Field.W))}
+    state["p"] = p
+    solver.state = state_from_numpy(state, solver.device, solver.dtype)
 
 
 def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
@@ -143,96 +243,215 @@ def phase0_device() -> dict:
 
 
 def phase1_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from petibm_tpu_torch import _kernels
 
-    path, seconds = _kernels.build("poisson_separable")
-    print(f"built {path.name} in {seconds:.2f} s"
-          + (" (already built)" if seconds == 0.0 else ""))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(_kernels.build, KERNEL_SOURCES))
+    for (path, seconds) in built:
+        print(f"built {path.name} in {seconds:.2f} s"
+              + (" (already built)" if seconds == 0.0 else ""))
+    print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
 
 
-def _flagship_level(dtype):
-    """Level-0 Poisson factors of the 450^2 flagship grid."""
-    import tempfile
-
-    import torch
-
-    from petibm_tpu_torch.linalg.mg import poisson_level0
+def _mesh_and_bcs(cfg: dict):
+    from petibm_tpu_torch.boundary import BoundarySet
     from petibm_tpu_torch.mesh import StaggeredMesh
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = flagship_config(os.path.join(tmp, "case"))
-        mesh = StaggeredMesh(cfg)
-    return poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
-                          device=torch.device("cuda"),
-                          scale=cfg["parameters"]["dt"])
-
-
-def phase2_kernels() -> dict:
-    """K1 against its plain twin on the card; returns the flagship (450^2
-    f32) record."""
-    import numpy as np
-    import torch
-
-    from petibm_tpu_torch.linalg.mg import poisson_level0
-    from petibm_tpu_torch.operators.cuda_stencil import (
-        poisson_apply_separable, poisson_apply_separable_ref)
-
-    cuda = torch.device("cuda")
-    widths3 = [np.geomspace(1.0, 1.7, n) * 0.02 for n in (96, 80, 64)]
-    cases = [("450x450", torch.float32, _flagship_level(torch.float32), 1e-6),
-             ("450x450", torch.float64, _flagship_level(torch.float64), 1e-13),
-             ("96x80x64", torch.float32,
-              poisson_level0(widths3, [False] * 3, dtype=torch.float32,
-                             device=cuda, scale=0.0025), 1e-6),
-             ("96x80x64", torch.float64,
-              poisson_level0(widths3, [False] * 3, dtype=torch.float64,
-                             device=cuda, scale=0.0025), 1e-13)]
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    record = None
-    for name, dtype, level, tol in cases:
-        phi = torch.randn(level.shape, generator=gen, device=cuda, dtype=dtype)
-        got = poisson_apply_separable(phi, level)
-        want = poisson_apply_separable_ref(phi, level)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        ms, host_ms = _time_ms(
-            lambda x: poisson_apply_separable(x, level), phi)
-        plain_ms, plain_host_ms = _time_ms(
-            lambda x: poisson_apply_separable_ref(x, level), phi)
-        print(f"K1 {name} {str(dtype)[6:]}: max|kernel-twin| {err:.3e} "
-              f"(rel {rel:.3e}, tol {tol:g}); per apply (median), device: "
-              f"kernel {ms * 1e3:.2f} us, twin {plain_ms * 1e3:.2f} us; "
-              f"host wall: kernel {host_ms * 1e3:.2f} us, "
-              f"twin {plain_host_ms * 1e3:.2f} us")
-        if not rel <= tol:
-            raise AssertionError(f"K1 {name} {dtype}: rel error {rel} > {tol}")
-        if record is None:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return record
+    mesh = StaggeredMesh(cfg)
+    return mesh, BoundarySet(mesh, cfg)
 
 
 def _rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
-def phase3_slice(tmp: str):
-    """The 450^2 flagship through run(); returns (solver, K1 launches)."""
+def _hold(label: str, kernel, twin, arg, tol: float, applies: int = 200):
+    """One kernel against its twin on ``arg``: relative error within
+    ``tol``, then both timed; returns the record of the JSON line."""
     import torch
 
-    from petibm_tpu_torch.operators.cuda_stencil import poisson_apply_separable
+    got, want = kernel(arg), twin(arg)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    ms, host_ms = _time_ms(kernel, arg, applies)
+    plain_ms, plain_host_ms = _time_ms(twin, arg, applies)
+    print(f"{label}: max|kernel-twin| {err:.3e} (rel {rel:.3e}, tol {tol:g}); "
+          f"per apply (median), device: kernel {ms * 1e3:.2f} us, twin "
+          f"{plain_ms * 1e3:.2f} us; host wall: kernel {host_ms * 1e3:.2f} "
+          f"us, twin {plain_host_ms * 1e3:.2f} us")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: rel error {rel} > {tol}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase2_kernels(tmp: str) -> dict:
+    """Every kernel against its plain twin on the card at the main paths'
+    shapes (float32 timed, float64 checked and timed briefly); returns the
+    record of each kernel for the JSON line."""
+    import torch
+
+    from petibm_tpu_torch.linalg.mg import poisson_level0
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    cuda = torch.device(DEVICE)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tols = {torch.float32: 1e-6, torch.float64: 1e-13}
+    records = {}
+    cases = {"450x450": flagship_config(os.path.join(tmp, "k_flagship")),
+             "sphere": sphere_config(os.path.join(tmp, "k_sphere")),
+             "tgv256": tgv3d_config(os.path.join(tmp, "k_tgv"))}
+    meshes = {name: _mesh_and_bcs(cfg) for name, cfg in cases.items()}
+
+    def randn(shape, dtype):
+        return torch.randn(tuple(shape), generator=gen, device=cuda,
+                           dtype=dtype)
+
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        applies = 200 if dtype == torch.float32 else 40
+        tol = tols[dtype]
+        # K1: the flagship's and the sphere's pressure
+        for name in ("450x450", "sphere"):
+            mesh = meshes[name][0]
+            level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
+                                   device=cuda,
+                                   scale=cases[name]["parameters"]["dt"])
+            phi = randn(level.shape, dtype)
+            rec = _hold(f"K1 {name} p {tuple(level.shape)} {tag}",
+                        lambda x: cs.poisson_apply_separable(x, level),
+                        lambda x: cs.poisson_apply_separable_ref(x, level),
+                        phi, tol, applies)
+            if name == "sphere":
+                if dtype == torch.float32:
+                    records["K1"] = rec
+                # K2b at the same shape: the same operator
+                k2b = cs.make_cuda_poisson_zblocked(level)
+                _hold(f"K2b sphere p {tuple(level.shape)} {tag}", k2b,
+                      lambda x: cs.zblocked_helmholtz_apply_ref(
+                          x, k2b.vecs, k2b.periodic, k2b.scale),
+                      phi, tol, applies)
+                rel = _rel_err(k2b(phi), cs.poisson_apply_separable(phi, level))
+                print(f"K2b vs K1, sphere p {tag}: rel diff {rel:.3e}")
+                if not rel <= 100 * tol:
+                    raise AssertionError(f"K2b and K1 differ: {rel}")
+        # K2a: the sphere's three velocity components, one TGV component
+        for name, comps in (("sphere", "uvw"), ("tgv256", "u")):
+            mesh, bcs = meshes[name]
+            params = cases[name]["parameters"]
+            A = cs.make_cuda_momentum(mesh, bcs, params["dt"],
+                                      0.5 * cases[name]["flow"]["nu"],
+                                      dtype=dtype, device=cuda)
+            for comp in comps:
+                vecs = A.vecs[comp]
+                f = randn(mesh.shape("uvw".index(comp)), dtype)
+                rec = _hold(f"K2a {name} {comp} {tuple(f.shape)} {tag}",
+                            lambda x: cs.zblocked_helmholtz_apply(
+                                x, vecs, A.periodic),
+                            lambda x: cs.zblocked_helmholtz_apply_ref(
+                                x, vecs, A.periodic), f, tol, applies)
+                if (name, comp, dtype) == ("sphere", "u", torch.float32):
+                    records["K2a"] = rec
+        # K2b: the TGV's periodic pressure
+        mesh = meshes["tgv256"][0]
+        level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
+                               device=cuda,
+                               scale=cases["tgv256"]["parameters"]["dt"])
+        k2b = cs.make_cuda_poisson_zblocked(level)
+        rec = _hold(f"K2b tgv256 p {tuple(level.shape)} periodic {tag}", k2b,
+                    lambda x: cs.zblocked_helmholtz_apply_ref(
+                        x, k2b.vecs, k2b.periodic, k2b.scale),
+                    randn(level.shape, dtype), tol, applies)
+        if dtype == torch.float32:
+            records["K2b"] = rec
+        # K3: every component of the sphere and of the TGV
+        for name in ("sphere", "tgv256"):
+            mesh, bcs = meshes[name]
+            conv = cs.make_cuda_convection(mesh, bcs, dtype=dtype, device=cuda)
+            q = {k: randn(mesh.shape(c), dtype) for c, k in enumerate("uvw")}
+            state = bcs.init_state(q)
+            ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
+            for c, comp in enumerate("uvw"):
+                iv = conv.inv_dl[c]
+                rec = _hold(
+                    f"K3 {name} {comp} {tuple(q[comp].shape)} {tag}",
+                    lambda e: cs.convection3d_apply(e, c, iv),
+                    lambda e: cs.convection3d_apply_ref(e, c, iv), ext, tol,
+                    applies)
+                if (name, comp, dtype) == ("sphere", "u", torch.float32):
+                    records["K3"] = rec
+    return records
+
+
+def _reset_counts() -> None:
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    cs.poisson_apply_separable.launches = 0
+    cs.zblocked_helmholtz_apply.launches = 0
+    cs.zblocked_helmholtz_apply.scaled_launches = 0
+    cs.convection3d_apply.launches = 0
+
+
+def _counts() -> dict:
+    """Launches since the last reset: K1, K2a (unscaled K2), K2b (scaled
+    K2) and K3."""
+    import torch
+
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    torch.cuda.synchronize()
+    k2 = cs.zblocked_helmholtz_apply
+    return {"K1": cs.poisson_apply_separable.launches,
+            "K2a": k2.launches - k2.scaled_launches,
+            "K2b": k2.scaled_launches,
+            "K3": cs.convection3d_apply.launches}
+
+
+def _check_counts(label: str, got: dict, want: dict) -> None:
+    print(f"{label} launches {got}, implied by the stats {want}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != implied {want}")
+
+
+def _check_run(hist: list, nsteps: int, keys: str) -> None:
+    if len(hist) != nsteps:
+        raise AssertionError(f"ran {len(hist)} steps, expected {nsteps}")
+    bad = [s["ite"] for s in hist
+           if not all(s[f"{k}_ok"] for k in keys)]
+    if bad:
+        raise AssertionError(f"solver not converged at steps {bad[:10]}")
+
+
+def _check_fields(fields: dict, shapes: dict) -> None:
+    import torch
+
+    for name, arr in fields.items():
+        if tuple(arr.shape) != tuple(shapes[name]):
+            raise AssertionError(f"{name} shape {tuple(arr.shape)} != "
+                                 f"{tuple(shapes[name])}")
+        if not bool(torch.isfinite(arr).all()):
+            raise AssertionError(f"{name} has non-finite values")
+
+
+def phase3_slice(tmp: str):
+    """The 450^2 flagship through run(); returns (solver, launches)."""
+    import torch
+
     from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
 
     t0 = time.perf_counter()
     solver = DecoupledIBPMSolver(flagship_config(os.path.join(tmp, "run"),
-                                                 nt=100), device="cuda")
+                                                 nt=100), device=DEVICE)
     torch.cuda.synchronize()
     print(f"setup {time.perf_counter() - t0:.2f} s: {solver.mesh.info()}"
           .replace("\n", "; "))
     print(f"bodies: {solver.bodies.n_pts} points; dtype {solver.dtype}")
 
     # the main path: steps 1-100, then 101-300 timed (the run extended)
-    poisson_apply_separable.launches = 0
+    _reset_counts()
     solver.run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -240,35 +459,21 @@ def phase3_slice(tmp: str):
     solver.run()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = poisson_apply_separable.launches
+    launches = _counts()
     solver.close()
 
     hist = solver.stats_history
-    if len(hist) != 300:
-        raise AssertionError(f"ran {len(hist)} steps, expected 300")
-    bad = [s["ite"] for s in hist
-           if not (s["v_ok"] and s["p_ok"] and s["f_ok"])]
-    if bad:
-        raise AssertionError(f"solver not converged at steps {bad[:10]}")
-    expected = sum(2 + s["p_iters"] for s in hist)
-    print(f"K1 launches {launches}, sum(2 + p_iters) {expected}")
-    if launches != expected:
-        raise AssertionError(f"K1 launched {launches} times, the pressure "
-                             f"solves evaluated {expected} residuals")
+    _check_run(hist, 300, "vpf")
+    _check_counts("flagship", launches,
+                  {"K1": sum(2 + s["p_iters"] for s in hist),
+                   "K2a": 0, "K2b": 0, "K3": 0})
     st = solver.state
-    fields = {"u": st["q"]["u"], "v": st["q"]["v"], "p": st["p"],
-              "f": st["f"]}
     nx, ny = (sum(sub["cells"] for sub in ax["subDomains"])
               for ax in solver.config["mesh"])
-    with open(solver.config["bodies"][0]["file"]) as fh:
-        npts = int(fh.readline())
-    shapes = {"u": (ny, nx - 1), "v": (ny - 1, nx), "p": (ny, nx),
-              "f": (npts, 2)}
-    for name, arr in fields.items():
-        if tuple(arr.shape) != shapes[name]:
-            raise AssertionError(f"{name} shape {tuple(arr.shape)}")
-        if not bool(torch.isfinite(arr).all()):
-            raise AssertionError(f"{name} has non-finite values")
+    _check_fields({"u": st["q"]["u"], "v": st["q"]["v"], "p": st["p"],
+                   "f": st["f"]},
+                  {"u": (ny, nx - 1), "v": (ny - 1, nx), "p": (ny, nx),
+                   "f": (solver.bodies.n_pts, 2)})
     fx, fy = solver.bodies.avg_forces(st["f"].cpu().numpy())[0]
     last = hist[-1]
     print(f"{elapsed / 200 * 1e3:.3f} ms/step over steps 101-300 "
@@ -278,62 +483,225 @@ def phase3_slice(tmp: str):
     return solver, launches
 
 
-def phase4_ab(tmp: str, solver) -> None:
-    """20 steps from the developed state with K1 and with the stencil
-    closure (disablePallas); then a small case on the card against the
-    plain-PyTorch CPU path."""
-    from petibm_tpu_torch.convert import state_from_numpy, state_to_numpy
-    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+def _ab(label: str, make, start, nsteps: int, fields_of,
+        f32_tol: float = 1e-5) -> None:
+    """``nsteps`` steps from the state ``start`` with the kernels on and
+    off (disablePallas), in float64 and float32.  In float64 every field
+    must agree to 1e-5; in float32 the pressure is only determined to the
+    solve's tolerance (its low modes amplify the two operators' different
+    roundings of the residual by the condition number), so float32 holds
+    the other fields to ``f32_tol`` and reports p."""
+    from petibm_tpu_torch.convert import state_from_numpy
 
-    # In float64 every field must agree.  In float32 the pressure is only
-    # determined to the solve's tolerance: its low modes amplify the
-    # operators' different roundings of the residual by the condition
-    # number, so float32 holds the velocity and the forces and reports p.
-    start = state_to_numpy(solver.state)
-    for dtype, checked in (("float64", "uvpf"), ("float32", "uvf")):
+    for dtype in ("float64", "float32"):
         runs = {}
-        for name, disable in (("K1", False), ("stencil", True)):
-            s = DecoupledIBPMSolver(flagship_config(
-                os.path.join(tmp, f"ab_{dtype}_{name}"), nt=20, dtype=dtype,
-                disablePallas=disable), device="cuda")
-            s.state = state_from_numpy(start, "cuda", s.dtype)
+        for name, disable in (("kernels", False), ("stencil", True)):
+            s = make(f"ab_{label}_{dtype}_{name}", nt=nsteps, dtype=dtype,
+                     disablePallas=disable)
+            s.state = state_from_numpy(start, DEVICE, s.dtype)
             s.run()
             s.close()
             runs[name] = s
-            print(f"{dtype} {name}: v/p/f iters " + " ".join(
-                f"{h['v_iters']}/{h['p_iters']}/{h['f_iters']}"
-                for h in s.stats_history))
-        a, b = runs["K1"].state, runs["stencil"].state
-        for key, x, y in (("u", a["q"]["u"], b["q"]["u"]),
-                          ("v", a["q"]["v"], b["q"]["v"]),
-                          ("p", a["p"], b["p"]), ("f", a["f"], b["f"])):
-            rel = _rel_err(x, y)
-            held = key in checked
-            print(f"A/B {dtype} {key}: max rel diff {rel:.3e}"
-                  + (" (tol 1e-5)" if held else " (reported)"))
-            if held and not rel <= 1e-5:
+            print(f"{label} {dtype} {name}: v/p(/f) iters " + " ".join(
+                "/".join(str(h[k]) for k in ("v_iters", "p_iters", "f_iters")
+                         if k in h) for h in s.stats_history))
+        a, b = fields_of(runs["kernels"]), fields_of(runs["stencil"])
+        tol = 1e-5 if dtype == "float64" else f32_tol
+        for key in a:
+            rel = _rel_err(a[key], b[key])
+            held = dtype == "float64" or key != "p"
+            print(f"A/B {label} {dtype} {key}: max rel diff {rel:.3e}"
+                  + (f" (tol {tol:g})" if held else " (reported)"))
+            if held and not rel <= tol:
                 raise AssertionError(
-                    f"K1 / stencil A/B differ in {key} ({dtype}): {rel}")
+                    f"{label} kernel / stencil A/B differ in {key} ({dtype}): "
+                    f"{rel}")
 
-    # small input: the CUDA path against the plain-PyTorch CPU path, f64
-    small = {}
-    for dev in ("cuda", "cpu"):
-        cfg = small_config(os.path.join(tmp, f"small_{dev}"), nt=20,
-                           dtype="float64")
-        s = DecoupledIBPMSolver(cfg, device=dev)
+
+def _ibm_fields(solver) -> dict:
+    return dict(solver.state["q"], p=solver.state["p"], f=solver.state["f"])
+
+
+def phase4_ab(tmp: str, solver) -> None:
+    """20 steps from the developed flagship state with K1 and with the
+    stencil closure (disablePallas); then a small case on the card against
+    the plain-PyTorch CPU path."""
+    from petibm_tpu_torch.convert import state_to_numpy
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+
+    def make(name, **params):
+        return DecoupledIBPMSolver(flagship_config(os.path.join(tmp, name),
+                                                   **params), device=DEVICE)
+
+    _ab("450x450", make, state_to_numpy(solver.state), 20, _ibm_fields)
+    _cuda_vs_cpu("32^2", lambda dev, tag: DecoupledIBPMSolver(small_config(
+        os.path.join(tmp, f"small_{tag}"), nt=20, dtype="float64"),
+        device=dev), ("p", "f"))
+
+
+def _cuda_vs_cpu(label: str, make, keys) -> None:
+    """A small float64 case on the card (kernels) and on the CPU (twins):
+    the fields agree to 1e-9, iteration counts and ok flags are equal."""
+    runs = {}
+    for tag, dev in (("card", DEVICE), ("cpu", "cpu")):
+        s = make(dev, tag)
         s.run()
         s.close()
-        small[dev] = s
-    for key in ("p", "f"):
-        rel = _rel_err(small["cuda"].state[key].cpu(), small["cpu"].state[key])
-        print(f"32^2 f64 cuda vs cpu {key}: max rel diff {rel:.3e} (tol 1e-9)")
+        runs[tag] = s
+    for key in keys:
+        rel = _rel_err(runs["card"].state[key].cpu(), runs["cpu"].state[key])
+        print(f"{label} f64 cuda vs cpu {key}: max rel diff {rel:.3e} "
+              "(tol 1e-9)")
         if not rel <= 1e-9:
             raise AssertionError(f"cuda and cpu paths differ in {key}: {rel}")
     streams = {dev: [{k: v for k, v in h.items()
                       if k.endswith(("_iters", "_ok"))}
-                     for h in s.stats_history] for dev, s in small.items()}
-    if streams["cuda"] != streams["cpu"]:
+                     for h in s.stats_history] for dev, s in runs.items()}
+    if streams["card"] != streams["cpu"]:
         raise AssertionError("cuda and cpu iteration counts or ok flags differ")
+
+
+def phase5_sphere(tmp: str):
+    """The full-size sphere through run(): steps 1-50 warm up, 51-150
+    timed; returns (solver, launches)."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+
+    t0 = time.perf_counter()
+    solver = DecoupledIBPMSolver(sphere_config(os.path.join(tmp, "sphere"),
+                                               nt=50), device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"sphere setup {time.perf_counter() - t0:.2f} s: "
+          f"{solver.mesh.info()}".replace("\n", "; "))
+    print(f"bodies: {solver.bodies.n_pts} points; dtype {solver.dtype}")
+
+    _reset_counts()
+    solver.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.nt = 150
+    solver.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    solver.close()
+
+    hist = solver.stats_history
+    _check_run(hist, 150, "vpf")
+    _check_counts("sphere", launches, {
+        "K1": sum(2 + s["p_iters"] for s in hist),
+        # make_fdm_solver applies A twice, then once per refinement pass
+        "K2a": sum(3 * (2 + s["v_iters"]) for s in hist),
+        "K2b": 0, "K3": 3 * len(hist)})
+    st = solver.state
+    nx, ny, nz = (sum(sub["cells"] for sub in ax["subDomains"])
+                  for ax in solver.config["mesh"])
+    _check_fields(dict(st["q"], p=st["p"], f=st["f"]),
+                  {"u": (nz, ny, nx - 1), "v": (nz, ny - 1, nx),
+                   "w": (nz - 1, ny, nx), "p": (nz, ny, nx),
+                   "f": (solver.bodies.n_pts, 3)})
+    fx, fy, fz = solver.bodies.avg_forces(st["f"].cpu().numpy())[0]
+    area = np.pi / 4  # frontal area of the unit-diameter sphere
+    last = hist[-1]
+    print(f"sphere {elapsed / 100 * 1e3:.3f} ms/step over steps 51-150 "
+          f"(synchronised); last step v/p/f iters {last['v_iters']}/"
+          f"{last['p_iters']}/{last['f_iters']}; t = {solver.t:.4f}: "
+          f"Cd {2 * fx / area:.5f}, Cl {2 * math.hypot(fy, fz) / area:.5f}")
+    return solver, launches
+
+
+def _energy(q: dict) -> float:
+    """Volume-averaged kinetic energy on the uniform periodic box."""
+    return 0.5 * sum(float(a.double().pow(2).mean()) for a in q.values())
+
+
+def phase6_tgv(tmp: str):
+    """The 256^3 TGV through run(): 20 steps in chunks of 5 after the
+    first, the energy read between chunks; returns (solver, launches)."""
+    import torch
+
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    t0 = time.perf_counter()
+    solver = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "tgv"), nt=1),
+                                device=DEVICE)
+    tgv3d_initial_state(solver)
+    torch.cuda.synchronize()
+    print(f"tgv setup {time.perf_counter() - t0:.2f} s: {solver.mesh.info()}"
+          .replace("\n", "; "))
+    energies = [_energy(solver.state["q"])]
+    _reset_counts()
+    solver.run()
+    energies.append(_energy(solver.state["q"]))
+    elapsed = 0.0
+    for nt in (5, 10, 15, 20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.nt = nt
+        solver.run()
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        energies.append(_energy(solver.state["q"]))
+    launches = _counts()
+    solver.close()
+
+    hist = solver.stats_history
+    _check_run(hist, 20, "vp")
+    _check_counts("tgv256", launches, {
+        "K1": 0,
+        # BiCGStab applies A once, then twice per iteration
+        "K2a": sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
+        "K2b": sum(2 + s["p_iters"] for s in hist),
+        "K3": 3 * len(hist)})
+    st = solver.state
+    n = solver.mesh.shape(0)
+    _check_fields(dict(st["q"], p=st["p"]),
+                  {"u": n, "v": n, "w": n, "p": n})
+    print("tgv256 kinetic energy after steps 0, 1, 5, 10, 15, 20: "
+          + ", ".join(f"{e:.8f}" for e in energies))
+    if any(b > a for a, b in zip(energies, energies[1:])):
+        raise AssertionError(f"kinetic energy grew: {energies}")
+    last = hist[-1]
+    print(f"tgv256 {elapsed / 19 * 1e3:.3f} ms/step over steps 2-20 "
+          f"(synchronised); last step v/p iters {last['v_iters']}/"
+          f"{last['p_iters']}; t = {solver.t:.4f}")
+    return solver, launches
+
+
+def phase7_ab3d(tmp: str, sphere, tgv) -> None:
+    """10 sphere steps and 5 TGV steps from the developed states with the
+    kernels on and off, in float64 and float32; then a 16^3 TGV on the
+    card against the plain-PyTorch CPU path."""
+    from petibm_tpu_torch.convert import state_to_numpy
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    def make_sphere(name, **params):
+        return DecoupledIBPMSolver(sphere_config(os.path.join(tmp, name),
+                                                 **params), device=DEVICE)
+
+    def make_tgv(name, **params):
+        return NavierStokesSolver(tgv3d_config(os.path.join(tmp, name),
+                                               **params), device=DEVICE)
+
+    # float32 at 1e-4, the CPU tests' float32 tolerance: the sphere's force
+    # blocks (1963 points, condition ~450) lift the velocity's rounding
+    # differences (~2e-6) to ~1e-5 in the forces
+    _ab("sphere", make_sphere, state_to_numpy(sphere.state), 10, _ibm_fields,
+        f32_tol=1e-4)
+    _ab("tgv256", make_tgv, state_to_numpy(tgv.state), 5,
+        lambda s: dict(s.state["q"], p=s.state["p"]), f32_tol=1e-4)
+
+    def small(dev, tag):
+        s = NavierStokesSolver(tgv3d_config(os.path.join(tmp, f"tgv16_{tag}"),
+                                            n=16, nt=10, dt=0.05,
+                                            dtype="float64"), device=dev)
+        tgv3d_initial_state(s)
+        return s
+
+    _cuda_vs_cpu("tgv 16^3", small, ("p",))
 
 
 def main() -> int:
@@ -341,15 +709,28 @@ def main() -> int:
 
     device = phase0_device()
     phase1_build()
-    k1 = phase2_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        solver, launches = phase3_slice(tmp)
-        phase4_ab(tmp, solver)
+        records = phase2_kernels(tmp)
+        flagship, counts_2d = phase3_slice(tmp)
+        phase4_ab(tmp, flagship)
+        sphere, counts_sphere = phase5_sphere(tmp)
+        tgv, counts_tgv = phase6_tgv(tmp)
+        phase7_ab3d(tmp, sphere, tgv)
+    # each main path's launches, counted from 0 just before it ran
+    launches = {key: counts_2d[key] + counts_sphere[key] + counts_tgv[key]
+                for key in counts_2d}
+    source = "petibm_tpu_torch/csrc/"
+    replaces = "petibm_tpu/operators/pallas_stencil.py:"
+    table = [("K1", "poisson_apply_separable", "poisson_separable.cu", 117),
+             ("K2a", "zblocked_helmholtz_apply (momentum)",
+              "zblocked_helmholtz.cu", 318),
+             ("K2b", "zblocked_helmholtz_apply (periodic Poisson)",
+              "zblocked_helmholtz.cu", 388),
+             ("K3", "convection3d_apply", "convection3d.cu", 473)]
     print(json.dumps({"kernels": [dict(
-        name="poisson_apply_separable", route="cuda",
-        source="petibm_tpu_torch/csrc/poisson_separable.cu",
-        replaces="petibm_tpu/operators/pallas_stencil.py:117",
-        launches=launches, **k1)]}))
+        name=f"{key} {name}", route="cuda", source=source + src,
+        replaces=f"{replaces}{line}", launches=launches[key], **records[key])
+        for key, name, src, line in table]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,0 +1,30 @@
+"""petibm-navierstokes on PyTorch (counterpart of
+``petibm_tpu/cli/navierstokes.py``; reference:
+applications/navierstokes/main.cpp:45-78).
+
+    python -m petibm_tpu_torch.cli.navierstokes -directory <case>
+"""
+
+from __future__ import annotations
+
+import sys
+
+from ..solvers.navierstokes import NavierStokesSolver
+from .common import config_from_args, make_parser
+
+
+def main(argv=None) -> int:
+    args = make_parser(
+        "Navier-Stokes projection solver, PyTorch/CUDA port").parse_args(argv)
+    config = config_from_args(args)
+    solver = NavierStokesSolver(config)
+    print(solver.mesh.info())
+    print(f"device: {solver.device}, dtype: {solver.dtype}")
+    solver.run(progress=True)
+    solver.close()
+    print(solver.timers.report())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

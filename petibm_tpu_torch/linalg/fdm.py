@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..types import Field
-from .krylov import SolveResult, _norm, tmap
+from .krylov import SolveResult, _norm, host_scalars, tmap
 from .mg import face_coefficients
 
 
@@ -210,19 +210,17 @@ def make_fdm_solver(fdm, A, opts: dict):
         dx = fdm.solve(r)
         x = tmap(lambda xi, di: xi + di, x0, dx)
         r = tmap(lambda ri, adi: ri - adi, r, A(dx))
-        rnorm = _norm(r)
-        tol = torch.clamp(rtol * _norm(b), min=atol)
         # one host read for both; the loop compares in the working dtype
         # (numpy scalars of it), as the JAX while_loop does
-        np_dtype = {torch.float32: np.float32,
-                    torch.float64: np.float64}[rnorm.dtype]
-        tol, rn = (np_dtype(v) for v in torch.stack([tol, rnorm]).tolist())
+        tol, rn = host_scalars(torch.clamp(rtol * _norm(b), min=atol),
+                               _norm(r))
+        np_dtype = type(rn)
         prev, it = np_dtype(np.inf), 0
         while rn > tol and rn < np_dtype(0.9) * prev and it < maxiter:
             dx = fdm.solve(r)
             x = tmap(lambda xi, di: xi + di, x, dx)
             r = tmap(lambda ri, adi: ri - adi, r, A(dx))
-            prev, rn, it = rn, np_dtype(_norm(r).item()), it + 1
+            prev, rn, it = rn, host_scalars(_norm(r))[0], it + 1
         return SolveResult(x=x, iters=it, residual=float(rn),
                            converged=bool(rn <= tol))
 

@@ -1,28 +1,78 @@
 """Hand-written CUDA kernels for the hot stencil operations.
 
-Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  This slice
-carries K1, the separable pressure Poisson apply (the residual operator of
-the pressure refinement loop); the 3D kernels K2a, K2b and K3 come with
-the 3D slice.
+Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  Three kernels:
 
-``poisson_apply_separable(phi, level)`` launches the kernel of
-``csrc/poisson_separable.cu`` on a CUDA tensor and calls the plain PyTorch
-twin ``poisson_apply_separable_ref`` on a CPU tensor; it never falls back
-from one to the other on failure.
+- K1 ``poisson_apply_separable`` (``csrc/poisson_separable.cu``): the
+  separable apply of the negated pressure operator -D B1 G on non-periodic
+  2D/3D grids, the residual operator of the pressure refinement loop;
+- K2 ``zblocked_helmholtz_apply`` (``csrc/zblocked_helmholtz.cu``): the 3D
+  7-point apply with per-axis 1D coefficients and periodic wrap, used as
+  K2a, the implicit momentum operator (``make_cuda_momentum``), and as K2b,
+  the scaled conservative Poisson apply of 3D grids with a periodic axis
+  (``make_cuda_poisson_zblocked``);
+- K3 ``convection3d_apply`` (``csrc/convection3d.cu``): the 3D
+  divergence-form convection of one velocity component from the three
+  ghost-extended velocity arrays (``make_cuda_convection``).
+
+Each wrapper launches its kernel on a CUDA tensor (one more in its
+``launches`` counter) and calls its plain PyTorch twin (``*_ref``) on a
+CPU tensor; it never falls back from one to the other on failure.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _kernels
 from ..linalg.mg import Level
+from ..types import Field
+from .stencil import VEL_NAMES
 
-_KERNEL = "poisson_separable"
-_C_FUNCS = {torch.float32: "poisson_apply_separable_f32",
-            torch.float64: "poisson_apply_separable_f64"}
+_TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _c_function(kernel: str, entry: str, dtype: torch.dtype, argtypes: list):
+    """The C entry point ``<entry>_<f32|f64>`` of ``csrc/<kernel>.cu`` with
+    its ctypes signature set (pointers and the stream as c_void_p, so none
+    is cut to 32 bits)."""
+    fn = getattr(_kernels.library(kernel), f"{entry}_{_TYPE_SUFFIX[dtype]}")
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_launchable(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} takes contiguous fields")
+
+
+def _check_vectors(name: str, like: torch.Tensor, vecs) -> None:
+    for vec in vecs:
+        if vec.device != like.device or vec.dtype != like.dtype:
+            raise ValueError(f"{name} coefficients must share the field's "
+                             f"device and dtype ({like.device}, {like.dtype})")
+        if vec.ndim != 1 or not vec.is_contiguous():
+            raise ValueError(f"{name} coefficients must be contiguous 1D "
+                             "tensors")
+
+
+def _check_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in _TYPE_SUFFIX:
+        raise TypeError(f"{name} takes float32 or float64, got {t.dtype}")
 
 
 def _shift(phi: torch.Tensor, axis: int, step: int) -> torch.Tensor:
@@ -34,6 +84,9 @@ def _shift(phi: torch.Tensor, axis: int, step: int) -> torch.Tensor:
         return torch.cat([zero, phi.narrow(axis, 0, n - 1)], dim=axis)
     return torch.cat([phi.narrow(axis, 1, n - 1), zero], dim=axis)
 
+
+# ----------------------------------------------------------------------
+# K1: separable Poisson apply (non-periodic)
 
 def poisson_apply_separable_ref(phi: torch.Tensor, level: Level) -> torch.Tensor:
     """Plain PyTorch twin of K1: sum_d area_d * (a_d*phi - c_lo_d*phi[i-1]
@@ -60,18 +113,7 @@ def poisson_apply_separable_ref(phi: torch.Tensor, level: Level) -> torch.Tensor
     return out
 
 
-def _c_function(dtype: torch.dtype):
-    """The C entry point for ``dtype`` with its ctypes signature set
-    (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
-    fn = getattr(_kernels.library(_KERNEL), _C_FUNCS[dtype])
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
-    return fn
-
-
-def _check(phi: torch.Tensor, level: Level) -> None:
+def _check_k1(phi: torch.Tensor, level: Level) -> None:
     if phi.ndim not in (2, 3) or phi.ndim != len(level.shape):
         raise ValueError(f"K1 takes a 2D or 3D field matching the level, got "
                          f"shape {tuple(phi.shape)} for level {level.shape}")
@@ -80,14 +122,8 @@ def _check(phi: torch.Tensor, level: Level) -> None:
                          f"{tuple(level.shape)}")
     if any(level.periodic):
         raise ValueError("K1 applies non-periodic grids only")
-    if phi.dtype not in _C_FUNCS:
-        raise TypeError(f"K1 takes float32 or float64, got {phi.dtype}")
-    for vec in (*level.c1d, *level.w1d):
-        if vec.device != phi.device or vec.dtype != phi.dtype:
-            raise ValueError("K1 factors must share the field's device and "
-                             f"dtype ({phi.device}, {phi.dtype})")
-        if not vec.is_contiguous():
-            raise ValueError("K1 factors must be contiguous")
+    _check_dtype("K1", phi)
+    _check_vectors("K1", phi, (*level.c1d, *level.w1d))
 
 
 def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
@@ -97,26 +133,22 @@ def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
     ``poisson_apply_separable.launches``); a CPU ``phi`` runs the plain
     twin.  Raises on shapes, dtypes or devices the kernel does not take,
     and when the launch reports an error."""
-    _check(phi, level)
+    _check_k1(phi, level)
     if phi.device.type == "cpu":
         return poisson_apply_separable_ref(phi, level)
-    if phi.device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, got {phi.device}")
-    if not phi.is_contiguous():
-        raise ValueError("K1 takes a contiguous field")
-    fn = _c_function(phi.dtype)
+    _check_launchable("K1", phi)
+    fn = _c_function("poisson_separable", "poisson_apply_separable",
+                     phi.dtype, [ctypes.c_void_p] * 8
+                     + [ctypes.c_longlong] * 3 + [ctypes.c_int,
+                                                  ctypes.c_void_p])
     out = torch.empty_like(phi)
     shape = (1,) * (3 - phi.ndim) + tuple(phi.shape)
     c = list(level.c1d) + [None] * (3 - phi.ndim)
     w = list(level.w1d) + [None] * (3 - phi.ndim)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(phi.device):
-        stream = torch.cuda.current_stream(phi.device).cuda_stream
-        err = fn(ptr(phi), ptr(out), ptr(c[0]), ptr(w[0]), ptr(c[1]),
-                 ptr(w[1]), ptr(c[2]), ptr(w[2]), *shape, phi.ndim, stream)
+        err = fn(_ptr(phi), _ptr(out), _ptr(c[0]), _ptr(w[0]), _ptr(c[1]),
+                 _ptr(w[1]), _ptr(c[2]), _ptr(w[2]), *shape, phi.ndim,
+                 _stream(phi.device))
     if err != 0:
         raise RuntimeError(f"K1 launch failed with CUDA error {err}")
     poisson_apply_separable.launches += 1
@@ -137,3 +169,319 @@ def make_cuda_poisson(level: Level):
         return poisson_apply_separable(phi, level)
 
     return apply_k1
+
+
+# ----------------------------------------------------------------------
+# K2: 3D 7-point apply with per-axis 1D coefficients
+
+#: the coefficient vectors of K2, per array axis z, y, x
+ZBLOCKED_KEYS = ("Dz", "CNz", "CPz", "Dy", "CNy", "CPy", "Dx", "CNx", "CPx")
+
+
+def _axis_vec(vec: torch.Tensor, axis: int) -> torch.Tensor:
+    shape = [1, 1, 1]
+    shape[axis] = vec.shape[0]
+    return vec.reshape(shape)
+
+
+def zblocked_helmholtz_apply_ref(f: torch.Tensor, vecs: dict, periodic,
+                                 scale=None) -> torch.Tensor:
+    """Plain PyTorch twin of K2: ``torch.roll`` on periodic axes, zero fill
+    past walls, in the kernel's order of operations."""
+    def nbrs(axis):
+        if periodic[axis]:
+            return torch.roll(f, 1, axis), torch.roll(f, -1, axis)
+        return _shift(f, axis, 1), _shift(f, axis, -1)
+
+    v = {k: _axis_vec(vecs[k], "zyx".index(k[-1])) for k in ZBLOCKED_KEYS}
+    lo_z, hi_z = nbrs(0)
+    lo_y, hi_y = nbrs(1)
+    lo_x, hi_x = nbrs(2)
+    out = (f * (v["Dz"] + v["Dy"] + v["Dx"])
+           + v["CNz"] * lo_z + v["CPz"] * hi_z
+           + v["CNy"] * lo_y + v["CPy"] * hi_y
+           + v["CNx"] * lo_x + v["CPx"] * hi_x)
+    if scale is not None:
+        sz, sy, sx = scale
+        out = out * (_axis_vec(sz, 0) * _axis_vec(sy, 1) * _axis_vec(sx, 2))
+    return out
+
+
+def _check_k2(f: torch.Tensor, vecs: dict, periodic, scale) -> None:
+    if f.ndim != 3:
+        raise ValueError(f"K2 takes a 3D field, got shape {tuple(f.shape)}")
+    _check_dtype("K2", f)
+    if len(periodic) != 3:
+        raise ValueError("K2 takes one periodic flag per axis (z, y, x)")
+    vectors = [vecs[k] for k in ZBLOCKED_KEYS]
+    if scale is not None:
+        if len(scale) != 3:
+            raise ValueError("K2's scale is three vectors (Sz, Sy, Sx)")
+        vectors += list(scale)
+    _check_vectors("K2", f, vectors)
+    lengths = {k: f.shape["zyx".index(k[-1])] for k in ZBLOCKED_KEYS}
+    for key in ZBLOCKED_KEYS:
+        if vecs[key].shape[0] != lengths[key]:
+            raise ValueError(f"K2 vector {key} has {vecs[key].shape[0]} "
+                             f"entries for an axis of {lengths[key]}")
+    if scale is not None and tuple(s.shape[0] for s in scale) != tuple(f.shape):
+        raise ValueError("K2's scale vectors must match the field's axes")
+
+
+def zblocked_helmholtz_apply(f: torch.Tensor, vecs: dict, periodic,
+                             scale=None) -> torch.Tensor:
+    """K2: out = f*(Dz+Dy+Dx) + CNz*f[k-1] + CPz*f[k+1] + ... + CPx*f[i+1],
+    times Sz*Sy*Sx when ``scale`` is given.
+
+    ``vecs`` maps ``ZBLOCKED_KEYS`` to 1D tensors along their axis;
+    ``periodic`` = (pz, py, px).  A CUDA ``f`` launches the kernel on the
+    current stream (one more in ``zblocked_helmholtz_apply.launches``, and
+    in ``.scaled_launches`` when scaled: the K2b use); a CPU ``f`` runs the
+    plain twin.  Raises on what the kernel does not take and when the
+    launch reports an error."""
+    _check_k2(f, vecs, periodic, scale)
+    if f.device.type == "cpu":
+        return zblocked_helmholtz_apply_ref(f, vecs, periodic, scale)
+    _check_launchable("K2", f)
+    fn = _c_function("zblocked_helmholtz", "zblocked_helmholtz", f.dtype,
+                     [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = torch.empty_like(f)
+    s = (None, None, None) if scale is None else scale
+    with torch.cuda.device(f.device):
+        err = fn(_ptr(f), _ptr(out), *(_ptr(vecs[k]) for k in ZBLOCKED_KEYS),
+                 *(_ptr(t) for t in s), *f.shape,
+                 *(int(bool(p)) for p in periodic), _stream(f.device))
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    zblocked_helmholtz_apply.launches += 1
+    if scale is not None:
+        zblocked_helmholtz_apply.scaled_launches += 1
+    return out
+
+
+zblocked_helmholtz_apply.launches = 0
+zblocked_helmholtz_apply.scaled_launches = 0
+
+
+def _as_vectors(vecs: dict, dtype, device) -> dict:
+    return {k: torch.as_tensor(np.asarray(vecs[k], np.float64), dtype=dtype,
+                               device=device) for k in ZBLOCKED_KEYS}
+
+
+def _momentum_vectors(mesh, bcset, dt: float, cnu: float, c: int) -> dict:
+    """K2a's float64 coefficient vectors of velocity component ``c`` for
+    A u = u/dt - cnu * L u, built as ``make_pallas_momentum`` builds them
+    (pallas_stencil.py:352-372): at a wall the ghost's a0 is folded into D
+    and CN[0] = CP[n-1] = 0; 1/dt goes into Dz only."""
+    vecs = {}
+    for d in range(3):
+        tag = "xyz"[d]
+        line = mesh.lines[Field(c)][d]
+        cn = 1.0 / (np.asarray(line.dneg()) * np.asarray(line.interior_dl))
+        cp = 1.0 / (np.asarray(line.dpos()) * np.asarray(line.interior_dl))
+        fold = np.zeros_like(cn)
+        CN, CP = cn.copy(), cp.copy()
+        if not mesh.periodic[d]:
+            fold[0] = bcset.specs[(c, 2 * d + 0)].a0 * cn[0]
+            fold[-1] += bcset.specs[(c, 2 * d + 1)].a0 * cp[-1]
+            CN[0] = 0.0
+            CP[-1] = 0.0
+        ldiag = -(cn + cp) + fold
+        vecs["D" + tag] = -cnu * ldiag
+        vecs["CN" + tag] = -cnu * CN
+        vecs["CP" + tag] = -cnu * CP
+    vecs["Dz"] = vecs["Dz"] + 1.0 / dt
+    return vecs
+
+
+def make_cuda_momentum(mesh, bcset, dt: float, cnu: float, *,
+                       dtype: torch.dtype, device):
+    """K2a: the implicit momentum operator A u = u/dt - cnu*L u of every
+    velocity component as one K2 apply each; a dict -> dict closure
+    matching ``NavierStokesSolver.A_momentum``, or None in 2D (the JAX
+    package has no 2D kernel for it).  The closure carries ``vecs`` (per
+    component) and ``periodic`` for callers that drive K2 directly."""
+    if mesh.dim != 3:
+        return None
+    periodic = (bool(mesh.periodic[2]), bool(mesh.periodic[1]),
+                bool(mesh.periodic[0]))
+    vecs = {VEL_NAMES[c]: _as_vectors(_momentum_vectors(mesh, bcset, dt,
+                                                        cnu, c),
+                                      dtype, device)
+            for c in range(3)}
+
+    def A_momentum(u):
+        return {name: zblocked_helmholtz_apply(u[name], vecs[name], periodic)
+                for name in vecs}
+
+    A_momentum.vecs = vecs
+    A_momentum.periodic = periodic
+    return A_momentum
+
+
+def _poisson_zblocked_vectors(level: Level) -> tuple[dict, tuple]:
+    """K2b's float64 vectors and scale for a 3D level, built as
+    ``make_pallas_poisson_zblocked`` builds them (pallas_stencil.py:406-430):
+    D_d = (c[:-1]+c[1:])/w, CN_d = -c[:-1]/w, CP_d = -c[1:]/w, scale
+    (w_z, w_y, w_x); the wrap coefficients of periodic axes sit in CN[0]
+    and CP[n-1], walls have c = 0 there."""
+    vecs, scale = {}, [None, None, None]
+    for d in range(3):
+        c = level.c1d[d].detach().cpu().numpy().astype(np.float64)
+        w = level.w1d[d].detach().cpu().numpy().astype(np.float64)
+        tag = "xyz"[d]
+        vecs["D" + tag] = (c[:-1] + c[1:]) / w
+        vecs["CN" + tag] = -c[:-1] / w
+        vecs["CP" + tag] = -c[1:] / w
+        scale[2 - d] = w
+    return vecs, tuple(scale)
+
+
+def make_cuda_poisson_zblocked(level: Level):
+    """K2b: the scaled 3D conservative Poisson apply (equal to -D B1 G for
+    BN order 1), periodic wrap included; None for a 2D level.  The apply
+    carries ``vecs``, ``periodic`` and ``scale``."""
+    if len(level.shape) != 3:
+        return None
+    dtype, device = level.c1d[0].dtype, level.c1d[0].device
+    vecs64, scale64 = _poisson_zblocked_vectors(level)
+    vecs = _as_vectors(vecs64, dtype, device)
+    scale = tuple(torch.as_tensor(s, dtype=dtype, device=device)
+                  for s in scale64)
+    periodic = (bool(level.periodic[2]), bool(level.periodic[1]),
+                bool(level.periodic[0]))
+
+    def apply_k2b(phi):
+        return zblocked_helmholtz_apply(phi, vecs, periodic, scale)
+
+    apply_k2b.vecs = vecs
+    apply_k2b.periodic = periodic
+    apply_k2b.scale = scale
+    return apply_k2b
+
+
+# ----------------------------------------------------------------------
+# K3: 3D divergence-form convection, one component per launch
+
+def _window(ext: torch.Tensor, shape, offsets: dict) -> torch.Tensor:
+    """ext[1 + o_z + k, 1 + o_y + j, 1 + o_x + i] over ``shape``;
+    ``offsets`` are keyed by direction (array axis 2 - d)."""
+    return ext[tuple(slice(1 + offsets.get(2 - ax, 0),
+                           1 + offsets.get(2 - ax, 0) + shape[ax])
+                     for ax in range(3))]
+
+
+def convection3d_apply_ref(ext, c: int, inv_dl) -> torch.Tensor:
+    """Plain PyTorch twin of K3: N(u)_c from the three extended velocity
+    arrays ``ext`` and component c's 1D ``inv_dl`` = (1/dx, 1/dy, 1/dz),
+    in the kernel's order of operations (equal to
+    ``operators/convection.py``'s closure)."""
+    shape = tuple(s - 2 for s in ext[c].shape)
+    total = None
+    for d in range(3):
+        iv = _axis_vec(inv_dl[d], 2 - d)
+        um = _window(ext[c], shape, {d: -1})
+        u0 = _window(ext[c], shape, {})
+        up = _window(ext[c], shape, {d: 1})
+        if d == c:
+            fW = 0.5 * (um + u0)
+            fE = 0.5 * (u0 + up)
+            term = (fE * fE - fW * fW) * iv
+        else:
+            aM = 0.5 * (um + u0)
+            aP = 0.5 * (u0 + up)
+            advM = 0.5 * (_window(ext[d], shape, {d: -1, c: 0})
+                          + _window(ext[d], shape, {d: -1, c: 1}))
+            advP = 0.5 * (_window(ext[d], shape, {d: 0, c: 0})
+                          + _window(ext[d], shape, {d: 0, c: 1}))
+            term = (advP * aP - advM * aM) * iv
+        total = term if total is None else total + term
+    return total
+
+
+def _check_k3(ext, c: int, inv_dl) -> tuple:
+    if len(ext) != 3 or any(e.ndim != 3 for e in ext):
+        raise ValueError("K3 takes three 3D extended velocity arrays")
+    if c not in (0, 1, 2):
+        raise ValueError(f"K3 computes component 0, 1 or 2, got {c}")
+    _check_dtype("K3", ext[c])
+    for e in ext:
+        if e.device != ext[c].device or e.dtype != ext[c].dtype:
+            raise ValueError("K3's extended arrays must share device and "
+                             "dtype")
+    shape = tuple(s - 2 for s in ext[c].shape)
+    if min(shape) < 1:
+        raise ValueError(f"extended array {tuple(ext[c].shape)} has no "
+                         "interior")
+    for d in range(3):
+        if d == c:
+            continue
+        # component d is read at offsets -1, 0 along d, 0, +1 along c and
+        # 0 along the third direction: extended index 1 + offset + k
+        need = [s + 1 for s in shape]
+        need[2 - c] += 1
+        if any(e < n for e, n in zip(ext[d].shape, need)):
+            raise ValueError(f"extended array {d} of shape "
+                             f"{tuple(ext[d].shape)} is too small for "
+                             f"component {c} of shape {shape}")
+    _check_vectors("K3", ext[c], inv_dl)
+    if tuple(v.shape[0] for v in inv_dl) != shape[::-1]:
+        raise ValueError("K3's inv_dl vectors must match the component's "
+                         "x, y and z extents")
+    return shape
+
+
+def convection3d_apply(ext, c: int, inv_dl) -> torch.Tensor:
+    """K3: N(u)_c from the three ghost-extended velocity arrays ``ext``
+    (each its component's shape plus 2 on every axis) and component c's
+    ``inv_dl`` = (1/dx, 1/dy, 1/dz) as 1D tensors.
+
+    CUDA arrays launch the kernel on the current stream (one more in
+    ``convection3d_apply.launches``); CPU arrays run the plain twin.
+    Raises on what the kernel does not take and when the launch reports
+    an error."""
+    shape = _check_k3(ext, c, inv_dl)
+    if ext[c].device.type == "cpu":
+        return convection3d_apply_ref(ext, c, inv_dl)
+    for e in ext:
+        _check_launchable("K3", e)
+    fn = _c_function("convection3d", "convection3d", ext[c].dtype,
+                     [ctypes.c_void_p] * 3
+                     + [ctypes.POINTER(ctypes.c_longlong)]
+                     + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                     + [ctypes.c_int, ctypes.c_void_p])
+    out = torch.empty(shape, dtype=ext[c].dtype, device=ext[c].device)
+    ext_shape = (ctypes.c_longlong * 9)(*(n for e in ext for n in e.shape))
+    device = ext[c].device
+    with torch.cuda.device(device):
+        err = fn(*(_ptr(e) for e in ext), ext_shape, _ptr(out),
+                 *(_ptr(v) for v in inv_dl), *shape, c, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed with CUDA error {err}")
+    convection3d_apply.launches += 1
+    return out
+
+
+convection3d_apply.launches = 0
+
+
+def make_cuda_convection(mesh, bcset, *, dtype: torch.dtype, device):
+    """K3: ``convection(q, bcstate)`` matching ``make_convection`` in 3D
+    (None in 2D).  ``BoundarySet.extend`` fills the ghosts outside the
+    kernel, as in the JAX package; then one K3 launch per component.  The
+    closure carries ``inv_dl`` (per component)."""
+    if mesh.dim != 3:
+        return None
+    inv_dl = [tuple(torch.as_tensor(1.0 / np.asarray(mesh.dl(Field(c), d),
+                                                     np.float64),
+                                    dtype=dtype, device=device)
+                    for d in range(3)) for c in range(3)]
+
+    def convection(q: dict, bcstate: dict) -> dict:
+        ext = [bcset.extend(q[VEL_NAMES[e]], e, bcstate) for e in range(3)]
+        return {VEL_NAMES[c]: convection3d_apply(ext, c, inv_dl[c])
+                for c in range(3)}
+
+    convection.inv_dl = inv_dl
+    return convection

@@ -184,14 +184,9 @@ def test_d_cli_logs_match(tmp_path, capsys):
 
 UNSUPPORTED = {
     "bn2": ({"BN": 2}, "ROADMAP item 15"),
-    "fdm_off": ({"fdm": False}, "ROADMAP items 5"),
+    "fdm_off": ({"fdm": False}, "ROADMAP item 15"),
     "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
-    "fdm_pcg": ({"fdm": {"mode": "pcg"}}, "ROADMAP item 5"),
-    "velocity_krylov": ({"velocitySolver": {"type": "CPU", "pc": "jacobi"}},
-                        "ROADMAP item 5"),
     "pinned_pressure": ({"poissonSolver": {"type": "GPU"}}, "ROADMAP item 13"),
-    "poisson_krylov": ({"poissonSolver": {"type": "CPU", "pc": "jacobi"}},
-                       "ROADMAP item 5"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
     "restart": ({"startStep": 10}, "ROADMAP item 16"),
     "windowed": ({"deltaEngine": "windowed"}, "ROADMAP item 18"),
@@ -217,6 +212,34 @@ def test_unsupported_configs_raise(tmp_path, name):
         TorchSolver(cfg, device="cpu")
 
 
+KRYLOV_CONFIGS = {
+    # CG + Jacobi momentum solve (an explicit velocity pc)
+    "velocity_krylov": {"velocitySolver": {"type": "CPU", "pc": "jacobi"}},
+    # CG + Jacobi pressure solve on the stencil closure
+    "poisson_krylov": {"poissonSolver": {"type": "CPU", "pc": "jacobi"}},
+    # CG preconditioned by the FDM pseudo-inverse, K1 as its operator
+    "fdm_pcg": {"fdm": {"mode": "pcg"}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(KRYLOV_CONFIGS))
+def test_krylov_configs_match_jax(tmp_path, name):
+    """The Krylov solve options: 5 steps equal the JAX package's in
+    float64, fields to 1e-9 and every stat."""
+    params = KRYLOV_CONFIGS[name]
+    jsolver = JaxSolver(config(tmp_path, "jax", **params))
+    state, stats = run_jax(jsolver, jsolver.state, 5)
+    jsolver.close()
+    port = TorchSolver(config(tmp_path, "port", **params), device="cpu")
+    port_stats = run_port(port, 5)
+    port.close()
+    assert port_stats == stats
+    which = "p" if name != "velocity_krylov" else "v"
+    assert any(s[f"{which}_iters"] > 0 for s in stats)  # Krylov iterates
+    assert_fields_close(fields(port.state), fields(jax.device_get(state)),
+                        1e-9)
+
+
 def cavity3d_config(tmp_path, name, **params):
     d = tmp_path / name
     cfg = {
@@ -239,14 +262,12 @@ def cavity3d_config(tmp_path, name, **params):
 
 
 def test_navierstokes_3d_stencil_path_matches_jax(tmp_path):
-    """3D runs only on the stencil closures until slice 2 brings K2a, K2b
-    and K3: with kernels on it refuses, with disablePallas it equals the
-    JAX package's disablePallas run."""
+    """3D with the hand kernels on runs K3 and K2a (their twins on the
+    CPU) and equals the JAX package's stencil-closure (disablePallas) run;
+    so does the port's own disablePallas run."""
     from petibm_tpu.solvers.navierstokes import NavierStokesSolver as JaxNS
     from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        NavierStokesSolver(cavity3d_config(tmp_path, "k"), device="cpu")
     keys = ("v_iters", "v_ok", "p_iters", "p_ok")
     jsolver = JaxNS(cavity3d_config(tmp_path, "jax", disablePallas=True))
     state, stats = jsolver.state, []
@@ -254,17 +275,21 @@ def test_navierstokes_3d_stencil_path_matches_jax(tmp_path):
         state, s = jsolver._step_fn(state)
         stats.append(host_stats(s, keys))
     jsolver.close()
-    port = NavierStokesSolver(
-        cavity3d_config(tmp_path, "port", disablePallas=True), device="cpu")
-    port.run()
-    port.close()
-    assert [{k: h[k] for k in keys} for h in port.stats_history] == stats
     want = jax.device_get(state)
-    for key in ("u", "v", "w"):
-        assert_fields_close({key: port.state["q"][key].numpy()},
-                            {key: want["q"][key]}, 1e-9)
-    assert_fields_close({"p": port.state["p"].numpy()}, {"p": want["p"]},
-                        1e-9)
+    for name, disable in (("kernels", False), ("stencil", True)):
+        port = NavierStokesSolver(
+            cavity3d_config(tmp_path, name, disablePallas=disable),
+            device="cpu")
+        assert hasattr(port.convect, "inv_dl") != disable  # K3
+        assert hasattr(port.A_momentum, "vecs") != disable  # K2a
+        port.run()
+        port.close()
+        assert [{k: h[k] for k in keys} for h in port.stats_history] == stats
+        for key in ("u", "v", "w"):
+            assert_fields_close({key: port.state["q"][key].numpy()},
+                                {key: want["q"][key]}, 1e-9)
+        assert_fields_close({"p": port.state["p"].numpy()},
+                            {"p": want["p"]}, 1e-9)
 
 
 def test_divergence_policy_and_logs(tmp_path):

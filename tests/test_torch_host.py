@@ -228,7 +228,11 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import petibm_tpu_torch, petibm_tpu_torch.solvers.decoupledibpm, "
             "petibm_tpu_torch.cli.decoupledibpm, petibm_tpu_torch.convert, "
-            "petibm_tpu_torch.operators.cuda_stencil\n"
+            "petibm_tpu_torch.operators.cuda_stencil, "
+            "petibm_tpu_torch.solvers.navierstokes, "
+            "petibm_tpu_torch.cli.navierstokes, "
+            "petibm_tpu_torch.linalg.krylov, "
+            "petibm_tpu_torch.linalg.probe_diag\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
             "assert not bad, bad\n"
