@@ -27,10 +27,22 @@ Phases, in order (any failure raises and the script exits non-zero):
    K2b and K3 launch counts against the stats; the kinetic energy does
    not grow;
 7. A/B short 3D runs with the kernels on and off, and a small 3D case on
-   the card against the plain-PyTorch CPU path.
+   the card against the plain-PyTorch CPU path;
+8. run the three cells again with ``fdm: false``, the multigrid-
+   preconditioned CG pressure solve (the smoother's sweeps K4/K5 on
+   non-periodic levels, K6/K7 on periodic ones): the flagship (20 warm-up
+   and 100 timed steps), the sphere (20 steps) and the 256^3 TGV (10
+   steps, the energy does not grow), each through ``run()`` with every
+   launch count checked against the stats and its device busy share
+   profiled over a few more steps;
+9. A/B the three MG-CG paths with the kernels on and off from their
+   developed states, and small MG-CG cases on the card against the CPU
+   path.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Phase 2 also holds K4/K5 (the flagship's and the sphere's finest level,
+every line direction) and K6/K7 (the TGV's 256^3 and 64^3 levels, every
+axis) against their twins.  The line before the last is the per-kernel
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
                            "sphere3dRe300", "sphere.body")
-KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d")
+KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
+                  "line_sweep", "tridiag_pcr")
 DEVICE = "cuda"
 
 
@@ -294,7 +307,8 @@ def phase2_kernels(tmp: str) -> dict:
     record of each kernel for the JSON line."""
     import torch
 
-    from petibm_tpu_torch.linalg.mg import poisson_level0
+    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
+    from petibm_tpu_torch.linalg.mg import PoissonMG, poisson_level0
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
     cuda = torch.device(DEVICE)
@@ -383,23 +397,65 @@ def phase2_kernels(tmp: str) -> dict:
                     applies)
                 if (name, comp, dtype) == ("sphere", "u", torch.float32):
                     records["K3"] = rec
+        # K4/K5: the fused sweep on the finest level of the flagship and of
+        # the sphere, every line direction
+        for name in ("450x450", "sphere"):
+            mesh = meshes[name][0]
+            mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=dtype, device=cuda,
+                           scale=cases[name]["parameters"]["dt"])
+            shape = tuple(mg.levels[0].shape)
+            pair = (randn(shape, dtype), randn(shape, dtype))
+            for d in range(mesh.dim):
+                axis, aux = mesh.dim - 1 - d, mg._aux(0, d)
+                rec = _hold(
+                    f"K4/K5 {name} level 0 {shape} direction {d} {tag}",
+                    lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis,
+                                                     1.0),
+                    lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux,
+                                                         axis, 1.0),
+                    pair, tol, applies)
+                if (name, d, dtype) == ("sphere", 0, torch.float32):
+                    records["K4/K5"] = rec
+        # K6/K7: the TGV's line systems at 256^3 (level 0) and 64^3
+        # (level 2), every axis
+        mesh = meshes["tgv256"][0]
+        mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=dtype, device=cuda,
+                       scale=cases["tgv256"]["parameters"]["dt"])
+        for lvl in (0, 2):
+            shape = tuple(mg.levels[lvl].shape)
+            rhs = randn(shape, dtype)
+            for d in range(3):
+                axis = 2 - d
+                dl, diag, du = mg._line_system(lvl, d)
+                rec = _hold(
+                    f"K6/K7 tgv256 level {lvl} {shape} axis {axis} {tag}",
+                    lambda x: cuda_pcr.pcr(dl, diag, du, x, axis),
+                    lambda x: cuda_pcr.pcr_ref(dl, diag, du, x, axis), rhs,
+                    tol, applies if lvl else applies // 2)
+                if (lvl, axis, dtype) == (0, 0, torch.float32):
+                    records["K6/K7"] = rec
+        del mg, dl, diag, du
     return records
 
 
 def _reset_counts() -> None:
+    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
     cs.poisson_apply_separable.launches = 0
     cs.zblocked_helmholtz_apply.launches = 0
     cs.zblocked_helmholtz_apply.scaled_launches = 0
     cs.convection3d_apply.launches = 0
+    cuda_sweep.fused_sweep.launches = 0
+    cuda_pcr.pcr.launches = 0
 
 
 def _counts() -> dict:
     """Launches since the last reset: K1, K2a (unscaled K2), K2b (scaled
-    K2) and K3."""
+    K2), K3, K4/K5 and K6/K7."""
     import torch
 
+    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
     torch.cuda.synchronize()
@@ -407,10 +463,15 @@ def _counts() -> dict:
     return {"K1": cs.poisson_apply_separable.launches,
             "K2a": k2.launches - k2.scaled_launches,
             "K2b": k2.scaled_launches,
-            "K3": cs.convection3d_apply.launches}
+            "K3": cs.convection3d_apply.launches,
+            "K4/K5": cuda_sweep.fused_sweep.launches,
+            "K6/K7": cuda_pcr.pcr.launches}
 
 
 def _check_counts(label: str, got: dict, want: dict) -> None:
+    """``want`` names the kernels the path launches; the others must not
+    have launched."""
+    want = {key: want.get(key, 0) for key in got}
     print(f"{label} launches {got}, implied by the stats {want}")
     if got != want:
         raise AssertionError(f"{label}: launches {got} != implied {want}")
@@ -484,13 +545,16 @@ def phase3_slice(tmp: str):
 
 
 def _ab(label: str, make, start, nsteps: int, fields_of,
-        f32_tol: float = 1e-5) -> None:
+        f32_tol: float = 1e-5, f64_tol: float = 1e-5,
+        same_iters: bool = False) -> None:
     """``nsteps`` steps from the state ``start`` with the kernels on and
     off (disablePallas), in float64 and float32.  In float64 every field
-    must agree to 1e-5; in float32 the pressure is only determined to the
-    solve's tolerance (its low modes amplify the two operators' different
-    roundings of the residual by the condition number), so float32 holds
-    the other fields to ``f32_tol`` and reports p."""
+    must agree to ``f64_tol`` (p to no less than 1e-8), and with
+    ``same_iters`` every iteration count must be equal; in float32 the
+    pressure is only determined to the solve's tolerance (its low modes
+    amplify the two operators' different roundings of the residual by the
+    condition number), so float32 holds the other fields to ``f32_tol``
+    and reports p."""
     from petibm_tpu_torch.convert import state_from_numpy
 
     for dtype in ("float64", "float32"):
@@ -506,10 +570,18 @@ def _ab(label: str, make, start, nsteps: int, fields_of,
                 "/".join(str(h[k]) for k in ("v_iters", "p_iters", "f_iters")
                          if k in h) for h in s.stats_history))
         a, b = fields_of(runs["kernels"]), fields_of(runs["stencil"])
-        tol = 1e-5 if dtype == "float64" else f32_tol
+        if same_iters and dtype == "float64":
+            iters = [[{k: v for k, v in h.items() if k.endswith("_iters")}
+                      for h in runs[name].stats_history] for name in runs]
+            if iters[0] != iters[1]:
+                raise AssertionError(f"{label} kernel / stencil A/B "
+                                     f"iteration counts differ: {iters}")
         for key in a:
             rel = _rel_err(a[key], b[key])
             held = dtype == "float64" or key != "p"
+            tol = f32_tol
+            if dtype == "float64":
+                tol = f64_tol if key != "p" else max(f64_tol, 1e-8)
             print(f"A/B {label} {dtype} {key}: max rel diff {rel:.3e}"
                   + (f" (tol {tol:g})" if held else " (reported)"))
             if held and not rel <= tol:
@@ -704,33 +776,234 @@ def phase7_ab3d(tmp: str, sphere, tgv) -> None:
     _cuda_vs_cpu("tgv 16^3", small, ("p",))
 
 
+def _busy_share(solver, steps: int = 5) -> tuple:
+    """Device busy share over ``steps`` more steps, with the wall and
+    device ms per step (torch.profiler; only the device-side events count:
+    the operators that launch them carry the same time again)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solver.nt += steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / wall_us, wall_us / steps / 1e3, busy_us / steps / 1e3
+
+
+def _mg_counts(solver) -> dict:
+    """The launches of the MG-CG pressure solve the stats imply: one
+    V-cycle per CG iteration and one more, each of sweeps_per_vcycle()
+    line sweeps (K4/K5 on a non-periodic grid, K6/K7 on a periodic one),
+    and the level-0 operator (K1 or K2b) twice per V-cycle (the CG
+    operator, A(x0) and one per iteration, and the V-cycle's residual)."""
+    hist = solver.stats_history
+    vcycles = sum(1 + s["p_iters"] for s in hist)
+    sweeps = solver.poisson_mg.sweeps_per_vcycle() * vcycles
+    if any(solver.mesh.periodic):
+        return {"K6/K7": sweeps, "K2b": 2 * vcycles}
+    return {"K4/K5": sweeps, "K1": 2 * vcycles}
+
+
+def _report_mg(label: str, solver, elapsed: float, nsteps: int,
+               extra: str = "") -> None:
+    hist = solver.stats_history
+    p_iters = [s["p_iters"] for s in hist]
+    busy, wall_ms, device_ms = _busy_share(solver)
+    print(f"{label} {elapsed / nsteps * 1e3:.3f} ms/step over the last "
+          f"{nsteps} steps (synchronised); p_iters mean "
+          f"{statistics.mean(p_iters):.2f}, last {p_iters[-1]}, max "
+          f"{max(p_iters)}; {len(solver.poisson_mg.levels)} MG levels, "
+          f"{solver.poisson_mg.sweeps_per_vcycle()} sweeps per V-cycle"
+          + extra)
+    print(f"{label} profile of 5 more steps: {wall_ms:.3f} ms/step wall, "
+          f"{device_ms:.3f} ms/step device, busy share {busy:.4f}")
+
+
+def _timed_run(solver, warm: int, total: int) -> float:
+    """run() to ``warm`` steps, then on to ``total`` timed; the seconds of
+    the timed part."""
+    import torch
+
+    solver.nt = warm
+    solver.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.nt = total
+    solver.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase8_mg(tmp: str) -> tuple:
+    """The three cells with ``fdm: false`` through run(): the flagship (20
+    warm-up + 100 timed steps), the sphere (5 + 15), the 256^3 TGV (10 in
+    chunks, the energy read between them); every launch count against the
+    stats.  Returns the three solvers and the launches of each run."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    counts = []
+    # the 450^2 flagship: K4/K5 on every level, K1
+    flag = DecoupledIBPMSolver(flagship_config(os.path.join(tmp, "mg_flag"),
+                                               fdm=False), device=DEVICE)
+    _reset_counts()
+    elapsed = _timed_run(flag, 20, 120)
+    counts.append(_counts())
+    _check_run(flag.stats_history, 120, "vpf")
+    _check_counts("flagship mg", counts[-1], _mg_counts(flag))
+    st = flag.state
+    _check_fields({"p": st["p"], "f": st["f"]},
+                  {"p": flag.mesh.shape(3), "f": (flag.bodies.n_pts, 2)})
+    fx, fy = flag.bodies.avg_forces(st["f"].cpu().numpy())[0]
+    _report_mg("flagship mg", flag, elapsed, 100,
+               f"; t = {flag.t:.4f}: Cd {2 * fx:.5f}, Cl {2 * fy:.5f}")
+
+    # the sphere: 3D K4/K5, K1, BiCGStab on K2a, K3
+    sph = DecoupledIBPMSolver(sphere_config(os.path.join(tmp, "mg_sphere"),
+                                            fdm=False), device=DEVICE)
+    _reset_counts()
+    elapsed = _timed_run(sph, 5, 20)
+    counts.append(_counts())
+    _check_run(sph.stats_history, 20, "vpf")
+    hist = sph.stats_history
+    _check_counts("sphere mg", counts[-1], dict(
+        _mg_counts(sph), K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
+        K3=3 * len(hist)))
+    st = sph.state
+    _check_fields(dict(st["q"], p=st["p"]),
+                  {k: sph.mesh.shape(f) for f, k in enumerate("uvwp")})
+    fx, fy, fz = sph.bodies.avg_forces(st["f"].cpu().numpy())[0]
+    _report_mg("sphere mg", sph, elapsed, 15,
+               f"; t = {sph.t:.4f}: Cd {2 * fx / (np.pi / 4):.5f}")
+
+    # the 256^3 TGV: K6/K7 on every level, K2b, BiCGStab on K2a, K3
+    tgv = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "mg_tgv"), nt=1,
+                                          fdm=False), device=DEVICE)
+    tgv3d_initial_state(tgv)
+    energies = [_energy(tgv.state["q"])]
+    _reset_counts()
+    tgv.run()
+    energies.append(_energy(tgv.state["q"]))
+    elapsed = 0.0
+    for nt in (4, 7, 10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tgv.nt = nt
+        tgv.run()
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        energies.append(_energy(tgv.state["q"]))
+    counts.append(_counts())
+    hist = tgv.stats_history
+    _check_run(hist, 10, "vp")
+    _check_counts("tgv256 mg", counts[-1], dict(
+        _mg_counts(tgv), K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
+        K3=3 * len(hist)))
+    _check_fields(dict(tgv.state["q"], p=tgv.state["p"]),
+                  {k: tgv.mesh.shape(0) for k in "uvwp"})
+    print("tgv256 mg kinetic energy after steps 0, 1, 4, 7, 10: "
+          + ", ".join(f"{e:.8f}" for e in energies))
+    if any(b > a for a, b in zip(energies, energies[1:])):
+        raise AssertionError(f"kinetic energy grew: {energies}")
+    _report_mg("tgv256 mg", tgv, elapsed, 9)
+    for solver in (flag, sph, tgv):
+        solver.close()
+    return (flag, sph, tgv), counts
+
+
+def phase9_mg_ab(tmp: str, flag, sph, tgv) -> None:
+    """The MG-CG paths with the kernels on and off from their developed
+    states (float64 to 1e-10 with equal iteration counts, float32 to
+    1e-4), then small MG-CG cases on the card against the CPU path."""
+    from petibm_tpu_torch.convert import state_to_numpy
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    def make(config, cls):
+        def make_solver(name, **params):
+            return cls(config(os.path.join(tmp, name), fdm=False, **params),
+                       device=DEVICE)
+        return make_solver
+
+    _ab("450x450 mg", make(flagship_config, DecoupledIBPMSolver),
+        state_to_numpy(flag.state), 4, _ibm_fields, f32_tol=1e-4,
+        f64_tol=1e-10, same_iters=True)
+    _ab("sphere mg", make(sphere_config, DecoupledIBPMSolver),
+        state_to_numpy(sph.state), 5, _ibm_fields, f32_tol=1e-4,
+        f64_tol=1e-10, same_iters=True)
+    _ab("tgv256 mg", make(tgv3d_config, NavierStokesSolver),
+        state_to_numpy(tgv.state), 2,
+        lambda s: dict(s.state["q"], p=s.state["p"]), f32_tol=1e-4,
+        f64_tol=1e-10, same_iters=True)
+    _cuda_vs_cpu("32^2 mg", lambda dev, tag: DecoupledIBPMSolver(small_config(
+        os.path.join(tmp, f"small_mg_{tag}"), nt=20, dtype="float64",
+        fdm=False), device=dev), ("p", "f"))
+
+    def small_tgv(dev, tag):
+        s = NavierStokesSolver(tgv3d_config(
+            os.path.join(tmp, f"tgv16_mg_{tag}"), n=16, nt=10, dt=0.05,
+            dtype="float64", fdm=False), device=dev)
+        tgv3d_initial_state(s)
+        return s
+
+    _cuda_vs_cpu("tgv 16^3 mg", small_tgv, ("p",))
+
+
 def main() -> int:
     import tempfile
 
+    t_start = time.perf_counter()
+
+    def done(phase: int) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     device = phase0_device()
     phase1_build()
+    done(1)
     with tempfile.TemporaryDirectory() as tmp:
         records = phase2_kernels(tmp)
+        done(2)
         flagship, counts_2d = phase3_slice(tmp)
         phase4_ab(tmp, flagship)
+        done(4)
         sphere, counts_sphere = phase5_sphere(tmp)
         tgv, counts_tgv = phase6_tgv(tmp)
         phase7_ab3d(tmp, sphere, tgv)
+        done(7)
+        mg_solvers, counts_mg = phase8_mg(tmp)
+        done(8)
+        phase9_mg_ab(tmp, *mg_solvers)
+        done(9)
     # each main path's launches, counted from 0 just before it ran
-    launches = {key: counts_2d[key] + counts_sphere[key] + counts_tgv[key]
-                for key in counts_2d}
+    runs = [counts_2d, counts_sphere, counts_tgv] + counts_mg
+    launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
-    replaces = "petibm_tpu/operators/pallas_stencil.py:"
-    table = [("K1", "poisson_apply_separable", "poisson_separable.cu", 117),
+    stencil = "petibm_tpu/operators/pallas_stencil.py:"
+    table = [("K1", "poisson_apply_separable", "poisson_separable.cu",
+              f"{stencil}117"),
              ("K2a", "zblocked_helmholtz_apply (momentum)",
-              "zblocked_helmholtz.cu", 318),
+              "zblocked_helmholtz.cu", f"{stencil}318"),
              ("K2b", "zblocked_helmholtz_apply (periodic Poisson)",
-              "zblocked_helmholtz.cu", 388),
-             ("K3", "convection3d_apply", "convection3d.cu", 473)]
+              "zblocked_helmholtz.cu", f"{stencil}388"),
+             ("K3", "convection3d_apply", "convection3d.cu", f"{stencil}473"),
+             ("K4/K5", "fused line sweep", "line_sweep.cu",
+              "petibm_tpu/linalg/pallas_sweep.py:150,230"),
+             ("K6/K7", "batched PCR", "tridiag_pcr.cu",
+              "petibm_tpu/linalg/pallas_pcr.py:69,100")]
     print(json.dumps({"kernels": [dict(
         name=f"{key} {name}", route="cuda", source=source + src,
-        replaces=f"{replaces}{line}", launches=launches[key], **records[key])
-        for key, name, src, line in table]}))
+        replaces=replaces, launches=launches[key], **records[key])
+        for key, name, src, replaces in table]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

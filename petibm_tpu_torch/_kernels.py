@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+exposes a plain C interface and is compiled with
 ``nvcc`` into a content-hashed shared library under
 ``build/torch_kernels/`` (at the repository root, git-ignored) at first
 use, then loaded with ``ctypes``.  A source without PyTorch headers
 builds in seconds, so every fresh checkout builds from its own sources.
-Nothing is imported or compiled when this module is imported.
+Nothing is compiled when this module is imported.  The helpers at the end
+bind a C entry point with ctypes and check what a launch takes.
 """
 
 from __future__ import annotations
@@ -18,10 +20,19 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: per-source flags.  The line kernels contract no multiply-add into an
+#: FMA: PCR on a stretched grid amplifies every rounding difference by the
+#: line systems' condition (1e-5 relative at the flagship's 450^2 level in
+#: float32 with contraction), so they round op for op as their twins do.
+EXTRA_FLAGS = {"line_sweep": ("--fmad=false",),
+               "tridiag_pcr": ("--fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -42,17 +53,19 @@ def _nvcc() -> str:
 
 def build(name: str) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless a library built from the same
-    source and flags exists; returns the library path and the build
-    seconds (0.0 when it was already built)."""
+    source, headers and flags exists; returns the library path and the
+    build seconds (0.0 when it was already built)."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     if so.is_file():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -69,3 +82,47 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def c_function(kernel: str, entry: str, dtype: torch.dtype, argtypes: list):
+    """The C entry point ``<entry>_<f32|f64>`` of ``csrc/<kernel>.cu`` with
+    its ctypes signature set (pointers and the stream as c_void_p, so none
+    is cut to 32 bits)."""
+    fn = getattr(library(kernel), f"{entry}_{TYPE_SUFFIX[dtype]}")
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launchable(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} takes contiguous fields")
+
+
+def check_vectors(name: str, like: torch.Tensor, vecs) -> None:
+    for vec in vecs:
+        if vec.device != like.device or vec.dtype != like.dtype:
+            raise ValueError(f"{name} coefficients must share the field's "
+                             f"device and dtype ({like.device}, {like.dtype})")
+        if vec.ndim != 1 or not vec.is_contiguous():
+            raise ValueError(f"{name} coefficients must be contiguous 1D "
+                             "tensors")
+
+
+def check_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in TYPE_SUFFIX:
+        raise TypeError(f"{name} takes float32 or float64, got {t.dtype}")

@@ -1,0 +1,178 @@
+"""K4/K5: the multigrid smoother's fused line sweep as a CUDA kernel.
+
+Counterpart of ``petibm_tpu/linalg/pallas_sweep.py``: ``fused_sweep``
+(K4) and ``fused_sweep_blocked`` (K5) become one kernel,
+``csrc/line_sweep.cu``, which builds every other axis's coupling itself,
+so K5's precomputed right side and the VMEM sizing (``sweep_fits_vmem``,
+``pick_sweep_block``) have no use on the card.
+
+One damped line-Jacobi sweep along direction d of a non-periodic level
+scales each line's system by the perpendicular area A_d = prod_{e != d}
+w_e, which makes the sub/super-diagonals pure 1D vectors shared by every
+line (pallas_sweep.py:12-24):
+
+    a'[i] = -c_d[i],   c'[i] = -c_d[i+1],
+    b'[batch, i] = a_d[i] + w_d[i] * sum_{e != d} (a_e / w_e)[batch],
+    rhs'[batch, i] = rhs / A_d + sum_{e != d} (w_d[i] / w_e) * couple_e(phi),
+
+solves them by PCR and returns phi + omega * (x - phi).  ``fused_sweep``
+launches the kernel on a CUDA tensor (one more in ``fused_sweep.launches``)
+and runs the plain twin ``fused_sweep_ref`` on a CPU tensor; it never
+falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .._kernels import (c_function, check_dtype, check_launchable, ptr,
+                        stream)
+from .cuda_pcr import check_lines, pcr_ref
+from .tridiag import shift
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def sweep_aux(level, d: int, dtype) -> list:
+    """The sweep's small broadcast-shaped operands for direction ``d`` of
+    a non-periodic ``Level``, as host numpy arrays of ``dtype`` (computed
+    in float64, cast at the end; a copy of pallas_sweep.py:65-115):
+
+    ``[a_lo, c_hi, diag_line, w_line, inv_area, s_batch]`` and, for each
+    other direction e in ascending order (descending array axes),
+    ``[c_lo_e, c_hi_e, inv_w_e]``:
+
+    - ``a_lo``/``c_hi``: the shared sub/super-diagonals -c_d[i] / -c_d[i+1]
+    - ``diag_line``: a_d = c_d[:-1] + c_d[1:]
+    - ``w_line``: the line direction's cell widths
+    - ``inv_area``: 1 / prod_{e != d} w_e (batch-shaped)
+    - ``s_batch``: sum_{e != d} a_e / w_e (batch-shaped)
+    - per other direction e: the coupling factors c_e[:-1], c_e[1:] and
+      1 / w_e
+    """
+    ndim = len(level.shape)
+
+    def host(vec):
+        if isinstance(vec, torch.Tensor):
+            vec = vec.detach().cpu().numpy()
+        return np.asarray(vec, np.float64)
+
+    def bcast(vec, direction):
+        a = host(vec)
+        return a.reshape(level.bshape(direction, len(a)))
+
+    c_d = host(level.c1d[d])
+    # wall entries of c1d are zero for non-periodic directions, so
+    # a_lo[0] = c_hi[-1] = 0 as PCR requires
+    a_lo = bcast(-c_d[:-1], d)
+    c_hi = bcast(-c_d[1:], d)
+    diag_line = bcast(c_d[:-1] + c_d[1:], d)
+    w_line = bcast(level.w1d[d], d)
+
+    inv_area = None
+    s_batch = None
+    extras = []
+    for e in range(ndim):
+        if e == d:
+            continue
+        w_e = host(level.w1d[e])
+        c_e = host(level.c1d[e])
+        inv_w = bcast(1.0 / w_e, e)
+        inv_area = inv_w if inv_area is None else inv_area * inv_w
+        a_e = bcast((c_e[:-1] + c_e[1:]) / w_e, e)
+        s_batch = a_e if s_batch is None else s_batch + a_e
+        extras += [bcast(c_e[:-1], e), bcast(c_e[1:], e), inv_w]
+    npdt = np.dtype(_NP_DTYPES.get(dtype, dtype))
+    return [np.ascontiguousarray(a.astype(npdt)) for a in
+            [a_lo, c_hi, diag_line, w_line, inv_area, s_batch] + extras]
+
+
+def _other_axes(ndim: int, line_axis: int) -> tuple:
+    # sweep_aux emits per-direction extras in ascending direction order,
+    # i.e. descending array axes (axis = ndim - 1 - direction)
+    return tuple(ax for ax in reversed(range(ndim)) if ax != line_axis)
+
+
+def fused_sweep_ref(phi, rhs, aux, line_axis: int, omega: float):
+    """Plain twin of K4/K5: the algebra of the Pallas kernel body
+    (``_make_sweep_kernel``, pallas_sweep.py:118-145) in its order of
+    operations; ``aux`` is :func:`sweep_aux` as tensors on phi's device."""
+    ndim = phi.ndim
+    line_axis %= ndim
+    a_lo, c_hi, diag_line, w_line, inv_area, s_batch = aux[:6]
+    b = rhs * inv_area
+    for j, e_axis in enumerate(_other_axes(ndim, line_axis)):
+        c_lo, c_hi_e, inv_w = aux[6 + 3 * j:9 + 3 * j]
+        couple = (c_lo * shift(phi, 1, e_axis)
+                  + c_hi_e * shift(phi, -1, e_axis))
+        b = b + (w_line * inv_w) * couple
+    diag = diag_line + w_line * s_batch
+    # the PCR passes of the Pallas kernel (pallas_sweep.py:46-62) are the
+    # twin solver's; a_lo[first] and c_hi[last] are already 0
+    x = pcr_ref(a_lo.expand(phi.shape), diag, c_hi.expand(phi.shape), b,
+                line_axis)
+    return phi + omega * (x - phi)
+
+
+def _check_sweep(phi, rhs, aux, line_axis: int) -> int:
+    if rhs.shape != phi.shape or rhs.dtype != phi.dtype \
+            or rhs.device != phi.device:
+        raise ValueError("K4/K5 takes phi and rhs of one shape, dtype and "
+                         "device")
+    check_dtype("K4/K5", phi)
+    axis3 = check_lines("K4/K5", phi.shape, line_axis)
+    ndim = phi.ndim
+    line_axis %= ndim
+    if len(aux) != 6 + 3 * (ndim - 1):
+        raise ValueError(f"K4/K5 takes {6 + 3 * (ndim - 1)} sweep_aux "
+                         f"operands for a {ndim}D level, got {len(aux)}")
+    nlines = phi.numel() // phi.shape[line_axis]
+    want = [phi.shape[line_axis]] * 4 + [nlines] * 2
+    for e_axis in _other_axes(ndim, line_axis):
+        want += [phi.shape[e_axis]] * 3
+    for t, size in zip(aux, want):
+        if t.dtype != phi.dtype or t.device != phi.device:
+            raise ValueError("K4/K5's sweep_aux operands must share phi's "
+                             "dtype and device")
+        if t.numel() != size or not t.is_contiguous():
+            raise ValueError("K4/K5's sweep_aux operands do not match "
+                             f"phi's shape {tuple(phi.shape)}")
+    return axis3
+
+
+def fused_sweep(phi, rhs, aux, line_axis: int, omega: float):
+    """K4/K5: one damped line-Jacobi sweep along ``line_axis`` of a 2D or
+    3D non-periodic level; ``aux`` from :func:`sweep_aux` as tensors on
+    phi's device.  Raises on shapes, dtypes or devices the kernel does not
+    take, and when the launch reports an error."""
+    axis3 = _check_sweep(phi, rhs, aux, line_axis)
+    if phi.device.type == "cpu":
+        return fused_sweep_ref(phi, rhs, aux, line_axis, omega)
+    check_launchable("K4/K5", phi)
+    check_launchable("K4/K5", rhs)
+    fn = c_function("line_sweep", "line_sweep", phi.dtype,
+                    [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)]
+                    + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
+    ndim = phi.ndim
+    vec = [None] * 15
+    vec[:6] = aux[:6]
+    for j, e_axis in enumerate(_other_axes(ndim, line_axis % ndim)):
+        e3 = e_axis + 3 - ndim
+        vec[6 + 3 * e3:9 + 3 * e3] = aux[6 + 3 * j:9 + 3 * j]
+    pointers = (ctypes.c_void_p * 15)(*(ptr(t) for t in vec))
+    out = torch.empty_like(phi)
+    shape = (1,) * (3 - ndim) + tuple(phi.shape)
+    with torch.cuda.device(phi.device):
+        err = fn(ptr(phi), ptr(rhs), ptr(out), pointers, *shape, axis3,
+                 float(omega), stream(phi.device))
+    if err != 0:
+        raise RuntimeError(f"K4/K5 launch failed with CUDA error {err}")
+    fused_sweep.launches += 1
+    return out
+
+
+fused_sweep.launches = 0

@@ -26,63 +26,12 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _kernels
+from .._kernels import (c_function, check_dtype, check_launchable,
+                        check_vectors, ptr, stream)
 from ..linalg.mg import Level
+from ..linalg.tridiag import shift
 from ..types import Field
 from .stencil import VEL_NAMES
-
-_TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _c_function(kernel: str, entry: str, dtype: torch.dtype, argtypes: list):
-    """The C entry point ``<entry>_<f32|f64>`` of ``csrc/<kernel>.cu`` with
-    its ctypes signature set (pointers and the stream as c_void_p, so none
-    is cut to 32 bits)."""
-    fn = getattr(_kernels.library(kernel), f"{entry}_{_TYPE_SUFFIX[dtype]}")
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _check_launchable(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} takes contiguous fields")
-
-
-def _check_vectors(name: str, like: torch.Tensor, vecs) -> None:
-    for vec in vecs:
-        if vec.device != like.device or vec.dtype != like.dtype:
-            raise ValueError(f"{name} coefficients must share the field's "
-                             f"device and dtype ({like.device}, {like.dtype})")
-        if vec.ndim != 1 or not vec.is_contiguous():
-            raise ValueError(f"{name} coefficients must be contiguous 1D "
-                             "tensors")
-
-
-def _check_dtype(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in _TYPE_SUFFIX:
-        raise TypeError(f"{name} takes float32 or float64, got {t.dtype}")
-
-
-def _shift(phi: torch.Tensor, axis: int, step: int) -> torch.Tensor:
-    """phi[i - step] along ``axis`` with zeros shifted in (step = +1 reads
-    the lower neighbour, -1 the upper one)."""
-    n = phi.shape[axis]
-    zero = torch.zeros_like(phi.narrow(axis, 0, 1))
-    if step > 0:
-        return torch.cat([zero, phi.narrow(axis, 0, n - 1)], dim=axis)
-    return torch.cat([phi.narrow(axis, 1, n - 1), zero], dim=axis)
 
 
 # ----------------------------------------------------------------------
@@ -106,8 +55,8 @@ def poisson_apply_separable_ref(phi: torch.Tensor, level: Level) -> torch.Tensor
                 continue
             w = level.w1d[e].reshape(level.bshape(e, level.w1d[e].shape[0]))
             area = w if area is None else area * w
-        term = ((c_lo + c_hi) * phi - c_lo * _shift(phi, axis, 1)
-                - c_hi * _shift(phi, axis, -1))
+        term = ((c_lo + c_hi) * phi - c_lo * shift(phi, 1, axis)
+                - c_hi * shift(phi, -1, axis))
         term = area * term
         out = term if out is None else out + term
     return out
@@ -122,8 +71,8 @@ def _check_k1(phi: torch.Tensor, level: Level) -> None:
                          f"{tuple(level.shape)}")
     if any(level.periodic):
         raise ValueError("K1 applies non-periodic grids only")
-    _check_dtype("K1", phi)
-    _check_vectors("K1", phi, (*level.c1d, *level.w1d))
+    check_dtype("K1", phi)
+    check_vectors("K1", phi, (*level.c1d, *level.w1d))
 
 
 def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
@@ -136,19 +85,19 @@ def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
     _check_k1(phi, level)
     if phi.device.type == "cpu":
         return poisson_apply_separable_ref(phi, level)
-    _check_launchable("K1", phi)
-    fn = _c_function("poisson_separable", "poisson_apply_separable",
-                     phi.dtype, [ctypes.c_void_p] * 8
-                     + [ctypes.c_longlong] * 3 + [ctypes.c_int,
-                                                  ctypes.c_void_p])
+    check_launchable("K1", phi)
+    fn = c_function("poisson_separable", "poisson_apply_separable",
+                    phi.dtype, [ctypes.c_void_p] * 8
+                    + [ctypes.c_longlong] * 3 + [ctypes.c_int,
+                                                 ctypes.c_void_p])
     out = torch.empty_like(phi)
     shape = (1,) * (3 - phi.ndim) + tuple(phi.shape)
     c = list(level.c1d) + [None] * (3 - phi.ndim)
     w = list(level.w1d) + [None] * (3 - phi.ndim)
     with torch.cuda.device(phi.device):
-        err = fn(_ptr(phi), _ptr(out), _ptr(c[0]), _ptr(w[0]), _ptr(c[1]),
-                 _ptr(w[1]), _ptr(c[2]), _ptr(w[2]), *shape, phi.ndim,
-                 _stream(phi.device))
+        err = fn(ptr(phi), ptr(out), ptr(c[0]), ptr(w[0]), ptr(c[1]),
+                 ptr(w[1]), ptr(c[2]), ptr(w[2]), *shape, phi.ndim,
+                 stream(phi.device))
     if err != 0:
         raise RuntimeError(f"K1 launch failed with CUDA error {err}")
     poisson_apply_separable.launches += 1
@@ -191,7 +140,7 @@ def zblocked_helmholtz_apply_ref(f: torch.Tensor, vecs: dict, periodic,
     def nbrs(axis):
         if periodic[axis]:
             return torch.roll(f, 1, axis), torch.roll(f, -1, axis)
-        return _shift(f, axis, 1), _shift(f, axis, -1)
+        return shift(f, 1, axis), shift(f, -1, axis)
 
     v = {k: _axis_vec(vecs[k], "zyx".index(k[-1])) for k in ZBLOCKED_KEYS}
     lo_z, hi_z = nbrs(0)
@@ -210,7 +159,7 @@ def zblocked_helmholtz_apply_ref(f: torch.Tensor, vecs: dict, periodic,
 def _check_k2(f: torch.Tensor, vecs: dict, periodic, scale) -> None:
     if f.ndim != 3:
         raise ValueError(f"K2 takes a 3D field, got shape {tuple(f.shape)}")
-    _check_dtype("K2", f)
+    check_dtype("K2", f)
     if len(periodic) != 3:
         raise ValueError("K2 takes one periodic flag per axis (z, y, x)")
     vectors = [vecs[k] for k in ZBLOCKED_KEYS]
@@ -218,7 +167,7 @@ def _check_k2(f: torch.Tensor, vecs: dict, periodic, scale) -> None:
         if len(scale) != 3:
             raise ValueError("K2's scale is three vectors (Sz, Sy, Sx)")
         vectors += list(scale)
-    _check_vectors("K2", f, vectors)
+    check_vectors("K2", f, vectors)
     lengths = {k: f.shape["zyx".index(k[-1])] for k in ZBLOCKED_KEYS}
     for key in ZBLOCKED_KEYS:
         if vecs[key].shape[0] != lengths[key]:
@@ -242,16 +191,16 @@ def zblocked_helmholtz_apply(f: torch.Tensor, vecs: dict, periodic,
     _check_k2(f, vecs, periodic, scale)
     if f.device.type == "cpu":
         return zblocked_helmholtz_apply_ref(f, vecs, periodic, scale)
-    _check_launchable("K2", f)
-    fn = _c_function("zblocked_helmholtz", "zblocked_helmholtz", f.dtype,
-                     [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
-                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    check_launchable("K2", f)
+    fn = c_function("zblocked_helmholtz", "zblocked_helmholtz", f.dtype,
+                    [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = torch.empty_like(f)
     s = (None, None, None) if scale is None else scale
     with torch.cuda.device(f.device):
-        err = fn(_ptr(f), _ptr(out), *(_ptr(vecs[k]) for k in ZBLOCKED_KEYS),
-                 *(_ptr(t) for t in s), *f.shape,
-                 *(int(bool(p)) for p in periodic), _stream(f.device))
+        err = fn(ptr(f), ptr(out), *(ptr(vecs[k]) for k in ZBLOCKED_KEYS),
+                 *(ptr(t) for t in s), *f.shape,
+                 *(int(bool(p)) for p in periodic), stream(f.device))
     if err != 0:
         raise RuntimeError(f"K2 launch failed with CUDA error {err}")
     zblocked_helmholtz_apply.launches += 1
@@ -405,7 +354,7 @@ def _check_k3(ext, c: int, inv_dl) -> tuple:
         raise ValueError("K3 takes three 3D extended velocity arrays")
     if c not in (0, 1, 2):
         raise ValueError(f"K3 computes component 0, 1 or 2, got {c}")
-    _check_dtype("K3", ext[c])
+    check_dtype("K3", ext[c])
     for e in ext:
         if e.device != ext[c].device or e.dtype != ext[c].dtype:
             raise ValueError("K3's extended arrays must share device and "
@@ -425,7 +374,7 @@ def _check_k3(ext, c: int, inv_dl) -> tuple:
             raise ValueError(f"extended array {d} of shape "
                              f"{tuple(ext[d].shape)} is too small for "
                              f"component {c} of shape {shape}")
-    _check_vectors("K3", ext[c], inv_dl)
+    check_vectors("K3", ext[c], inv_dl)
     if tuple(v.shape[0] for v in inv_dl) != shape[::-1]:
         raise ValueError("K3's inv_dl vectors must match the component's "
                          "x, y and z extents")
@@ -445,18 +394,18 @@ def convection3d_apply(ext, c: int, inv_dl) -> torch.Tensor:
     if ext[c].device.type == "cpu":
         return convection3d_apply_ref(ext, c, inv_dl)
     for e in ext:
-        _check_launchable("K3", e)
-    fn = _c_function("convection3d", "convection3d", ext[c].dtype,
-                     [ctypes.c_void_p] * 3
-                     + [ctypes.POINTER(ctypes.c_longlong)]
-                     + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                     + [ctypes.c_int, ctypes.c_void_p])
+        check_launchable("K3", e)
+    fn = c_function("convection3d", "convection3d", ext[c].dtype,
+                    [ctypes.c_void_p] * 3
+                    + [ctypes.POINTER(ctypes.c_longlong)]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty(shape, dtype=ext[c].dtype, device=ext[c].device)
     ext_shape = (ctypes.c_longlong * 9)(*(n for e in ext for n in e.shape))
     device = ext[c].device
     with torch.cuda.device(device):
-        err = fn(*(_ptr(e) for e in ext), ext_shape, _ptr(out),
-                 *(_ptr(v) for v in inv_dl), *shape, c, _stream(device))
+        err = fn(*(ptr(e) for e in ext), ext_shape, ptr(out),
+                 *(ptr(v) for v in inv_dl), *shape, c, stream(device))
     if err != 0:
         raise RuntimeError(f"K3 launch failed with CUDA error {err}")
     convection3d_apply.launches += 1

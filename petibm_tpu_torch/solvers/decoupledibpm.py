@@ -61,7 +61,11 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
 
     def _make_force_solver(self, fopts: dict) -> None:
         """The setup-time inverted dense EBNH force solve
-        (decoupledibpm.py:83-163)."""
+        (decoupledibpm.py:83-163); BN order 1 only, as in the JAX package."""
+        if self.bn_order != 1:
+            raise _not_ported("BN > 1 with the decoupled IBPM (its force "
+                              "solve is the matrix-free Krylov one)",
+                              "ROADMAP item 18")
         if not bool(fopts.get("dense", True)):
             raise _not_ported("forcesSolver.dense: false (matrix-free Krylov "
                               "force solve)", "ROADMAP item 18")

@@ -1,7 +1,7 @@
 """Projection-method incompressible Navier-Stokes solver.
 
 Counterpart of ``petibm_tpu/solvers/navierstokes.py``: the 2D and 3D
-projection step without multigrid.  One time step (Perot 1993 fractional
+projection step.  One time step (Perot 1993 fractional
 step, reference navierstokes.cpp:240-266) is a function over a state dict
 with the JAX package's keys (``q``, ``p``, ``bc``, ``conv``, ``diff``,
 ``dP``):
@@ -13,10 +13,12 @@ with the JAX package's keys (``q``, ``p``, ``bc``, ``conv``, ``diff``,
      Krylov solve (BiCGStab/CG with a probed Jacobi diagonal); in 3D the
      momentum operator of either is the CUDA kernel K2a
   3. rhs2 = (D + Dbc) u*, mean removed
-  4. dP from the direct FDM Poisson solve with refinement (or a Krylov
-     solve); its residual operator is the CUDA kernel K1 on non-periodic
-     grids and K2b on 3D grids with a periodic axis
-     (``operators/cuda_stencil.py``)
+  4. dP from the direct FDM Poisson solve with refinement, or (``fdm:
+     false`` or BN > 1) from CG preconditioned by a multigrid V-cycle
+     whose smoother sweeps are the CUDA kernels K4/K5 and K6/K7
+     (``linalg/mg.py``), or from another Krylov solve; for BN order 1 its
+     operator is the CUDA kernel K1 on non-periodic grids and K2b on 3D
+     grids with a periodic axis (``operators/cuda_stencil.py``)
   5. u = u* - B_N G dP, p += dP; ghost refresh
 
 ``parameters.disablePallas`` turns every hand kernel off (the stencil
@@ -44,7 +46,7 @@ from ..ics import initial_fields
 from ..linalg.fdm import (FastDiagHelmholtz, FastDiagPoisson, fdm_config,
                           helmholtz_lines, make_fdm_solver)
 from ..linalg.krylov import make_solver, tmap
-from ..linalg.mg import poisson_level0
+from ..linalg.mg import PoissonMG, poisson_level0
 from ..linalg.probe_diag import extract_diagonal
 from ..mesh import StaggeredMesh
 from ..operators.bn import make_bn
@@ -68,8 +70,6 @@ def _not_ported(what: str, item: str):
 def check_supported(config: dict) -> None:
     """Raise NotImplementedError for the options the port does not cover."""
     params = config.get("parameters", {})
-    if int(params.get("BN", 1)) != 1:
-        raise _not_ported("BN > 1", "ROADMAP item 15, the multigrid path")
     if params.get("sharding") or params.get("distributed"):
         raise _not_ported("sharding", "ROADMAP item 19")
     if int(params.get("startStep", 0)) > 0:
@@ -83,11 +83,10 @@ def check_supported(config: dict) -> None:
     if popts.get("backend") == "GPU":
         raise _not_ported("poissonSolver.type: GPU (the pinned pressure)",
                           "ROADMAP item 13")
-    if (popts.get("pc", "mg") == "mg"
-            and not bool(fdm_cfg.get("enabled", True))):
-        # pc mg without the FDM solve is CG with a multigrid V-cycle
-        raise _not_ported("fdm: false with poisson pc mg (multigrid-"
-                          "preconditioned CG)", "ROADMAP item 15")
+    mg_dtype = (params.get("mg") or {}).get("dtype")
+    if mg_dtype and str(mg_dtype) != (params.get("dtype") or "float32"):
+        raise _not_ported(f"mg.dtype {mg_dtype} (a V-cycle in another "
+                          "precision than the solve)", "ROADMAP item 15b")
 
 
 class NavierStokesSolver:
@@ -192,9 +191,9 @@ class NavierStokesSolver:
         self.convect = make_convection(mesh, bc, **kw)
         if kernels and mesh.dim == 3:
             self.convect = make_cuda_convection(mesh, bc, **kw)
-        # BN order 1 (check_supported refuses others): B_1 = dt * I
+        self.bn_order = int(config.get("parameters", {}).get("BN", 1))
         self.bn = make_bn(self.lap, self.dt,
-                          self.diff_ti.implicit_coeff * self.nu)
+                          self.diff_ti.implicit_coeff * self.nu, self.bn_order)
 
         dt, nu, cimp = self.dt, self.nu, self.diff_ti.implicit_coeff
 
@@ -217,7 +216,8 @@ class NavierStokesSolver:
     def _create_solvers(self, config: dict) -> None:
         """Momentum and Poisson solves (the JAX _create_solvers,
         navierstokes.py:282-457, and _make_poisson_pc, :459-576, without
-        the branches check_supported refuses)."""
+        the branches check_supported refuses: the pinned pressure, the
+        sharded and the mixed-precision V-cycles)."""
         params = config.get("parameters", {})
         vopts = solver_config(config, "velocity")
         popts = solver_config(config, "poisson")
@@ -268,31 +268,58 @@ class NavierStokesSolver:
             M_p = None
             if pc != "none":
                 diag_p = extract_diagonal(
-                    negA_p, torch.zeros_like(self.state["p"]), radius=1)
+                    negA_p, torch.zeros_like(self.state["p"]),
+                    radius=self.bn_order)
 
                 def M_p(r):
                     return r / diag_p
 
             self.p_solver = make_solver(negA_p, popts, M=M_p)
             return
-
-        # the FDM pressure solve, and the level-0 separable factors behind
-        # K1/K2b (navierstokes.py:459-535 builds a whole MG hierarchy for
-        # those factors)
+        if pc == "fdm" and self.bn_order != 1:
+            raise ValueError("poisson pc 'fdm' requires BN order 1 and the "
+                             "CPU-backend (mean-projection) nullspace "
+                             "treatment")
+        # the direct FDM solve (BN order 1, unless fdm: false opts out with
+        # pc mg), else CG preconditioned by a multigrid V-cycle
+        # (navierstokes.py:459-576)
+        use_fdm = self.bn_order == 1 and (
+            pc == "fdm" or bool(fdm_cfg.get("enabled", True)))
+        kernels = not bool(params.get("disablePallas", False))
         kw = dict(dtype=self.dtype, device=self.device, scale=self.dt)
-        self.poisson_fdm = FastDiagPoisson(self.mesh.dxp, self.mesh.periodic,
-                                           **kw)
-        self.poisson_level = poisson_level0(self.mesh.dxp, self.mesh.periodic,
-                                            **kw)
+        if use_fdm:
+            self.poisson_fdm = FastDiagPoisson(self.mesh.dxp,
+                                               self.mesh.periodic, **kw)
+            self.poisson_level = poisson_level0(self.mesh.dxp,
+                                                self.mesh.periodic, **kw)
+        else:
+            mg = params.get("mg", {}) or {}
+            # V(1,1) by default, as in the JAX package
+            self.poisson_mg = PoissonMG(
+                self.mesh.dxp, self.mesh.periodic, kernels=kernels,
+                pre=int(mg.get("pre", 1)), post=int(mg.get("post", 1)),
+                omega=float(mg.get("omega", 1.0)),
+                coarse_sweeps=int(mg.get("coarseSweeps", 10)),
+                consolidate_below=int(mg.get("consolidateBelow", 4096)), **kw)
+            self.poisson_level = self.poisson_mg.levels[0]
         # for BN order 1, -D B1 G equals the level-0 operator: K1 on
         # non-periodic grids, K2b on 3D grids with a periodic axis; 2D
-        # periodic grids keep the closure (navierstokes.py:386-403)
-        if not bool(params.get("disablePallas", False)):
+        # periodic grids keep the closure (navierstokes.py:382-408).  It
+        # is the CG or refinement operator and the V-cycle's level-0
+        # residual.
+        if kernels and self.bn_order == 1:
             fused = make_cuda_poisson(self.poisson_level)
             if fused is None and self.mesh.dim == 3:
                 fused = make_cuda_poisson_zblocked(self.poisson_level)
             if fused is not None:
                 self._negA_p = fused
+                if not use_fdm:
+                    self.poisson_mg.set_fused_apply(fused)
+        if not use_fdm:
+            self.p_solver = make_solver(
+                self._negA_p, popts,
+                M=self.poisson_mg.preconditioner(remove_mean=True))
+            return
         if str(fdm_cfg.get("mode", "direct")) == "direct":
             self.p_solver = make_fdm_solver(self.poisson_fdm, self._negA_p,
                                             popts)

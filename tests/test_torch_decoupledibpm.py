@@ -183,8 +183,8 @@ def test_d_cli_logs_match(tmp_path, capsys):
 
 
 UNSUPPORTED = {
-    "bn2": ({"BN": 2}, "ROADMAP item 15"),
-    "fdm_off": ({"fdm": False}, "ROADMAP item 15"),
+    "bn2": ({"BN": 2}, "ROADMAP item 18"),
+    "mg_bf16": ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
     "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
     "pinned_pressure": ({"poissonSolver": {"type": "GPU"}}, "ROADMAP item 13"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
