@@ -8,11 +8,15 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
-1. build the hand-written kernels K1, K2 and K3 from
-   ``petibm_tpu_torch/csrc``, one nvcc per source, all at once;
+1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
+   one nvcc per source, all at once, and print K6/K7's registers and
+   spills (``ptxas -v``);
 2. hold each kernel against its plain PyTorch twin on the card at the
-   shapes of the main paths, and time both (K1 and K2b both at the
-   sphere's pressure shape);
+   shapes of the main paths, and time both beside the kernel's bound
+   (bytes moved once over 3.35 TB/s, or operations over the card's peak)
+   (K1 and K2b both at the sphere's pressure shape); time one PyTorch
+   call computing K1's, K2a's and K2b's function (``torch.sparse.mm``
+   on the operator assembled once as CSR; the port never calls it);
 3. run the 2D decoupled-IBPM cylinder (Re=200, 450^2 stretched grid,
    157 body points, float32; the ``bench.py`` configuration) through
    ``DecoupledIBPMSolver.run()`` and check that K1 was launched as often
@@ -40,9 +44,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    path.
 
 Phase 2 also holds K4/K5 (the flagship's and the sphere's finest level,
-every line direction) and K6/K7 (the TGV's 256^3 and 64^3 levels, every
-axis) against their twins.  The line before the last is the per-kernel
-JSON record; the last line is ``{"ok": true, "device": {...}}``.
+every line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels,
+every axis, bit for bit; at 256^3 also timed beside its block path)
+against their twins.  The line before the last is the per-kernel JSON
+record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -267,6 +272,17 @@ def phase1_build() -> None:
         print(f"built {path.name} in {seconds:.2f} s"
               + (" (already built)" if seconds == 0.0 else ""))
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
+    # K6/K7's registers and spills, kernel by kernel (ptxas -v)
+    log = _kernels.BUILD_LOGS.get("tridiag_pcr")
+    if log is None:
+        print("tridiag_pcr was already built: no ptxas report")
+        return
+    name = "?"
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif "spill" in line or "Used" in line:
+            print(f"ptxas tridiag_pcr {name}: {line.strip()}")
 
 
 def _mesh_and_bcs(cfg: dict):
@@ -281,9 +297,27 @@ def _rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
-def _hold(label: str, kernel, twin, arg, tol: float, applies: int = 200):
+#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and operations/s
+#: outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+
+
+def _bound(nbytes: float, ops: float, dtype) -> tuple:
+    """The least time the card could take (ms) for ``nbytes`` moved once
+    and ``ops`` operations of ``dtype``, and which of the two binds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(dtype)[6:]]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _hold(label: str, kernel, twin, arg, tol: float, applies: int,
+          work: tuple):
     """One kernel against its twin on ``arg``: relative error within
-    ``tol``, then both timed; returns the record of the JSON line."""
+    ``tol`` (0: bit for bit), then both timed; ``work`` = (bytes read once
+    and written once, operations, dtype) gives the bound.  Returns the
+    record of the JSON line."""
     import torch
 
     got, want = kernel(arg), twin(arg)
@@ -292,19 +326,108 @@ def _hold(label: str, kernel, twin, arg, tol: float, applies: int = 200):
     rel = err / float(want.abs().max())
     ms, host_ms = _time_ms(kernel, arg, applies)
     plain_ms, plain_host_ms = _time_ms(twin, arg, applies)
+    bound_ms, bound_by = _bound(*work)
     print(f"{label}: max|kernel-twin| {err:.3e} (rel {rel:.3e}, tol {tol:g}); "
           f"per apply (median), device: kernel {ms * 1e3:.2f} us, twin "
           f"{plain_ms * 1e3:.2f} us; host wall: kernel {host_ms * 1e3:.2f} "
-          f"us, twin {plain_host_ms * 1e3:.2f} us")
+          f"us, twin {plain_host_ms * 1e3:.2f} us; bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}: {work[0] / 1e6:.1f} MB, "
+          f"{work[1] / 1e9:.3f} Gop), share {bound_ms / ms:.3f}")
     if not rel <= tol:
         raise AssertionError(f"{label}: rel error {rel} > {tol}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _csr(diag, terms):
+    """The sparse (CSR) matrix of f -> diag * f + sum of coef * f[i + step
+    along axis] over ``terms`` (axis, step, coef, periodic): a wrapped
+    neighbour on a periodic axis, none past a wall."""
+    import torch
+
+    shape, dev = diag.shape, diag.device
+    idx = torch.arange(diag.numel(), device=dev).reshape(shape)
+    rows, cols, vals = [idx.reshape(-1)], [idx.reshape(-1)], [diag.reshape(-1)]
+    for axis, step, coef, periodic in terms:
+        col = torch.roll(idx, -step, axis)
+        pos = torch.arange(shape[axis], device=dev).reshape(
+            [-1 if a == axis else 1 for a in range(len(shape))])
+        keep = ((pos + step >= 0) & (pos + step < shape[axis])) | periodic
+        keep = keep.expand(shape)
+        rows.append(idx[keep])
+        cols.append(col[keep])
+        vals.append(coef.expand(shape)[keep])
+    n = diag.numel()
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _k1_csr(level):
+    """K1's operator (poisson_apply_separable_ref) as a CSR matrix."""
+    ndim, diag, terms = len(level.shape), 0.0, []
+    for d in range(ndim):
+        axis = ndim - 1 - d
+        c = level.c1d[d]
+        n = c.shape[0] - 1
+        c_lo = c[:-1].reshape(level.bshape(d, n))
+        c_hi = c[1:].reshape(level.bshape(d, n))
+        area = 1.0
+        for e in range(ndim):
+            if e != d:
+                area = area * level.w1d[e].reshape(
+                    level.bshape(e, level.w1d[e].shape[0]))
+        diag = diag + area * (c_lo + c_hi)
+        terms += [(axis, -1, -area * c_lo, False),
+                  (axis, 1, -area * c_hi, False)]
+    return _csr(diag.expand(tuple(level.shape)), terms)
+
+
+def _k2_csr(shape, vecs, periodic, scale=None):
+    """K2's operator (zblocked_helmholtz_apply_ref) as a CSR matrix."""
+    from petibm_tpu_torch.operators.cuda_stencil import _axis_vec
+
+    s = 1.0
+    if scale is not None:
+        s = (_axis_vec(scale[0], 0) * _axis_vec(scale[1], 1)
+             * _axis_vec(scale[2], 2))
+    diag = sum(_axis_vec(vecs["D" + t], a) for a, t in enumerate("zyx"))
+    terms = [(a, step, s * _axis_vec(vecs[key + t], a), periodic[a])
+             for a, t in enumerate("zyx")
+             for step, key in ((-1, "CN"), (1, "CP"))]
+    return _csr((diag * s).expand(shape), terms)
+
+
+def _library(label: str, rec: dict, csr, arg, want, applies: int) -> None:
+    """One PyTorch call computing the kernel's function, timed on ``arg``
+    beside the kernel (``rec``): ``torch.sparse.mm`` with the operator
+    assembled once as CSR.  Its result is held to the kernel's ``want``
+    at 1e-5 relative (another order of summation)."""
+    import torch
+
+    col = arg.reshape(-1, 1)
+    rel = _rel_err(torch.sparse.mm(csr, col).reshape(arg.shape), want)
+    rec["library_ms"] = _time_ms(lambda v: torch.sparse.mm(csr, v), col,
+                                 applies)[0]
+    print(f"{label} library torch.sparse.mm (CSR, {csr.values().numel()} "
+          f"values): {rec['library_ms'] * 1e3:.2f} us per apply (device), "
+          f"kernel {rec['ms'] * 1e3:.2f} us; rel diff {rel:.3e} (tol 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"{label}: the CSR operator differs: {rel}")
+
+
+def _steps(n: int) -> int:
+    """PCR passes of an n-row line: ceil(log2 n)."""
+    return (n - 1).bit_length()
 
 
 def phase2_kernels(tmp: str) -> dict:
     """Every kernel against its plain twin on the card at the main paths'
-    shapes (float32 timed, float64 checked and timed briefly); returns the
-    record of each kernel for the JSON line."""
+    shapes (float32 timed, float64 checked and timed briefly), each with
+    its bound; K1, K2a and K2b also beside one PyTorch call (a CSR
+    product); K6/K7 also beside its block path.  Returns the record of
+    each kernel for the JSON line."""
     import torch
 
     from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
@@ -324,8 +447,12 @@ def phase2_kernels(tmp: str) -> dict:
         return torch.randn(tuple(shape), generator=gen, device=cuda,
                            dtype=dtype)
 
+    def numel(tensors):
+        return sum(t.numel() for t in tensors)
+
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype)[6:]
+        size = torch.finfo(dtype).bits // 8
         applies = 200 if dtype == torch.float32 else 40
         tol = tols[dtype]
         # K1: the flagship's and the sphere's pressure
@@ -335,19 +462,26 @@ def phase2_kernels(tmp: str) -> dict:
                                    device=cuda,
                                    scale=cases[name]["parameters"]["dt"])
             phi = randn(level.shape, dtype)
+            n = phi.numel()
             rec = _hold(f"K1 {name} p {tuple(level.shape)} {tag}",
                         lambda x: cs.poisson_apply_separable(x, level),
                         lambda x: cs.poisson_apply_separable_ref(x, level),
-                        phi, tol, applies)
+                        phi, tol, applies,
+                        ((2 * n + numel(level.c1d + level.w1d)) * size,
+                         (26 if phi.ndim == 3 else 15) * n, dtype))
             if name == "sphere":
                 if dtype == torch.float32:
                     records["K1"] = rec
+                    _library(f"K1 sphere p {tag}", rec, _k1_csr(level), phi,
+                             cs.poisson_apply_separable(phi, level), applies)
                 # K2b at the same shape: the same operator
                 k2b = cs.make_cuda_poisson_zblocked(level)
                 _hold(f"K2b sphere p {tuple(level.shape)} {tag}", k2b,
                       lambda x: cs.zblocked_helmholtz_apply_ref(
                           x, k2b.vecs, k2b.periodic, k2b.scale),
-                      phi, tol, applies)
+                      phi, tol, applies,
+                      ((2 * n + numel(k2b.vecs.values()) + numel(k2b.scale))
+                       * size, 18 * n, dtype))
                 rel = _rel_err(k2b(phi), cs.poisson_apply_separable(phi, level))
                 print(f"K2b vs K1, sphere p {tag}: rel diff {rel:.3e}")
                 if not rel <= 100 * tol:
@@ -362,25 +496,39 @@ def phase2_kernels(tmp: str) -> dict:
             for comp in comps:
                 vecs = A.vecs[comp]
                 f = randn(mesh.shape("uvw".index(comp)), dtype)
+                n = f.numel()
                 rec = _hold(f"K2a {name} {comp} {tuple(f.shape)} {tag}",
                             lambda x: cs.zblocked_helmholtz_apply(
                                 x, vecs, A.periodic),
                             lambda x: cs.zblocked_helmholtz_apply_ref(
-                                x, vecs, A.periodic), f, tol, applies)
+                                x, vecs, A.periodic), f, tol, applies,
+                            ((2 * n + numel(vecs.values())) * size, 15 * n,
+                             dtype))
                 if (name, comp, dtype) == ("sphere", "u", torch.float32):
                     records["K2a"] = rec
+                    _library(f"K2a sphere u {tag}", rec,
+                             _k2_csr(tuple(f.shape), vecs, A.periodic), f,
+                             cs.zblocked_helmholtz_apply(f, vecs, A.periodic),
+                             applies)
         # K2b: the TGV's periodic pressure
         mesh = meshes["tgv256"][0]
         level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
                                device=cuda,
                                scale=cases["tgv256"]["parameters"]["dt"])
         k2b = cs.make_cuda_poisson_zblocked(level)
+        phi = randn(level.shape, dtype)
+        n = phi.numel()
         rec = _hold(f"K2b tgv256 p {tuple(level.shape)} periodic {tag}", k2b,
                     lambda x: cs.zblocked_helmholtz_apply_ref(
                         x, k2b.vecs, k2b.periodic, k2b.scale),
-                    randn(level.shape, dtype), tol, applies)
+                    phi, tol, applies,
+                    ((2 * n + numel(k2b.vecs.values()) + numel(k2b.scale))
+                     * size, 18 * n, dtype))
         if dtype == torch.float32:
             records["K2b"] = rec
+            _library(f"K2b tgv256 p {tag}", rec,
+                     _k2_csr(tuple(phi.shape), k2b.vecs, k2b.periodic,
+                             k2b.scale), phi, k2b(phi), applies)
         # K3: every component of the sphere and of the TGV
         for name in ("sphere", "tgv256"):
             mesh, bcs = meshes[name]
@@ -390,11 +538,13 @@ def phase2_kernels(tmp: str) -> dict:
             ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
             for c, comp in enumerate("uvw"):
                 iv = conv.inv_dl[c]
+                n = q[comp].numel()
                 rec = _hold(
                     f"K3 {name} {comp} {tuple(q[comp].shape)} {tag}",
                     lambda e: cs.convection3d_apply(e, c, iv),
                     lambda e: cs.convection3d_apply_ref(e, c, iv), ext, tol,
-                    applies)
+                    applies, ((numel(ext) + n + numel(iv)) * size, 34 * n,
+                              dtype))
                 if (name, comp, dtype) == ("sphere", "u", torch.float32):
                     records["K3"] = rec
         # K4/K5: the fused sweep on the finest level of the flagship and of
@@ -405,37 +555,71 @@ def phase2_kernels(tmp: str) -> dict:
                            scale=cases[name]["parameters"]["dt"])
             shape = tuple(mg.levels[0].shape)
             pair = (randn(shape, dtype), randn(shape, dtype))
+            n = pair[0].numel()
             for d in range(mesh.dim):
                 axis, aux = mesh.dim - 1 - d, mg._aux(0, d)
+                ops = 7 + 6 * (mesh.dim - 1) + 14 * _steps(shape[axis])
                 rec = _hold(
                     f"K4/K5 {name} level 0 {shape} direction {d} {tag}",
                     lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis,
                                                      1.0),
                     lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux,
                                                          axis, 1.0),
-                    pair, tol, applies)
+                    pair, tol, applies,
+                    ((3 * n + numel(aux)) * size, ops * n, dtype))
                 if (name, d, dtype) == ("sphere", 0, torch.float32):
                     records["K4/K5"] = rec
-        # K6/K7: the TGV's line systems at 256^3 (level 0) and 64^3
-        # (level 2), every axis
+        # K6/K7: the TGV's line systems at 256^3, 128^3 and 64^3 (levels
+        # 0-2), every axis, bit for bit; at 256^3 also the block path (the
+        # first design, which takes lines of any length), in turns
         mesh = meshes["tgv256"][0]
         mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=dtype, device=cuda,
                        scale=cases["tgv256"]["parameters"]["dt"])
-        for lvl in (0, 2):
+        for lvl in (0, 1, 2):
             shape = tuple(mg.levels[lvl].shape)
             rhs = randn(shape, dtype)
+            n = rhs.numel()
             for d in range(3):
                 axis = 2 - d
                 dl, diag, du = mg._line_system(lvl, d)
+                plan = cuda_pcr.launch_plan(shape, axis)
                 rec = _hold(
-                    f"K6/K7 tgv256 level {lvl} {shape} axis {axis} {tag}",
+                    f"K6/K7 tgv256 level {lvl} {shape} axis {axis} {plan} "
+                    f"{tag}",
                     lambda x: cuda_pcr.pcr(dl, diag, du, x, axis),
                     lambda x: cuda_pcr.pcr_ref(dl, diag, du, x, axis), rhs,
-                    tol, applies if lvl else applies // 2)
+                    0.0, applies if lvl else applies // 2,
+                    (5 * n * size, (14 * _steps(shape[axis]) + 1) * n, dtype))
                 if (lvl, axis, dtype) == (0, 0, torch.float32):
                     records["K6/K7"] = rec
+                if lvl == 0:
+                    _pcr_block_ab(f"K6/K7 tgv256 level 0 axis {axis} {tag}",
+                                  dl, diag, du, rhs, axis, applies // 2)
         del mg, dl, diag, du
     return records
+
+
+def _pcr_block_ab(label: str, dl, diag, du, rhs, axis: int,
+                  applies: int) -> None:
+    """K6/K7's plan against its block path on the same line systems: equal
+    bits, then timed in turns (plan, block, block, plan)."""
+    import torch
+
+    from petibm_tpu_torch.linalg import cuda_pcr
+
+    plan = cuda_pcr.launch_plan(rhs.shape, axis)
+    block = cuda_pcr.block_plan(rhs.shape, axis)
+
+    def run(p):
+        return lambda x: cuda_pcr.launch(dl, diag, du, x, axis, p)
+
+    if not torch.equal(run(plan)(rhs), run(block)(rhs)):
+        raise AssertionError(f"{label}: the plan and the block path differ")
+    times = [_time_ms(run(p), rhs, applies)[0]
+             for p in (plan, block, block, plan)]
+    print(f"{label}: {plan.path} {times[0] * 1e3:.2f}, {times[3] * 1e3:.2f} "
+          f"us; block path {times[1] * 1e3:.2f}, {times[2] * 1e3:.2f} us "
+          "(device, median per apply, equal bits)")
 
 
 def _reset_counts() -> None:
@@ -822,8 +1006,10 @@ def _report_mg(label: str, solver, elapsed: float, nsteps: int,
           f"{max(p_iters)}; {len(solver.poisson_mg.levels)} MG levels, "
           f"{solver.poisson_mg.sweeps_per_vcycle()} sweeps per V-cycle"
           + extra)
+    window = [s["p_iters"] for s in solver.stats_history[len(p_iters):]]
     print(f"{label} profile of 5 more steps: {wall_ms:.3f} ms/step wall, "
-          f"{device_ms:.3f} ms/step device, busy share {busy:.4f}")
+          f"{device_ms:.3f} ms/step device, busy share {busy:.4f}; "
+          f"p_iters {window}")
 
 
 def _timed_run(solver, warm: int, total: int) -> float:

@@ -31,10 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: FMA: PCR on a stretched grid amplifies every rounding difference by the
 #: line systems' condition (1e-5 relative at the flagship's 450^2 level in
 #: float32 with contraction), so they round op for op as their twins do.
+#: K6/K7's build reports each kernel's registers and spills (ptxas -v).
 EXTRA_FLAGS = {"line_sweep": ("--fmad=false",),
-               "tridiag_pcr": ("--fmad=false",)}
+               "tridiag_pcr": ("--fmad=false", "-Xptxas", "-v")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: the compiler's messages of each source built by this process
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -70,6 +73,7 @@ def build(name: str) -> tuple[Path, float]:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
     os.replace(tmp, so)  # atomic against a build running alongside
     return so, time.perf_counter() - t0
 

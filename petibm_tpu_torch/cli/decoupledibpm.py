@@ -10,15 +10,14 @@ from __future__ import annotations
 import sys
 
 from ..solvers.decoupledibpm import DecoupledIBPMSolver
-from .common import config_from_args, make_parser
+from .common import config_from_args, parse_args
 
 
 def main(argv=None) -> int:
-    args = make_parser(
-        "Decoupled IBPM solver (Li et al. 2016), PyTorch/CUDA port"
-    ).parse_args(argv)
+    args = parse_args(
+        "Decoupled IBPM solver (Li et al. 2016), PyTorch/CUDA port", argv)
     config = config_from_args(args)
-    solver = DecoupledIBPMSolver(config)
+    solver = DecoupledIBPMSolver(config, device=args.device)
     print(solver.mesh.info())
     print(f"device: {solver.device}, dtype: {solver.dtype}")
     print(f"bodies: {solver.bodies.n_bodies} ({solver.bodies.n_pts} points)")

@@ -10,14 +10,14 @@ from __future__ import annotations
 import sys
 
 from ..solvers.navierstokes import NavierStokesSolver
-from .common import config_from_args, make_parser
+from .common import config_from_args, parse_args
 
 
 def main(argv=None) -> int:
-    args = make_parser(
-        "Navier-Stokes projection solver, PyTorch/CUDA port").parse_args(argv)
+    args = parse_args("Navier-Stokes projection solver, PyTorch/CUDA port",
+                      argv)
     config = config_from_args(args)
-    solver = NavierStokesSolver(config)
+    solver = NavierStokesSolver(config, device=args.device)
     print(solver.mesh.info())
     print(f"device: {solver.device}, dtype: {solver.dtype}")
     solver.run(progress=True)

@@ -1,20 +1,24 @@
 """K6/K7: the batched tridiagonal solve along one axis as a CUDA kernel.
 
 Counterpart of ``petibm_tpu/linalg/pallas_pcr.py``: ``pcr_pallas`` (K6)
-and ``pcr_pallas_blocked`` (K7) become one kernel,
+and ``pcr_pallas_blocked`` (K7) become one entry point,
 ``csrc/tridiag_pcr.cu``; the blocked variant and its VMEM sizing
 (``fits_vmem``, ``pick_block``, ``device_vmem_budget``) have no use on the
 card.  The multigrid smoother calls it on levels with a periodic axis
 (``linalg/mg.py``).
 
-``pcr`` launches the kernel on a CUDA tensor (one more in
-``pcr.launches``) and runs the plain twin ``pcr_ref`` on a CPU tensor; it
-never falls back from one to the other.
+``launch_plan`` picks the kernel's path for a shape: lines of up to
+``WARP_LINE`` rows are solved one a warp in registers, longer ones (up to
+``MAX_LINE``) one or more a block in shared memory.  ``pcr`` launches the
+kernel on a CUDA tensor (one more in ``pcr.launches``) and runs the plain
+twin ``pcr_ref`` on a CPU tensor; it never falls back from one to the
+other.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +28,59 @@ from .tridiag import tridiag_solve_pcr
 
 #: the longest line the kernel takes (``pcr::kMaxLine`` in csrc/pcr.cuh)
 MAX_LINE = 4096
+#: rows a lane holds at most on the register paths (``kMaxRows``), and
+#: the longest line they take (``kWarpLine``)
+MAX_ROWS_PER_LANE = 8
+WARP_LINE = 32 * MAX_ROWS_PER_LANE
+#: lines (one warp each) of a ``warp_rows`` block (``kRowsWarps``) and
+#: of a ``warp_tiles`` block (``kTileLines``)
+ROWS_WARPS = 8
+TILE_LINES = 8
+#: the kernel's path codes (``Path`` in csrc/tridiag_pcr.cu)
+PATHS = {"block": 0, "warp_rows": 1, "warp_tiles": 2}
+
+
+class Plan(NamedTuple):
+    """How the kernel solves one shape: ``path`` (a key of ``PATHS``),
+    ``rows`` (rows a lane holds, 0 on the block path) and ``lines`` (lines
+    a block)."""
+    path: str
+    rows: int
+    lines: int
+
+
+def launch_plan(shape, axis: int) -> Plan:
+    """The plan for lines along ``axis`` of the 3D ``shape`` (a 2D array
+    is (1, n1, n2)):
+
+    - lines of at most ``WARP_LINE`` rows in an array of fewer than 2^31
+      values: one warp a line, ``rows`` the least power of two with
+      32 * rows >= n; along the contiguous axis ``warp_rows``
+      (``ROWS_WARPS`` lines a block), along the others ``warp_tiles``
+      (``TILE_LINES`` lines next to each other a block);
+    - longer lines, up to ``MAX_LINE``: ``block_plan``."""
+    n = shape[axis]
+    if n > MAX_LINE:
+        raise ValueError(f"K6/K7 takes lines of at most {MAX_LINE} rows, "
+                         f"got {n}")
+    if n > WARP_LINE or shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        return block_plan(shape, axis)
+    rows = 1
+    while 32 * rows < n:
+        rows *= 2
+    if axis == 2:
+        return Plan("warp_rows", rows, ROWS_WARPS)
+    return Plan("warp_tiles", rows, TILE_LINES)
+
+
+def block_plan(shape, axis: int) -> Plan:
+    """The block path for lines along ``axis`` of the 3D ``shape``: as
+    many whole lines a block as fit 2048 values, at most 64 and at most
+    the batch (``pcr::make_lines``).  It takes any line of up to
+    ``MAX_LINE`` rows."""
+    n = shape[axis]
+    nlines = shape[0] * shape[1] * shape[2] // n
+    return Plan("block", 0, min(max(2048 // n, 1), 64, nlines))
 
 
 def pcr_ref(a, b, c, d, axis: int):
@@ -55,6 +112,22 @@ def check_lines(name: str, shape, axis: int) -> int:
     return axis + 3 - ndim
 
 
+def launch(a, b, c, d, axis3: int, plan: Plan):
+    """One launch of the kernel with ``plan`` on CUDA tensors that ``pcr``
+    has checked; counts nothing (``pcr`` does)."""
+    fn = c_function("tridiag_pcr", "tridiag_pcr", a.dtype,
+                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    x = torch.empty_like(a)
+    shape = (1,) * (3 - a.ndim) + tuple(a.shape)
+    with torch.cuda.device(a.device):
+        err = fn(ptr(a), ptr(b), ptr(c), ptr(d), ptr(x), *shape, axis3,
+                 PATHS[plan.path], plan.rows, plan.lines, stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"K6/K7 launch failed with CUDA error {err}")
+    return x
+
+
 def pcr(a, b, c, d, axis: int):
     """K6/K7: solve a[i] x[i-1] + b[i] x[i] + c[i] x[i+1] = d[i] along
     ``axis`` of 2D or 3D arrays of one shape (a[first] and c[last] are
@@ -70,16 +143,8 @@ def pcr(a, b, c, d, axis: int):
         return pcr_ref(a, b, c, d, axis)
     for t in (a, b, c, d):
         check_launchable("K6/K7", t)
-    fn = c_function("tridiag_pcr", "tridiag_pcr", a.dtype,
-                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
-                    + [ctypes.c_int, ctypes.c_void_p])
-    x = torch.empty_like(a)
     shape = (1,) * (3 - a.ndim) + tuple(a.shape)
-    with torch.cuda.device(a.device):
-        err = fn(ptr(a), ptr(b), ptr(c), ptr(d), ptr(x), *shape, axis3,
-                 stream(a.device))
-    if err != 0:
-        raise RuntimeError(f"K6/K7 launch failed with CUDA error {err}")
+    x = launch(a, b, c, d, axis3, launch_plan(shape, axis3))
     pcr.launches += 1
     return x
 

@@ -89,17 +89,27 @@ def check_supported(config: dict) -> None:
                           "precision than the solve)", "ROADMAP item 15b")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a solver runs on: ``None`` means cuda.  Raises when cuda
+    is asked for and no card is present; it never picks the CPU itself."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(-device cpu on the command line) to run on the "
+                           "CPU")
+    return device
+
+
 class NavierStokesSolver:
     """The projection-method solver; the IBM solvers extend it through
     ``_extra_init`` and ``_build_step``."""
 
     def __init__(self, config: dict, device=None):
-        """``device``: where fields live (default: cuda when available)."""
+        """``device``: where fields live, "cuda" unless given; the CPU
+        only when asked for (``device="cpu"``)."""
         self.config = config
         self.timers = StageTimers()
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         check_supported(config)
         with self.timers.stage("initialize"):
             self._init(config)

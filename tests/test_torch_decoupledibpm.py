@@ -161,7 +161,8 @@ def test_d_cli_logs_match(tmp_path, capsys):
     _write_case(str(tmp_path / "jax_case"), cfg)
     _write_case(str(tmp_path / "port_case"), cfg)
     assert jax_main(["-directory", str(tmp_path / "jax_case")]) == 0
-    assert port_main(["-directory", str(tmp_path / "port_case")]) == 0
+    assert port_main(["-directory", str(tmp_path / "port_case"),
+                      "-device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[time step 12]" in out
     for name, iter_cols in (("iterations-0.txt", (1, 3, 5)),

@@ -281,7 +281,8 @@ def test_ns_cli_runs_mgcg(tmp_path, capsys):
     for name in ("jax_case", "port_case"):
         _write_case(str(tmp_path / name), cfg)
     assert jax_main(["-directory", str(tmp_path / "jax_case")]) == 0
-    assert port_main(["-directory", str(tmp_path / "port_case")]) == 0
+    assert port_main(["-directory", str(tmp_path / "port_case"),
+                      "-device", "cpu"]) == 0
     assert "[time step 5]" in capsys.readouterr().out
     want = np.loadtxt(tmp_path / "jax_case" / "output" / "iterations-0.txt")
     got = np.loadtxt(tmp_path / "port_case" / "output" / "iterations-0.txt")

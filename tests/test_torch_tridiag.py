@@ -7,19 +7,19 @@ the JAX package on the same numpy inputs.
     ``pcr_pallas`` (2D, both axes) and ``pcr_pallas_blocked`` (3D, every
     axis) in interpret mode, float32 (1e-5) and float64 (1e-12)
 (c) the ``pcr`` wrapper runs the twin on CPU tensors and raises on what
-    the kernel does not take
-(d) on a card: the kernel against its twin (1e-6 relative in float32,
-    1e-13 in float64), every axis, lines of 2 to 4096 rows
+    the kernel does not take; ``launch_plan`` picks the path, rows a lane
+    and lines a block for every line length and axis
+(d) on a card (the JAX side is imported inside the tests that use it, so
+    these also run where jax is not installed: ``--noconftest -m cuda``):
+    the kernel equals its twin bit for bit, every axis, 2D and
+    3D, lines of 1 to 4096 rows across every threshold of the plan; the
+    block path equals the register paths where both apply
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from petibm_tpu.linalg.pallas_pcr import pcr_pallas, pcr_pallas_blocked
-from petibm_tpu.linalg.tridiag import tridiag_solve_pcr as jax_pcr
 from petibm_tpu_torch.linalg import cuda_pcr
 from petibm_tpu_torch.linalg.tridiag import tridiag_solve_pcr
 
@@ -59,6 +59,11 @@ def rel(got, want):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 16, 100, 450])
 def test_pcr_matches_jax_and_lapack(n):
+    import jax
+    import jax.numpy as jnp
+
+    from petibm_tpu.linalg.tridiag import tridiag_solve_pcr as jax_pcr
+
     rng = np.random.default_rng(n)
     a, b, c, d, x = random_system(rng, (4, 5, n))
     # a[first] and c[last] are ignored: garbage there changes nothing
@@ -78,6 +83,10 @@ def test_pcr_matches_jax_and_lapack(n):
 def test_pcr_poisson_line_systems():
     """The smoother's systems: FV Poisson lines on a strongly stretched
     grid (test_tridiag.py::test_pcr_poisson_line_systems)."""
+    import jax.numpy as jnp
+
+    from petibm_tpu.linalg.tridiag import tridiag_solve_pcr as jax_pcr
+
     rng = np.random.default_rng(1)
     w = np.geomspace(1.0, 40.0, 128)
     inv = 1.0 / (0.5 * (w[:-1] + w[1:]))
@@ -100,6 +109,10 @@ def test_pcr_poisson_line_systems():
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("n,axis", [(37, 1), (37, 0), (64, 1), (64, 0)])
 def test_pcr_ref_matches_pallas_2d(n, axis, dtype):
+    import jax.numpy as jnp
+
+    from petibm_tpu.linalg.pallas_pcr import pcr_pallas
+
     rng = np.random.default_rng(3)
     shape = (n, 41) if axis == 0 else (41, n)
     args = [v.astype(dtype) for v in random_system(rng, shape, axis)[:4]]
@@ -113,6 +126,10 @@ def test_pcr_ref_matches_pallas_2d(n, axis, dtype):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_pcr_ref_matches_pallas_blocked_3d(axis, dtype):
+    import jax.numpy as jnp
+
+    from petibm_tpu.linalg.pallas_pcr import pcr_pallas_blocked
+
     rng = np.random.default_rng(5)
     shape = (12, 16, 16)
     args = [v.astype(dtype) for v in random_system(rng, shape, axis)[:4]]
@@ -148,16 +165,57 @@ def test_pcr_wrapper_raises_on_what_the_kernel_does_not_take():
         cuda_pcr.pcr(ones, ones, ones, ones, axis=2)
 
 
+#: line lengths at and around every threshold of the launch plan
+PLAN_LENGTHS = [1, 2, 3, 31, 32, 33, 255, 256, 257, 512, 513, 4096]
+
+
+@pytest.mark.parametrize("n", PLAN_LENGTHS)
+def test_launch_plan(n):
+    for axis in (0, 1, 2):
+        shape = [5, 7, 19]
+        shape[axis] = n
+        plan = cuda_pcr.launch_plan(tuple(shape), axis)
+        if n <= 256:
+            # the least power of two of rows a lane that holds the line
+            rows = 1 if n <= 32 else 2 if n <= 64 else 4 if n <= 128 else 8
+            if axis == 2:
+                assert plan == ("warp_rows", rows, cuda_pcr.ROWS_WARPS)
+            else:
+                assert plan == ("warp_tiles", rows, cuda_pcr.TILE_LINES)
+        else:
+            nlines = shape[0] * shape[1] * shape[2] // n
+            assert plan == ("block", 0, min(max(2048 // n, 1), 64, nlines))
+
+
+def test_launch_plan_2d_and_limits():
+    # a 2D array is (1, n1, n2): its lines along axis 1 are strided
+    assert cuda_pcr.launch_plan((1, 100, 3), 1) == ("warp_tiles", 4, 8)
+    assert cuda_pcr.launch_plan((1, 3, 100), 2) == ("warp_rows", 4, 8)
+    assert cuda_pcr.launch_plan((1, 300, 5), 1) == ("block", 0, 5)
+    # arrays of 2^31 values or more take the block path (64-bit offsets)
+    assert cuda_pcr.launch_plan((2 ** 16, 2 ** 8, 2 ** 7), 2).path \
+        == "block"
+    assert cuda_pcr.launch_plan((2 ** 16, 2 ** 8, 2 ** 7 - 1), 2).path \
+        == "warp_rows"
+    with pytest.raises(ValueError, match="at most 4096"):
+        cuda_pcr.launch_plan((2, 3, cuda_pcr.MAX_LINE + 1), 2)
+    with pytest.raises(ValueError, match="at most 4096"):
+        cuda_pcr.launch_plan((cuda_pcr.MAX_LINE + 1, 3, 2), 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pcr_kernel_matches_twin_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(11)
-    tol = {torch.float32: 1e-6, torch.float64: 1e-13}[dtype]
-    cases = [((40, 33, 27), a) for a in (0, 1, 2)]
-    cases += [((64, 2), 1), ((3, 64), 0), ((2, 4096), 1), ((4096, 3), 0),
-              ((4, 3, 1), 2)]
+    cases = []
+    for n in PLAN_LENGTHS:
+        for axis in (0, 1, 2):
+            shape = [6, 5, 19]
+            shape[axis] = n
+            cases.append((tuple(shape), axis))
+        cases += [((n, 37), 0), ((37, n), 1)]
     for shape, axis in cases:
         args = [torch.as_tensor(v, dtype=dtype, device="cuda")
                 for v in random_system(rng, shape, axis)[:4]]
@@ -166,4 +224,11 @@ def test_pcr_kernel_matches_twin_on_card(dtype):
         torch.cuda.synchronize()
         assert cuda_pcr.pcr.launches == before + 1
         want = cuda_pcr.pcr_ref(*args, axis)
-        assert rel(got.cpu(), want.cpu()) <= tol, (shape, axis)
+        assert float((got - want).abs().max()) == 0.0, (shape, axis)
+        if shape[axis] <= cuda_pcr.WARP_LINE:
+            # the block path takes these lines too, with the same bits
+            shape3 = (1,) * (3 - len(shape)) + shape
+            axis3 = axis + 3 - len(shape)
+            block = cuda_pcr.launch(*args, axis3,
+                                    cuda_pcr.block_plan(shape3, axis3))
+            assert torch.equal(block, got), (shape, axis)
