@@ -9,8 +9,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
 1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
-   one nvcc per source, all at once, and print K6/K7's registers and
-   spills (``ptxas -v``);
+   one nvcc per source, all at once, and print the line kernels' (K4/K5,
+   K6/K7) registers and spills, instance by instance (``ptxas -v``);
 2. hold each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths, and time both beside the kernel's bound
    (bytes moved once over 3.35 TB/s, or operations over the card's peak)
@@ -38,15 +38,16 @@ Phases, in order (any failure raises and the script exits non-zero):
    and 100 timed steps), the sphere (20 steps) and the 256^3 TGV (10
    steps, the energy does not grow), each through ``run()`` with every
    launch count checked against the stats and its device busy share
-   profiled over a few more steps;
+   profiled over a few more steps (device ms per V-cycle beside the
+   profile window's p_iters);
 9. A/B the three MG-CG paths with the kernels on and off from their
    developed states, and small MG-CG cases on the card against the CPU
    path.
 
-Phase 2 also holds K4/K5 (the flagship's and the sphere's finest level,
-every line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels,
-every axis, bit for bit; at 256^3 also timed beside its block path)
-against their twins.  The line before the last is the per-kernel JSON
+Phase 2 also holds K4/K5 (levels 0 and 1 of the flagship and of the
+sphere, every line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3
+levels, every axis) against their twins bit for bit, and times each at
+its finest level beside its block path.  The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -272,17 +273,18 @@ def phase1_build() -> None:
         print(f"built {path.name} in {seconds:.2f} s"
               + (" (already built)" if seconds == 0.0 else ""))
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
-    # K6/K7's registers and spills, kernel by kernel (ptxas -v)
-    log = _kernels.BUILD_LOGS.get("tridiag_pcr")
-    if log is None:
-        print("tridiag_pcr was already built: no ptxas report")
-        return
-    name = "?"
-    for line in log.splitlines():
-        if "Function properties for" in line:
-            name = line.split("Function properties for")[-1].strip()
-        elif "spill" in line or "Used" in line:
-            print(f"ptxas tridiag_pcr {name}: {line.strip()}")
+    # the line kernels' registers and spills, instance by instance (ptxas -v)
+    for source in ("line_sweep", "tridiag_pcr"):
+        log = _kernels.BUILD_LOGS.get(source)
+        if log is None:
+            print(f"{source} was already built: no ptxas report")
+            continue
+        name = "?"
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[-1].strip()
+            elif "spill" in line or "Used" in line:
+                print(f"ptxas {source} {name}: {line.strip()}")
 
 
 def _mesh_and_bcs(cfg: dict):
@@ -547,28 +549,43 @@ def phase2_kernels(tmp: str) -> dict:
                               dtype))
                 if (name, comp, dtype) == ("sphere", "u", torch.float32):
                     records["K3"] = rec
-        # K4/K5: the fused sweep on the finest level of the flagship and of
-        # the sphere, every line direction
+        # K4/K5: the fused sweep on levels 0 and 1 of the flagship and of
+        # the sphere, every line direction, bit for bit; at level 0 also
+        # the block path (the first design, which takes lines of any length),
+        # in turns
         for name in ("450x450", "sphere"):
             mesh = meshes[name][0]
             mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=dtype, device=cuda,
                            scale=cases[name]["parameters"]["dt"])
-            shape = tuple(mg.levels[0].shape)
-            pair = (randn(shape, dtype), randn(shape, dtype))
-            n = pair[0].numel()
-            for d in range(mesh.dim):
-                axis, aux = mesh.dim - 1 - d, mg._aux(0, d)
-                ops = 7 + 6 * (mesh.dim - 1) + 14 * _steps(shape[axis])
-                rec = _hold(
-                    f"K4/K5 {name} level 0 {shape} direction {d} {tag}",
-                    lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis,
-                                                     1.0),
-                    lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux,
-                                                         axis, 1.0),
-                    pair, tol, applies,
-                    ((3 * n + numel(aux)) * size, ops * n, dtype))
-                if (name, d, dtype) == ("sphere", 0, torch.float32):
-                    records["K4/K5"] = rec
+            for lvl in (0, 1):
+                shape = tuple(mg.levels[lvl].shape)
+                pair = (randn(shape, dtype), randn(shape, dtype))
+                n = pair[0].numel()
+                shape3 = (1,) * (3 - mesh.dim) + shape
+                for d in range(mesh.dim):
+                    axis, aux = mesh.dim - 1 - d, mg._aux(lvl, d)
+                    axis3 = axis + 3 - mesh.dim
+                    plan = cuda_sweep.launch_plan(shape3, axis3)
+                    ops = 7 + 6 * (mesh.dim - 1) + 14 * _steps(shape[axis])
+                    label = (f"K4/K5 {name} level {lvl} {shape} direction "
+                             f"{d} {tag}")
+                    rec = _hold(
+                        f"{label} {plan}",
+                        lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis,
+                                                         1.0),
+                        lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux,
+                                                             axis, 1.0),
+                        pair, 0.0, applies if lvl else applies // 2,
+                        ((3 * n + numel(aux)) * size, ops * n, dtype))
+                    if (name, lvl, d, dtype) == ("sphere", 0, 0,
+                                                 torch.float32):
+                        records["K4/K5"] = rec
+                    if lvl == 0:
+                        _block_ab(label, lambda p: lambda a: cuda_sweep.launch(
+                            a[0], a[1], aux, axis, 1.0, p), plan,
+                            cuda_pcr.block_plan(shape3, axis3), pair,
+                            applies // 2)
+            del mg
         # K6/K7: the TGV's line systems at 256^3, 128^3 and 64^3 (levels
         # 0-2), every axis, bit for bit; at 256^3 also the block path (the
         # first design, which takes lines of any length), in turns
@@ -593,33 +610,28 @@ def phase2_kernels(tmp: str) -> dict:
                 if (lvl, axis, dtype) == (0, 0, torch.float32):
                     records["K6/K7"] = rec
                 if lvl == 0:
-                    _pcr_block_ab(f"K6/K7 tgv256 level 0 axis {axis} {tag}",
-                                  dl, diag, du, rhs, axis, applies // 2)
+                    _block_ab(f"K6/K7 tgv256 level 0 axis {axis} {tag}",
+                              lambda p: lambda x: cuda_pcr.launch(
+                                  dl, diag, du, x, axis, p), plan,
+                              cuda_pcr.block_plan(shape, axis), rhs,
+                              applies // 2)
         del mg, dl, diag, du
     return records
 
 
-def _pcr_block_ab(label: str, dl, diag, du, rhs, axis: int,
-                  applies: int) -> None:
-    """K6/K7's plan against its block path on the same line systems: equal
-    bits, then timed in turns (plan, block, block, plan)."""
+def _block_ab(label: str, launch, plan, block, arg, applies: int) -> None:
+    """A line kernel's plan against its block path on the same input
+    (``launch(plan)`` is the function of ``arg`` that launches ``plan``):
+    equal bits, then timed in turns (plan, block, block, plan)."""
     import torch
 
-    from petibm_tpu_torch.linalg import cuda_pcr
-
-    plan = cuda_pcr.launch_plan(rhs.shape, axis)
-    block = cuda_pcr.block_plan(rhs.shape, axis)
-
-    def run(p):
-        return lambda x: cuda_pcr.launch(dl, diag, du, x, axis, p)
-
-    if not torch.equal(run(plan)(rhs), run(block)(rhs)):
+    if not torch.equal(launch(plan)(arg), launch(block)(arg)):
         raise AssertionError(f"{label}: the plan and the block path differ")
-    times = [_time_ms(run(p), rhs, applies)[0]
+    times = [_time_ms(launch(p), arg, applies)[0]
              for p in (plan, block, block, plan)]
-    print(f"{label}: {plan.path} {times[0] * 1e3:.2f}, {times[3] * 1e3:.2f} "
-          f"us; block path {times[1] * 1e3:.2f}, {times[2] * 1e3:.2f} us "
-          "(device, median per apply, equal bits)")
+    print(f"{label}: {plan.path} R{plan.rows} {times[0] * 1e3:.2f}, "
+          f"{times[3] * 1e3:.2f} us; block path {times[1] * 1e3:.2f}, "
+          f"{times[2] * 1e3:.2f} us (device, median per apply, equal bits)")
 
 
 def _reset_counts() -> None:
@@ -1007,9 +1019,12 @@ def _report_mg(label: str, solver, elapsed: float, nsteps: int,
           f"{solver.poisson_mg.sweeps_per_vcycle()} sweeps per V-cycle"
           + extra)
     window = [s["p_iters"] for s in solver.stats_history[len(p_iters):]]
+    # one V-cycle per CG iteration and one more: device time follows them
+    vcycles = statistics.mean(window) + 1
     print(f"{label} profile of 5 more steps: {wall_ms:.3f} ms/step wall, "
           f"{device_ms:.3f} ms/step device, busy share {busy:.4f}; "
-          f"p_iters {window}")
+          f"p_iters {window}: {device_ms / vcycles:.3f} ms device per "
+          "V-cycle")
 
 
 def _timed_run(solver, warm: int, total: int) -> float:

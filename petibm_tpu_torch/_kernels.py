@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: FMA: PCR on a stretched grid amplifies every rounding difference by the
 #: line systems' condition (1e-5 relative at the flagship's 450^2 level in
 #: float32 with contraction), so they round op for op as their twins do.
-#: K6/K7's build reports each kernel's registers and spills (ptxas -v).
-EXTRA_FLAGS = {"line_sweep": ("--fmad=false",),
+#: Their builds report each kernel's registers and spills (ptxas -v).
+EXTRA_FLAGS = {"line_sweep": ("--fmad=false", "-Xptxas", "-v"),
                "tridiag_pcr": ("--fmad=false", "-Xptxas", "-v")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

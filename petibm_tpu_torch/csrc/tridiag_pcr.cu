@@ -31,7 +31,8 @@
 //
 // Design.  The wrapper (linalg/cuda_pcr.py launch_plan) hands in a plan:
 //
-// - Register paths, lines of at most kWarpLine = 256 rows: one warp holds
+// - Register paths (the passes in pcr_warp.cuh, shared with K4/K5), lines
+//   of at most kWarpLine = 256 rows: one warp holds
 //   one line, row i = 32 r + lane in register r (r < R <= 8) of lane
 //   i % 32, so every register's load or store is 32 consecutive rows.  A
 //   pass with k < 32 takes rows i -+ k from lane (lane -+ k) % 32 with one
@@ -53,10 +54,10 @@
 //   whole lines in shared memory and runs the passes there (pcr.cuh).
 
 #include "pcr.cuh"
+#include "pcr_warp.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 // rows a lane holds at most, and the longest line of the register paths
 constexpr int kMaxRows = 8;
 constexpr int kWarpLine = 32 * kMaxRows;
@@ -65,86 +66,6 @@ constexpr int kRowsWarps = 8;
 constexpr int kTileLines = 8;
 
 enum Path { kBlock = 0, kWarpRows = 1, kWarpTiles = 2 };
-
-__host__ __device__ constexpr int log2i(int v) {
-  return v <= 1 ? 0 : 1 + log2i(v / 2);
-}
-
-// One PCR pass with coupling distance K over the line a warp holds (R rows
-// a lane, row i = 32 r + lane), in the twin's order of operations: rows
-// out of range read b = 1 and a = c = d = 0.
-template <typename T, int R, int K>
-__device__ __forceinline__ void warp_pass(T (&a)[R], T (&b)[R], T (&c)[R],
-                                          T (&d)[R], int n, int lane) {
-  T na[R], nb[R], nc[R], nd[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = 32 * r + lane;
-    const bool lo = i - K >= 0;
-    const bool hi = i + K < n;
-    T al, bl, cl, dl, ah, bh, ch, dh;
-    if constexpr (K < 32) {
-      // row i - K is in lane (lane - K) % 32: register r there, or r - 1
-      // when the sender is one of the last K lanes; row i + K in lane
-      // (lane + K) % 32: register r, or r + 1 when the sender is one of
-      // the first K lanes.  Each lane sends what its receiver needs.
-      const int rp = r > 0 ? r - 1 : 0;
-      const int rn = r < R - 1 ? r + 1 : R - 1;
-      const bool prev = lane >= 32 - K;
-      const bool next = lane < K;
-      const int from_lo = (lane - K) & 31;
-      const int from_hi = (lane + K) & 31;
-      al = __shfl_sync(kFull, prev ? a[rp] : a[r], from_lo);
-      bl = __shfl_sync(kFull, prev ? b[rp] : b[r], from_lo);
-      cl = __shfl_sync(kFull, prev ? c[rp] : c[r], from_lo);
-      dl = __shfl_sync(kFull, prev ? d[rp] : d[r], from_lo);
-      ah = __shfl_sync(kFull, next ? a[rn] : a[r], from_hi);
-      bh = __shfl_sync(kFull, next ? b[rn] : b[r], from_hi);
-      ch = __shfl_sync(kFull, next ? c[rn] : c[r], from_hi);
-      dh = __shfl_sync(kFull, next ? d[rn] : d[r], from_hi);
-    } else {
-      // rows i -+ K sit in registers r -+ K/32 of this lane; where that
-      // register does not exist the row is out of range (lo or hi false)
-      constexpr int M = K / 32;
-      const int rl = r - M >= 0 ? r - M : 0;
-      const int rh = r + M < R ? r + M : R - 1;
-      al = a[rl];
-      bl = b[rl];
-      cl = c[rl];
-      dl = d[rl];
-      ah = a[rh];
-      bh = b[rh];
-      ch = c[rh];
-      dh = d[rh];
-    }
-    const T alpha = -a[r] / (lo ? bl : T(1));
-    const T beta = -c[r] / (hi ? bh : T(1));
-    na[r] = alpha * (lo ? al : T(0));
-    nb[r] = b[r] + alpha * (lo ? cl : T(0)) + beta * (hi ? ah : T(0));
-    nc[r] = beta * (hi ? ch : T(0));
-    nd[r] = d[r] + alpha * (lo ? dl : T(0)) + beta * (hi ? dh : T(0));
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    a[r] = na[r];
-    b[r] = nb[r];
-    c[r] = nc[r];
-    d[r] = nd[r];
-  }
-}
-
-// Passes S, S + 1, ... up to `steps` (at most log2(32 R)), each with its
-// coupling distance 2^S known at compile time.
-template <typename T, int R, int S>
-__device__ __forceinline__ void warp_passes(T (&a)[R], T (&b)[R], T (&c)[R],
-                                            T (&d)[R], int n, int steps,
-                                            int lane) {
-  if constexpr (S < 5 + log2i(R)) {
-    if (S >= steps) return;  // the same for every lane of the warp
-    warp_pass<T, R, (1 << S)>(a, b, c, d, n, lane);
-    warp_passes<T, R, S + 1>(a, b, c, d, n, steps, lane);
-  }
-}
 
 // warp_rows: lines along the contiguous axis, one warp a line.  F: the
 // lines fill the warp (n = 32 R), so that the rows out of range, and the
@@ -183,18 +104,6 @@ __global__ void __launch_bounds__(32 * kRowsWarps)
     const int i = 32 * r + lane;
     if (i < n) x[i] = rd[r] / rb[r];
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
-}
-
-__device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // warp_tiles: lines along a strided axis (row stride s_line); block

@@ -15,10 +15,13 @@ line (pallas_sweep.py:12-24):
     b'[batch, i] = a_d[i] + w_d[i] * sum_{e != d} (a_e / w_e)[batch],
     rhs'[batch, i] = rhs / A_d + sum_{e != d} (w_d[i] / w_e) * couple_e(phi),
 
-solves them by PCR and returns phi + omega * (x - phi).  ``fused_sweep``
-launches the kernel on a CUDA tensor (one more in ``fused_sweep.launches``)
-and runs the plain twin ``fused_sweep_ref`` on a CPU tensor; it never
-falls back from one to the other.
+solves them by PCR and returns phi + omega * (x - phi).  ``launch_plan``
+picks the kernel's path for a shape: lines of up to ``WARP_LINE`` rows
+are swept one a warp in registers, longer ones (up to ``MAX_LINE`` rows)
+one or more a block in shared memory.  ``fused_sweep`` launches the kernel on
+a CUDA tensor (one more in ``fused_sweep.launches``) and runs the plain
+twin ``fused_sweep_ref`` on a CPU tensor; it never falls back from one to
+the other.
 """
 
 from __future__ import annotations
@@ -30,10 +33,51 @@ import torch
 
 from .._kernels import (c_function, check_dtype, check_launchable, ptr,
                         stream)
-from .cuda_pcr import check_lines, pcr_ref
+from .cuda_pcr import MAX_LINE, PATHS, Plan, block_plan, check_lines, pcr_ref
 from .tridiag import shift
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+#: rows a lane holds on the register paths (the kernel's instances), and
+#: the longest line those paths take (``kMaxRows``).  R = 5 and 3 fill the
+#: sphere's 160/130- and 80/65-row lines.  Longer lines take the block
+#: path: R = 8 was slower than R = 5 on the sphere's lines and than the
+#: block path on the flagship's 225-row lines (scripts/bench_torch_sweep.py)
+WARP_ROWS = (1, 2, 3, 4, 5)
+WARP_LINE = 32 * 5
+#: lines (one warp each) of a ``warp_rows`` block (``kRowsWarps``) and of
+#: a ``warp_tiles`` block: ``TILE_LINES``, or ``WIDE_TILE_LINES`` in
+#: batches of at least ``WIDE_TILES`` lines (16 beat 8 at the sphere's
+#: finest level, 20800 lines, and lost at its level 1, 5200)
+ROWS_WARPS = 8
+TILE_LINES = 8
+WIDE_TILE_LINES = 16
+WIDE_TILES = 16384
+
+
+def launch_plan(shape, axis: int) -> Plan:
+    """The plan for sweeping lines along ``axis`` of the 3D ``shape`` (a
+    2D level is (1, n1, n2)):
+
+    - lines of at most ``WARP_LINE`` rows in an array of fewer than 2^31
+      values: one warp a line, ``rows`` the least of
+      ``WARP_ROWS`` with 32 * rows >= n; along the contiguous axis
+      ``warp_rows`` (``ROWS_WARPS`` lines a block), along the others
+      ``warp_tiles`` (``TILE_LINES`` lines next to each other a block, or
+      ``WIDE_TILE_LINES`` in batches of at least ``WIDE_TILES`` lines);
+    - other lines, up to ``MAX_LINE``: ``block_plan``."""
+    n = shape[axis]
+    if n > MAX_LINE:
+        raise ValueError(f"K4/K5 takes lines of at most {MAX_LINE} rows, "
+                         f"got {n}")
+    size = shape[0] * shape[1] * shape[2]
+    if n > WARP_LINE or size >= 2 ** 31:
+        return block_plan(shape, axis)
+    rows = min(r for r in WARP_ROWS if 32 * r >= n)
+    if axis == 2:
+        return Plan("warp_rows", rows, ROWS_WARPS)
+    return Plan("warp_tiles", rows, WIDE_TILE_LINES
+                if size // n >= WIDE_TILES else TILE_LINES)
 
 
 def sweep_aux(level, d: int, dtype) -> list:
@@ -143,6 +187,33 @@ def _check_sweep(phi, rhs, aux, line_axis: int) -> int:
     return axis3
 
 
+def launch(phi, rhs, aux, line_axis: int, omega: float, plan: Plan):
+    """One launch of the kernel with ``plan`` on CUDA tensors that
+    ``fused_sweep`` has checked; counts nothing (``fused_sweep`` does)."""
+    fn = c_function("line_sweep", "line_sweep", phi.dtype,
+                    [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)]
+                    + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int, ctypes.c_double] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+    ndim = phi.ndim
+    line_axis %= ndim
+    vec = [None] * 15
+    vec[:6] = aux[:6]
+    for j, e_axis in enumerate(_other_axes(ndim, line_axis)):
+        e3 = e_axis + 3 - ndim
+        vec[6 + 3 * e3:9 + 3 * e3] = aux[6 + 3 * j:9 + 3 * j]
+    pointers = (ctypes.c_void_p * 15)(*(ptr(t) for t in vec))
+    out = torch.empty_like(phi)
+    shape = (1,) * (3 - ndim) + tuple(phi.shape)
+    with torch.cuda.device(phi.device):
+        err = fn(ptr(phi), ptr(rhs), ptr(out), pointers, *shape,
+                 line_axis + 3 - ndim, float(omega), PATHS[plan.path],
+                 plan.rows, plan.lines, stream(phi.device))
+    if err != 0:
+        raise RuntimeError(f"K4/K5 launch failed with CUDA error {err}")
+    return out
+
+
 def fused_sweep(phi, rhs, aux, line_axis: int, omega: float):
     """K4/K5: one damped line-Jacobi sweep along ``line_axis`` of a 2D or
     3D non-periodic level; ``aux`` from :func:`sweep_aux` as tensors on
@@ -153,24 +224,9 @@ def fused_sweep(phi, rhs, aux, line_axis: int, omega: float):
         return fused_sweep_ref(phi, rhs, aux, line_axis, omega)
     check_launchable("K4/K5", phi)
     check_launchable("K4/K5", rhs)
-    fn = c_function("line_sweep", "line_sweep", phi.dtype,
-                    [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)]
-                    + [ctypes.c_longlong] * 3
-                    + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
-    ndim = phi.ndim
-    vec = [None] * 15
-    vec[:6] = aux[:6]
-    for j, e_axis in enumerate(_other_axes(ndim, line_axis % ndim)):
-        e3 = e_axis + 3 - ndim
-        vec[6 + 3 * e3:9 + 3 * e3] = aux[6 + 3 * j:9 + 3 * j]
-    pointers = (ctypes.c_void_p * 15)(*(ptr(t) for t in vec))
-    out = torch.empty_like(phi)
-    shape = (1,) * (3 - ndim) + tuple(phi.shape)
-    with torch.cuda.device(phi.device):
-        err = fn(ptr(phi), ptr(rhs), ptr(out), pointers, *shape, axis3,
-                 float(omega), stream(phi.device))
-    if err != 0:
-        raise RuntimeError(f"K4/K5 launch failed with CUDA error {err}")
+    shape = (1,) * (3 - phi.ndim) + tuple(phi.shape)
+    out = launch(phi, rhs, aux, line_axis, omega,
+                 launch_plan(shape, axis3))
     fused_sweep.launches += 1
     return out
 

@@ -15,7 +15,10 @@ a copy under a temporary directory:
 - ``nofull``: lines that fill the warp (n = 32 R) get no compile-time
   specialisation;
 - ``tile16``: 16 lines a ``warp_tiles`` block (16 warps, rows of 64 bytes
-  in float32) instead of 8.
+  in float32) instead of 8;
+- ``exactdiv``: the register passes' float32 quotients by K4/K5's
+  ``quotient_fast``/``quotient_scaled`` (``ExactDiv`` in csrc/pcr_warp.cuh)
+  instead of `/` (float64 divides by `/` either way).
 
 For each variant, dtype and axis the shipped kernel and the variant are
 timed in turns (shipped, variant, variant, shipped; median device time
@@ -34,11 +37,16 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+#: name: (file of csrc/, the line replaced, its replacement)
 VARIANTS = {
-    "nopass": ("    if (S >= steps) return;  // the same for every lane of the warp",
+    "nopass": ("pcr_warp.cuh",
+               "    if (S >= steps) return;  // the same for every lane of the warp",
                "    return;"),
-    "nofull": ("  if (g.n == 32 * R)\n", "  if (false)\n"),
-    "tile16": ("constexpr int kTileLines = 8;", "constexpr int kTileLines = 16;"),
+    "nofull": ("tridiag_pcr.cu", "  if (g.n == 32 * R)\n", "  if (false)\n"),
+    "tile16": ("tridiag_pcr.cu", "constexpr int kTileLines = 8;",
+               "constexpr int kTileLines = 16;"),
+    "exactdiv": ("pcr_warp.cuh", "int S, bool ExactDiv = false>",
+                 "int S, bool ExactDiv = true>"),
 }
 
 
@@ -49,9 +57,9 @@ def _variant_library(tmp: Path, name: str):
 
     src = tmp / name
     shutil.copytree(_kernels._CSRC, src)
-    path = src / "tridiag_pcr.cu"
+    file, old, new = VARIANTS[name]
+    path = src / file
     text = path.read_text()
-    old, new = VARIANTS[name]
     if text.count(old) != 1:
         raise RuntimeError(f"variant {name}: the source line is gone")
     path.write_text(text.replace(old, new))
