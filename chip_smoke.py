@@ -9,8 +9,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
 1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
-   one nvcc per source, all at once, and print the line kernels' (K4/K5,
-   K6/K7) registers and spills, instance by instance (``ptxas -v``);
+   one nvcc per source, all at once, and print the registers and spills
+   of the line kernels (K4/K5, K6/K7) and of K2, instance by instance
+   (``ptxas -v``);
 2. hold each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths, and time both beside the kernel's bound
    (bytes moved once over 3.35 TB/s, or operations over the card's peak)
@@ -44,10 +45,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    developed states, and small MG-CG cases on the card against the CPU
    path.
 
-Phase 2 also holds K4/K5 (levels 0 and 1 of the flagship and of the
-sphere, every line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3
-levels, every axis) against their twins bit for bit, and times each at
-its finest level beside its block path.  The line before the last is the per-kernel JSON
+Phase 2 holds K2a and K2b (every shape), K4/K5 (levels 0 and 1 of the
+flagship and of the sphere, every line direction) and K6/K7 (the TGV's
+256^3, 128^3 and 64^3 levels, every axis) against their twins bit for
+bit, times K2 beside its first design (one thread per cell) at each
+shape, and K4/K5 and K6/K7 at their finest levels beside their block
+paths.  The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -273,8 +276,8 @@ def phase1_build() -> None:
         print(f"built {path.name} in {seconds:.2f} s"
               + (" (already built)" if seconds == 0.0 else ""))
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
-    # the line kernels' registers and spills, instance by instance (ptxas -v)
-    for source in ("line_sweep", "tridiag_pcr"):
+    # registers and spills, instance by instance (ptxas -v)
+    for source in ("line_sweep", "tridiag_pcr", "zblocked_helmholtz"):
         log = _kernels.BUILD_LOGS.get(source)
         if log is None:
             print(f"{source} was already built: no ptxas report")
@@ -478,12 +481,8 @@ def phase2_kernels(tmp: str) -> dict:
                              cs.poisson_apply_separable(phi, level), applies)
                 # K2b at the same shape: the same operator
                 k2b = cs.make_cuda_poisson_zblocked(level)
-                _hold(f"K2b sphere p {tuple(level.shape)} {tag}", k2b,
-                      lambda x: cs.zblocked_helmholtz_apply_ref(
-                          x, k2b.vecs, k2b.periodic, k2b.scale),
-                      phi, tol, applies,
-                      ((2 * n + numel(k2b.vecs.values()) + numel(k2b.scale))
-                       * size, 18 * n, dtype))
+                _hold_k2(f"K2b sphere p {tuple(level.shape)} {tag}", phi,
+                         k2b.vecs, k2b.periodic, k2b.scale, tol, applies)
                 rel = _rel_err(k2b(phi), cs.poisson_apply_separable(phi, level))
                 print(f"K2b vs K1, sphere p {tag}: rel diff {rel:.3e}")
                 if not rel <= 100 * tol:
@@ -498,14 +497,8 @@ def phase2_kernels(tmp: str) -> dict:
             for comp in comps:
                 vecs = A.vecs[comp]
                 f = randn(mesh.shape("uvw".index(comp)), dtype)
-                n = f.numel()
-                rec = _hold(f"K2a {name} {comp} {tuple(f.shape)} {tag}",
-                            lambda x: cs.zblocked_helmholtz_apply(
-                                x, vecs, A.periodic),
-                            lambda x: cs.zblocked_helmholtz_apply_ref(
-                                x, vecs, A.periodic), f, tol, applies,
-                            ((2 * n + numel(vecs.values())) * size, 15 * n,
-                             dtype))
+                rec = _hold_k2(f"K2a {name} {comp} {tuple(f.shape)} {tag}", f,
+                               vecs, A.periodic, None, tol, applies)
                 if (name, comp, dtype) == ("sphere", "u", torch.float32):
                     records["K2a"] = rec
                     _library(f"K2a sphere u {tag}", rec,
@@ -519,13 +512,8 @@ def phase2_kernels(tmp: str) -> dict:
                                scale=cases["tgv256"]["parameters"]["dt"])
         k2b = cs.make_cuda_poisson_zblocked(level)
         phi = randn(level.shape, dtype)
-        n = phi.numel()
-        rec = _hold(f"K2b tgv256 p {tuple(level.shape)} periodic {tag}", k2b,
-                    lambda x: cs.zblocked_helmholtz_apply_ref(
-                        x, k2b.vecs, k2b.periodic, k2b.scale),
-                    phi, tol, applies,
-                    ((2 * n + numel(k2b.vecs.values()) + numel(k2b.scale))
-                     * size, 18 * n, dtype))
+        rec = _hold_k2(f"K2b tgv256 p {tuple(level.shape)} periodic {tag}",
+                       phi, k2b.vecs, k2b.periodic, k2b.scale, tol, applies)
         if dtype == torch.float32:
             records["K2b"] = rec
             _library(f"K2b tgv256 p {tag}", rec,
@@ -617,6 +605,49 @@ def phase2_kernels(tmp: str) -> dict:
                               applies // 2)
         del mg, dl, diag, du
     return records
+
+
+def _hold_k2(label: str, f, vecs, periodic, scale, cells_tol: float,
+             applies: int) -> dict:
+    """K2 (the wrapper, with ``plan_on_card``'s plan) against its twin bit
+    for bit, timed beside its bound; then its first design (one thread
+    per cell) held to the twin within ``cells_tol`` and timed against
+    the plan in turns (plan, cells, cells, plan).  Returns the record of
+    the JSON line."""
+    import torch
+
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    size = torch.finfo(f.dtype).bits // 8
+    n = f.numel()
+    small = sum(v.numel() for v in vecs.values()) + (
+        0 if scale is None else sum(s.numel() for s in scale))
+    plan = cs.plan_on_card(f, scale is not None)
+    rec = _hold(f"{label} plan {tuple(plan)}",
+                lambda x: cs.zblocked_helmholtz_apply(x, vecs, periodic,
+                                                      scale),
+                lambda x: cs.zblocked_helmholtz_apply_ref(x, vecs, periodic,
+                                                          scale),
+                f, 0.0, applies,
+                ((2 * n + small) * size, (15 if scale is None else 18) * n,
+                 f.dtype))
+
+    def march(x):
+        return cs.launch(x, vecs, periodic, scale, plan)
+
+    def cells(x):
+        return cs.launch_cells(x, vecs, periodic, scale)
+
+    rel = _rel_err(cells(f), cs.zblocked_helmholtz_apply_ref(
+        f, vecs, periodic, scale))
+    if not rel <= cells_tol:
+        raise AssertionError(f"{label}: the cell kernel differs: {rel}")
+    times = [_time_ms(g, f, applies)[0] * 1e3
+             for g in (march, cells, cells, march)]
+    print(f"{label}: plan {times[0]:.2f}, {times[3]:.2f} us; cell kernel "
+          f"{times[1]:.2f}, {times[2]:.2f} us (device, median per apply; "
+          f"cell kernel rel err {rel:.3e}, tol {cells_tol:g})")
+    return rec
 
 
 def _block_ab(label: str, launch, plan, block, arg, applies: int) -> None:

@@ -22,6 +22,7 @@ CPU tensor; it never falls back from one to the other on failure.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -177,32 +178,177 @@ def _check_k2(f: torch.Tensor, vecs: dict, periodic, scale) -> None:
         raise ValueError("K2's scale vectors must match the field's axes")
 
 
+class Plan(NamedTuple):
+    """How K2 marches one shape: each block owns a tile of ``tx`` x ``ty``
+    cells of the xy plane and a chunk of ``kz`` planes in z, with
+    ``tx / vx`` x ``ty / ry`` threads that compute ``ry`` rows and ``vx``
+    neighbouring columns of the tile each (a vector load and store of
+    ``vx`` values)."""
+    tx: int
+    ty: int
+    ry: int
+    vx: int
+    kz: int
+
+
+#: the tiles (TX, TY, RY, VX) the kernel has instances of (``ZB_TILES``),
+#: in the order ``launch_plan`` prefers them: the first whose width
+#: divides nx (no block is ragged in x) and whose vector the field takes,
+#: else the last (one column a thread), which takes any field
+TILES = ((64, 8, 2, 2), (32, 16, 4, 2), (32, 16, 4, 1))
+#: the most chunks the kernel's grid takes (its y extent)
+MAX_CHUNKS = 65535
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid(shape, plan: Plan) -> tuple:
+    """The blocks of ``plan`` on the 3D ``shape``: (tiles along x, tiles
+    along y, chunks along z); block (bx, by, bz) computes x in
+    [bx tx, bx tx + tx), y in [by ty, by ty + ty) and z in
+    [bz kz, bz kz + kz), each cut at the array's end.  The kernel's grid
+    is (tiles along x times tiles along y, chunks)."""
+    nz, ny, nx = shape
+    return (_ceil(nx, plan.tx), _ceil(ny, plan.ty), _ceil(nz, plan.kz))
+
+
+def plan_for_tile(shape, tile, slots: int) -> Plan:
+    """The plan with ``tile`` for a field of the 3D ``shape`` on a card
+    that holds ``slots`` blocks of the tile's instance at once: z cut into
+    chunks of equal length (the last one shorter), as many as keep the
+    grid within ``slots`` blocks, so that every block starts at once and
+    none waits for another to end; one chunk if a plane's tiles alone
+    exceed ``slots``."""
+    nz, ny, nx = shape
+    if min(shape) < 1:
+        return Plan(*tile, 1)
+    chunks = max(1, min(nz, slots // (_ceil(nx, tile[0])
+                                      * _ceil(ny, tile[1]))))
+    return Plan(*tile, _ceil(nz, chunks))
+
+
+def launch_plan(shape, dtype, slots, align: int) -> Plan:
+    """The plan for a field of the 3D ``shape`` and ``dtype`` whose data
+    (and output) start at a multiple of ``align`` bytes: the first tile of
+    ``TILES`` that fits the field (its width divides nx, its vector of
+    ``vx`` values divides nx and ``align``), else the last; and
+    ``plan_for_tile``'s chunks for ``slots(tile)`` blocks held at once
+    (``resident_blocks``)."""
+    nx = shape[2]
+    size = torch.finfo(dtype).bits // 8
+    *first, last = TILES
+    tile = next((t for t in first if nx % t[0] == 0 and nx % t[3] == 0
+                 and align % (t[3] * size) == 0), last)
+    return plan_for_tile(shape, tile, slots(tile))
+
+
+def resident_blocks(device, dtype, scaled: bool, tile) -> int:
+    """The blocks of the instance of ``tile`` (``dtype``, scaled or not)
+    that ``device`` holds at once, from the CUDA occupancy calculator:
+    its SMs times the blocks an SM holds at the instance's registers and
+    shared memory.  Asked of the card once per instance."""
+    key = (torch.device(device), dtype, bool(scaled), tuple(tile))
+    slots = _RESIDENT.get(key)
+    if slots is None:
+        fn = c_function("zblocked_helmholtz", "zblocked_helmholtz_resident",
+                        dtype, [ctypes.c_int] * 5
+                        + [ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = fn(int(bool(scaled)), *tile, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"K2's occupancy query failed with CUDA "
+                               f"error {err} ({out.value} blocks)")
+        slots = _RESIDENT[key] = out.value
+    return slots
+
+
+_RESIDENT: dict = {}
+
+
+def plan_on_card(f: torch.Tensor, scaled: bool) -> Plan:
+    """The plan ``zblocked_helmholtz_apply`` launches for the CUDA field
+    ``f`` (its output comes from ``torch.empty_like``, aligned to at least
+    256 bytes)."""
+    ptr_f = f.data_ptr()
+    return launch_plan(f.shape, f.dtype,
+                       lambda tile: resident_blocks(f.device, f.dtype,
+                                                    scaled, tile),
+                       (ptr_f & -ptr_f) if ptr_f else 256)
+
+
+def plan_error(shape, plan: Plan):
+    """Why the C entry refuses ``plan`` for the 3D ``shape`` (it returns
+    cudaErrorInvalidValue and the wrapper raises), or None when it takes
+    it: the conditions of ``launch`` in ``csrc/zblocked_helmholtz.cu``,
+    but for one on the pointers: a vector tile also needs f and out
+    aligned to its vector."""
+    nz, ny, nx = shape
+    if min(shape) < 0:
+        return "a negative extent"
+    if min(shape) == 0:
+        return None  # nothing to launch
+    if nz * ny * nx >= 2 ** 31:
+        return "2^31 cells or more (32-bit offsets)"
+    if plan.kz < 1 or _ceil(nz, plan.kz) > MAX_CHUNKS:
+        return f"chunks of no plane, or more than {MAX_CHUNKS} of them"
+    if tuple(plan[:4]) not in TILES:
+        return f"no instance of the tile {tuple(plan[:4])}"
+    if nx % plan.vx:
+        return f"a vector of {plan.vx} columns for an x extent of {nx}"
+    return None
+
+
+def _call(entry: str, f, vecs, periodic, scale, plan_args: tuple):
+    ints = [ctypes.c_int] * (3 + len(plan_args))
+    fn = c_function("zblocked_helmholtz", entry, f.dtype,
+                    [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3 + ints
+                    + [ctypes.c_void_p])
+    out = torch.empty_like(f)
+    s = (None, None, None) if scale is None else scale
+    with torch.cuda.device(f.device):
+        err = fn(ptr(f), ptr(out), *(ptr(vecs[k]) for k in ZBLOCKED_KEYS),
+                 *(ptr(t) for t in s), *f.shape,
+                 *(int(bool(p)) for p in periodic), *plan_args,
+                 stream(f.device))
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    return out
+
+
+def launch(f, vecs, periodic, scale, plan: Plan):
+    """One launch of the march with ``plan`` on CUDA tensors that
+    ``zblocked_helmholtz_apply`` has checked; counts nothing (the wrapper
+    does).  Raises when the C entry refuses the plan."""
+    return _call("zblocked_helmholtz", f, vecs, periodic, scale, plan)
+
+
+def launch_cells(f, vecs, periodic, scale):
+    """One launch of the first design (one thread per cell), kept to be
+    timed beside the march; counts nothing, and no solver calls it."""
+    return _call("zblocked_helmholtz_cells", f, vecs, periodic, scale, ())
+
+
 def zblocked_helmholtz_apply(f: torch.Tensor, vecs: dict, periodic,
                              scale=None) -> torch.Tensor:
     """K2: out = f*(Dz+Dy+Dx) + CNz*f[k-1] + CPz*f[k+1] + ... + CPx*f[i+1],
     times Sz*Sy*Sx when ``scale`` is given.
 
     ``vecs`` maps ``ZBLOCKED_KEYS`` to 1D tensors along their axis;
-    ``periodic`` = (pz, py, px).  A CUDA ``f`` launches the kernel on the
-    current stream (one more in ``zblocked_helmholtz_apply.launches``, and
-    in ``.scaled_launches`` when scaled: the K2b use); a CPU ``f`` runs the
-    plain twin.  Raises on what the kernel does not take and when the
-    launch reports an error."""
+    ``periodic`` = (pz, py, px).  A CUDA ``f`` launches the kernel with
+    ``plan_on_card``'s plan on the current stream (one more in
+    ``zblocked_helmholtz_apply.launches``, and in ``.scaled_launches``
+    when scaled: the K2b use); a CPU ``f`` runs the plain twin.  Raises on
+    what the kernel does not take and when the launch reports an
+    error."""
     _check_k2(f, vecs, periodic, scale)
     if f.device.type == "cpu":
         return zblocked_helmholtz_apply_ref(f, vecs, periodic, scale)
     check_launchable("K2", f)
-    fn = c_function("zblocked_helmholtz", "zblocked_helmholtz", f.dtype,
-                    [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    out = torch.empty_like(f)
-    s = (None, None, None) if scale is None else scale
-    with torch.cuda.device(f.device):
-        err = fn(ptr(f), ptr(out), *(ptr(vecs[k]) for k in ZBLOCKED_KEYS),
-                 *(ptr(t) for t in s), *f.shape,
-                 *(int(bool(p)) for p in periodic), stream(f.device))
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    out = launch(f, vecs, periodic, scale,
+                 plan_on_card(f, scale is not None))
     zblocked_helmholtz_apply.launches += 1
     if scale is not None:
         zblocked_helmholtz_apply.scaled_launches += 1
