@@ -10,14 +10,16 @@ Phases, in order (any failure raises and the script exits non-zero):
    power limit;
 1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
    one nvcc per source, all at once, and print the registers and spills
-   of the line kernels (K4/K5, K6/K7) and of K2, instance by instance
-   (``ptxas -v``);
+   of the line kernels (K4/K5, K6/K7) and of K1 and K2, instance by
+   instance (``ptxas -v``); an instance of the z march (K1's 3D path, K2)
+   that spills fails the phase;
 2. hold each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths, and time both beside the kernel's bound
    (bytes moved once over 3.35 TB/s, or operations over the card's peak)
-   (K1 and K2b both at the sphere's pressure shape); time one PyTorch
-   call computing K1's, K2a's and K2b's function (``torch.sparse.mm``
-   on the operator assembled once as CSR; the port never calls it);
+   (K1 and K2b both at the sphere's pressure shape, timed in turns);
+   time one PyTorch call computing K1's (at both of its shapes), K2a's
+   and K2b's function (``torch.sparse.mm`` on the operator assembled
+   once as CSR; the port never calls it);
 3. run the 2D decoupled-IBPM cylinder (Re=200, 450^2 stretched grid,
    157 body points, float32; the ``bench.py`` configuration) through
    ``DecoupledIBPMSolver.run()`` and check that K1 was launched as often
@@ -45,13 +47,14 @@ Phases, in order (any failure raises and the script exits non-zero):
    developed states, and small MG-CG cases on the card against the CPU
    path.
 
-Phase 2 holds K2a and K2b (every shape), K4/K5 (levels 0 and 1 of the
-flagship and of the sphere, every line direction) and K6/K7 (the TGV's
-256^3, 128^3 and 64^3 levels, every axis) against their twins bit for
-bit, times K2 beside its first design (one thread per cell) at each
-shape, and K4/K5 and K6/K7 at their finest levels beside their block
-paths.  The line before the last is the per-kernel JSON
-record; the last line is ``{"ok": true, "device": {...}}``.
+Phase 2 holds K1 (450^2 and the sphere's pressure), K2a and K2b (every
+shape), K4/K5 (levels 0 and 1 of the flagship and of the sphere, every
+line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels, every
+axis) against their twins bit for bit, times K1's 3D march and K2 beside
+their first designs (one thread per cell) at each 3D shape, and K4/K5
+and K6/K7 at their finest levels beside their block paths.  The line
+before the last is the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
                            "sphere3dRe300", "sphere.body")
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
                   "line_sweep", "tridiag_pcr")
+#: the sources of the z march (csrc/march.cuh), none of whose march
+#: instances may spill
+MARCH_SOURCES = ("poisson_separable", "zblocked_helmholtz")
 DEVICE = "cuda"
 
 
@@ -277,7 +283,8 @@ def phase1_build() -> None:
               + (" (already built)" if seconds == 0.0 else ""))
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
     # registers and spills, instance by instance (ptxas -v)
-    for source in ("line_sweep", "tridiag_pcr", "zblocked_helmholtz"):
+    spills = []
+    for source in ("line_sweep", "tridiag_pcr") + MARCH_SOURCES:
         log = _kernels.BUILD_LOGS.get(source)
         if log is None:
             print(f"{source} was already built: no ptxas report")
@@ -288,6 +295,13 @@ def phase1_build() -> None:
                 name = line.split("Function properties for")[-1].strip()
             elif "spill" in line or "Used" in line:
                 print(f"ptxas {source} {name}: {line.strip()}")
+                if (source in MARCH_SOURCES and "zmarch" in name
+                        and "spill" in line
+                        and " 0 bytes spill stores, 0 bytes spill loads"
+                        not in line):
+                    spills.append(name)
+    if spills:
+        raise AssertionError(f"z march instances spill: {spills}")
 
 
 def _mesh_and_bcs(cfg: dict):
@@ -460,7 +474,7 @@ def phase2_kernels(tmp: str) -> dict:
         size = torch.finfo(dtype).bits // 8
         applies = 200 if dtype == torch.float32 else 40
         tol = tols[dtype]
-        # K1: the flagship's and the sphere's pressure
+        # K1: the flagship's and the sphere's pressure, bit for bit
         for name in ("450x450", "sphere"):
             mesh = meshes[name][0]
             level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
@@ -468,25 +482,22 @@ def phase2_kernels(tmp: str) -> dict:
                                    scale=cases[name]["parameters"]["dt"])
             phi = randn(level.shape, dtype)
             n = phi.numel()
-            rec = _hold(f"K1 {name} p {tuple(level.shape)} {tag}",
+            plan = (f" plan {tuple(cs.separable_plan_on_card(phi))}"
+                    if phi.ndim == 3 else "")
+            rec = _hold(f"K1 {name} p {tuple(level.shape)} {tag}{plan}",
                         lambda x: cs.poisson_apply_separable(x, level),
                         lambda x: cs.poisson_apply_separable_ref(x, level),
-                        phi, tol, applies,
+                        phi, 0.0, applies,
                         ((2 * n + numel(level.c1d + level.w1d)) * size,
                          (26 if phi.ndim == 3 else 15) * n, dtype))
-            if name == "sphere":
-                if dtype == torch.float32:
+            if dtype == torch.float32:
+                _library(f"K1 {name} p {tag}", rec, _k1_csr(level), phi,
+                         cs.poisson_apply_separable(phi, level), applies)
+                if name == "sphere":
                     records["K1"] = rec
-                    _library(f"K1 sphere p {tag}", rec, _k1_csr(level), phi,
-                             cs.poisson_apply_separable(phi, level), applies)
-                # K2b at the same shape: the same operator
-                k2b = cs.make_cuda_poisson_zblocked(level)
-                _hold_k2(f"K2b sphere p {tuple(level.shape)} {tag}", phi,
-                         k2b.vecs, k2b.periodic, k2b.scale, tol, applies)
-                rel = _rel_err(k2b(phi), cs.poisson_apply_separable(phi, level))
-                print(f"K2b vs K1, sphere p {tag}: rel diff {rel:.3e}")
-                if not rel <= 100 * tol:
-                    raise AssertionError(f"K2b and K1 differ: {rel}")
+            if name == "sphere":
+                _k1_beside(f"K1 sphere p {tuple(level.shape)} {tag}", phi,
+                           level, tol, applies)
         # K2a: the sphere's three velocity components, one TGV component
         for name, comps in (("sphere", "uvw"), ("tgv256", "u")):
             mesh, bcs = meshes[name]
@@ -648,6 +659,41 @@ def _hold_k2(label: str, f, vecs, periodic, scale, cells_tol: float,
           f"{times[1]:.2f}, {times[2]:.2f} us (device, median per apply; "
           f"cell kernel rel err {rel:.3e}, tol {cells_tol:g})")
     return rec
+
+
+def _k1_beside(label: str, phi, level, tol: float, applies: int) -> None:
+    """K1's 3D march beside its first design (one thread per cell), equal
+    to the twin bit for bit, and beside K2b, the same operator at the same
+    shape (equal within ``100 * tol``), each timed in turns (march, other,
+    other, march)."""
+    import torch
+
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    want = cs.poisson_apply_separable_ref(phi, level)
+    if not torch.equal(cs.separable_launch_cells(phi, level), want):
+        raise AssertionError(f"{label}: the cell kernel differs from the "
+                             "twin")
+
+    def march(x):
+        return cs.poisson_apply_separable(x, level)
+
+    def cells(x):
+        return cs.separable_launch_cells(x, level)
+
+    k2b = cs.make_cuda_poisson_zblocked(level)
+    _hold_k2(f"K2b {label[3:]}", phi, k2b.vecs, k2b.periodic,
+             k2b.scale, tol, applies)
+    rel = _rel_err(k2b(phi), want)
+    print(f"K2b vs K1, {label[3:]}: rel diff {rel:.3e}")
+    if not rel <= 100 * tol:
+        raise AssertionError(f"K2b and K1 differ: {rel}")
+    for other, fn in (("cell kernel", cells), ("K2b", k2b)):
+        times = [_time_ms(g, phi, applies)[0] * 1e3
+                 for g in (march, fn, fn, march)]
+        print(f"{label}: march {times[0]:.2f}, {times[3]:.2f} us; {other} "
+              f"{times[1]:.2f}, {times[2]:.2f} us (device, median per "
+              "apply)")
 
 
 def _block_ab(label: str, launch, plan, block, arg, applies: int) -> None:

@@ -4,7 +4,8 @@ Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  Three kernels:
 
 - K1 ``poisson_apply_separable`` (``csrc/poisson_separable.cu``): the
   separable apply of the negated pressure operator -D B1 G on non-periodic
-  2D/3D grids, the residual operator of the pressure refinement loop;
+  2D/3D grids, the residual operator of the pressure refinement loop and
+  the multigrid's finest-level operator;
 - K2 ``zblocked_helmholtz_apply`` (``csrc/zblocked_helmholtz.cu``): the 3D
   7-point apply with per-axis 1D coefficients and periodic wrap, used as
   K2a, the implicit momentum operator (``make_cuda_momentum``), and as K2b,
@@ -14,9 +15,11 @@ Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  Three kernels:
   divergence-form convection of one velocity component from the three
   ghost-extended velocity arrays (``make_cuda_convection``).
 
-Each wrapper launches its kernel on a CUDA tensor (one more in its
-``launches`` counter) and calls its plain PyTorch twin (``*_ref``) on a
-CPU tensor; it never falls back from one to the other on failure.
+K1's 3D path and K2 share one kernel design, the z march of
+``csrc/march.cuh``, and its launch plan (``launch_plan``).  Each wrapper
+launches its kernel on a CUDA tensor (one more in its ``launches``
+counter) and calls its plain PyTorch twin (``*_ref``) on a CPU tensor;
+it never falls back from one to the other on failure.
 """
 
 from __future__ import annotations
@@ -33,6 +36,133 @@ from ..linalg.mg import Level
 from ..linalg.tridiag import shift
 from ..types import Field
 from .stencil import VEL_NAMES
+
+
+# ----------------------------------------------------------------------
+# The z march of csrc/march.cuh: the launch plan of K1's 3D path and of
+# K2
+
+class Plan(NamedTuple):
+    """How the march covers one shape: each block owns a tile of ``tx`` x
+    ``ty`` cells of the xy plane and a chunk of ``kz`` planes in z, with
+    ``tx / vx`` x ``ty / ry`` threads that compute ``ry`` rows and ``vx``
+    neighbouring columns of the tile each (a vector load and store of
+    ``vx`` values)."""
+    tx: int
+    ty: int
+    ry: int
+    vx: int
+    kz: int
+
+
+#: the tiles (TX, TY, RY, VX) the march has instances of (``ZB_TILES``),
+#: in the order ``launch_plan`` prefers them: the first whose width
+#: divides nx (no block is ragged in x) and whose vector the field takes,
+#: else the last (one column a thread), which takes any field
+TILES = ((64, 8, 2, 2), (32, 16, 4, 2), (32, 16, 4, 1))
+#: the most chunks the kernel's grid takes (its y extent)
+MAX_CHUNKS = 65535
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid(shape, plan: Plan) -> tuple:
+    """The blocks of ``plan`` on the 3D ``shape``: (tiles along x, tiles
+    along y, chunks along z); block (bx, by, bz) computes x in
+    [bx tx, bx tx + tx), y in [by ty, by ty + ty) and z in
+    [bz kz, bz kz + kz), each cut at the array's end.  The kernel's grid
+    is (tiles along x times tiles along y, chunks)."""
+    nz, ny, nx = shape
+    return (_ceil(nx, plan.tx), _ceil(ny, plan.ty), _ceil(nz, plan.kz))
+
+
+def plan_for_tile(shape, tile, slots: int) -> Plan:
+    """The plan with ``tile`` for a field of the 3D ``shape`` on a card
+    that holds ``slots`` blocks of the tile's instance at once: z cut into
+    chunks of equal length (the last one shorter), as many as keep the
+    grid within ``slots`` blocks, so that every block starts at once and
+    none waits for another to end; one chunk if a plane's tiles alone
+    exceed ``slots``."""
+    nz, ny, nx = shape
+    if min(shape) < 1:
+        return Plan(*tile, 1)
+    chunks = max(1, min(nz, slots // (_ceil(nx, tile[0])
+                                      * _ceil(ny, tile[1]))))
+    return Plan(*tile, _ceil(nz, chunks))
+
+
+def launch_plan(shape, dtype, slots, align: int) -> Plan:
+    """The plan for a field of the 3D ``shape`` and ``dtype`` whose data
+    (and output) start at a multiple of ``align`` bytes: the first tile of
+    ``TILES`` that fits the field (its width divides nx, its vector of
+    ``vx`` values divides nx and ``align``), else the last; and
+    ``plan_for_tile``'s chunks for ``slots(tile)`` blocks held at once
+    (``resident_blocks``, ``separable_resident_blocks``)."""
+    nx = shape[2]
+    size = torch.finfo(dtype).bits // 8
+    *first, last = TILES
+    tile = next((t for t in first if nx % t[0] == 0 and nx % t[3] == 0
+                 and align % (t[3] * size) == 0), last)
+    return plan_for_tile(shape, tile, slots(tile))
+
+
+def plan_error(shape, plan: Plan):
+    """Why K1's or K2's C entry refuses ``plan`` for the 3D ``shape`` (it
+    returns cudaErrorInvalidValue and the wrapper raises), or None when it
+    takes it: the conditions of ``check_march`` and ``launch_tile`` in
+    ``csrc/march.cuh``, but for one on the pointers: a vector tile also
+    needs f and out aligned to its vector."""
+    nz, ny, nx = shape
+    if min(shape) < 0:
+        return "a negative extent"
+    if min(shape) == 0:
+        return None  # nothing to launch
+    if nz * ny * nx >= 2 ** 31:
+        return "2^31 cells or more (32-bit offsets)"
+    if plan.kz < 1 or _ceil(nz, plan.kz) > MAX_CHUNKS:
+        return f"chunks of no plane, or more than {MAX_CHUNKS} of them"
+    if tuple(plan[:4]) not in TILES:
+        return f"no instance of the tile {tuple(plan[:4])}"
+    if nx % plan.vx:
+        return f"a vector of {plan.vx} columns for an x extent of {nx}"
+    return None
+
+
+def _resident(source: str, entry: str, device, dtype, head: tuple,
+              tile) -> int:
+    """The blocks of the march instance of ``tile`` that ``device`` holds
+    at once, from the C entry ``<entry>_<dtype>`` of ``csrc/<source>.cu``
+    called with ``head`` and the tile (the CUDA occupancy calculator: its
+    SMs times the blocks an SM holds at the instance's registers and
+    shared memory).  Asked of the card once per instance."""
+    key = (entry, torch.device(device), dtype, head, tuple(tile))
+    slots = _RESIDENT.get(key)
+    if slots is None:
+        fn = c_function(source, entry, dtype,
+                        [ctypes.c_int] * (len(head) + 4)
+                        + [ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(*head, *tile, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"the occupancy query of {source} failed "
+                               f"with CUDA error {err} ({out.value} blocks)")
+        slots = _RESIDENT[key] = out.value
+    return slots
+
+
+_RESIDENT: dict = {}
+
+
+def _plan_on_card(f: torch.Tensor, slots) -> Plan:
+    """``launch_plan`` for the CUDA field ``f`` (its output comes from
+    ``torch.empty_like``, aligned to at least 256 bytes) with
+    ``slots(tile)`` blocks held at once."""
+    ptr_f = f.data_ptr()
+    return launch_plan(f.shape, f.dtype, slots,
+                       (ptr_f & -ptr_f) if ptr_f else 256)
 
 
 # ----------------------------------------------------------------------
@@ -76,21 +206,29 @@ def _check_k1(phi: torch.Tensor, level: Level) -> None:
     check_vectors("K1", phi, (*level.c1d, *level.w1d))
 
 
-def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
-    """K1: the separable apply of the negated Poisson operator -D B1 G.
+def separable_resident_blocks(device, dtype, tile) -> int:
+    """The blocks of K1's march instance of ``tile`` (``dtype``) that
+    ``device`` holds at once (``_resident``)."""
+    return _resident("poisson_separable", "poisson_apply_separable_resident",
+                     device, dtype, (), tile)
 
-    A CUDA ``phi`` launches the kernel on the current stream (one more in
-    ``poisson_apply_separable.launches``); a CPU ``phi`` runs the plain
-    twin.  Raises on shapes, dtypes or devices the kernel does not take,
-    and when the launch reports an error."""
-    _check_k1(phi, level)
-    if phi.device.type == "cpu":
-        return poisson_apply_separable_ref(phi, level)
-    check_launchable("K1", phi)
-    fn = c_function("poisson_separable", "poisson_apply_separable",
-                    phi.dtype, [ctypes.c_void_p] * 8
-                    + [ctypes.c_longlong] * 3 + [ctypes.c_int,
-                                                 ctypes.c_void_p])
+
+def separable_plan_on_card(phi: torch.Tensor) -> Plan:
+    """The plan ``poisson_apply_separable`` launches for the 3D CUDA field
+    ``phi``: ``launch_plan`` with K1's own resident blocks."""
+    return _plan_on_card(phi, lambda tile: separable_resident_blocks(
+        phi.device, phi.dtype, tile))
+
+
+#: the plan arguments of a 2D launch, which the C entry does not read
+_NO_PLAN = (0, 0, 0, 0, 0)
+
+
+def _call_k1(entry: str, phi, level: Level, plan_args: tuple):
+    fn = c_function("poisson_separable", entry, phi.dtype,
+                    [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int] * (1 + len(plan_args))
+                    + [ctypes.c_void_p])
     out = torch.empty_like(phi)
     shape = (1,) * (3 - phi.ndim) + tuple(phi.shape)
     c = list(level.c1d) + [None] * (3 - phi.ndim)
@@ -98,9 +236,45 @@ def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
     with torch.cuda.device(phi.device):
         err = fn(ptr(phi), ptr(out), ptr(c[0]), ptr(w[0]), ptr(c[1]),
                  ptr(w[1]), ptr(c[2]), ptr(w[2]), *shape, phi.ndim,
-                 stream(phi.device))
+                 *plan_args, stream(phi.device))
     if err != 0:
-        raise RuntimeError(f"K1 launch failed with CUDA error {err}")
+        why = (plan_error(shape, Plan(*plan_args))
+               if phi.ndim == 3 and plan_args else None)
+        raise RuntimeError(f"K1 launch failed with CUDA error {err}"
+                           + (f": {why}" if why else ""))
+    return out
+
+
+def separable_launch(phi, level: Level, plan: Plan | None):
+    """One launch of K1 on CUDA tensors that ``poisson_apply_separable``
+    has checked: the 3D march with ``plan``, or the 2D cell kernel
+    (``plan`` None); counts nothing (the wrapper does).  Raises when the C
+    entry refuses the plan, naming ``plan_error``'s reason."""
+    return _call_k1("poisson_apply_separable", phi, level,
+                    _NO_PLAN if plan is None else tuple(plan))
+
+
+def separable_launch_cells(phi, level: Level):
+    """One launch of the one-thread-a-cell kernel in 2D or 3D (the first
+    3D design), kept to be timed beside the march; counts nothing, and no
+    solver calls it."""
+    return _call_k1("poisson_apply_separable_cells", phi, level, ())
+
+
+def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
+    """K1: the separable apply of the negated Poisson operator -D B1 G.
+
+    A CUDA ``phi`` launches the kernel on the current stream (one more in
+    ``poisson_apply_separable.launches``): in 3D the march with
+    ``separable_plan_on_card``'s plan, in 2D one thread a cell.  A CPU
+    ``phi`` runs the plain twin.  Raises on shapes, dtypes or devices the
+    kernel does not take, and when the launch reports an error."""
+    _check_k1(phi, level)
+    if phi.device.type == "cpu":
+        return poisson_apply_separable_ref(phi, level)
+    check_launchable("K1", phi)
+    out = separable_launch(phi, level, separable_plan_on_card(phi)
+                           if phi.ndim == 3 else None)
     poisson_apply_separable.launches += 1
     return out
 
@@ -178,127 +352,18 @@ def _check_k2(f: torch.Tensor, vecs: dict, periodic, scale) -> None:
         raise ValueError("K2's scale vectors must match the field's axes")
 
 
-class Plan(NamedTuple):
-    """How K2 marches one shape: each block owns a tile of ``tx`` x ``ty``
-    cells of the xy plane and a chunk of ``kz`` planes in z, with
-    ``tx / vx`` x ``ty / ry`` threads that compute ``ry`` rows and ``vx``
-    neighbouring columns of the tile each (a vector load and store of
-    ``vx`` values)."""
-    tx: int
-    ty: int
-    ry: int
-    vx: int
-    kz: int
-
-
-#: the tiles (TX, TY, RY, VX) the kernel has instances of (``ZB_TILES``),
-#: in the order ``launch_plan`` prefers them: the first whose width
-#: divides nx (no block is ragged in x) and whose vector the field takes,
-#: else the last (one column a thread), which takes any field
-TILES = ((64, 8, 2, 2), (32, 16, 4, 2), (32, 16, 4, 1))
-#: the most chunks the kernel's grid takes (its y extent)
-MAX_CHUNKS = 65535
-
-
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def grid(shape, plan: Plan) -> tuple:
-    """The blocks of ``plan`` on the 3D ``shape``: (tiles along x, tiles
-    along y, chunks along z); block (bx, by, bz) computes x in
-    [bx tx, bx tx + tx), y in [by ty, by ty + ty) and z in
-    [bz kz, bz kz + kz), each cut at the array's end.  The kernel's grid
-    is (tiles along x times tiles along y, chunks)."""
-    nz, ny, nx = shape
-    return (_ceil(nx, plan.tx), _ceil(ny, plan.ty), _ceil(nz, plan.kz))
-
-
-def plan_for_tile(shape, tile, slots: int) -> Plan:
-    """The plan with ``tile`` for a field of the 3D ``shape`` on a card
-    that holds ``slots`` blocks of the tile's instance at once: z cut into
-    chunks of equal length (the last one shorter), as many as keep the
-    grid within ``slots`` blocks, so that every block starts at once and
-    none waits for another to end; one chunk if a plane's tiles alone
-    exceed ``slots``."""
-    nz, ny, nx = shape
-    if min(shape) < 1:
-        return Plan(*tile, 1)
-    chunks = max(1, min(nz, slots // (_ceil(nx, tile[0])
-                                      * _ceil(ny, tile[1]))))
-    return Plan(*tile, _ceil(nz, chunks))
-
-
-def launch_plan(shape, dtype, slots, align: int) -> Plan:
-    """The plan for a field of the 3D ``shape`` and ``dtype`` whose data
-    (and output) start at a multiple of ``align`` bytes: the first tile of
-    ``TILES`` that fits the field (its width divides nx, its vector of
-    ``vx`` values divides nx and ``align``), else the last; and
-    ``plan_for_tile``'s chunks for ``slots(tile)`` blocks held at once
-    (``resident_blocks``)."""
-    nx = shape[2]
-    size = torch.finfo(dtype).bits // 8
-    *first, last = TILES
-    tile = next((t for t in first if nx % t[0] == 0 and nx % t[3] == 0
-                 and align % (t[3] * size) == 0), last)
-    return plan_for_tile(shape, tile, slots(tile))
-
-
 def resident_blocks(device, dtype, scaled: bool, tile) -> int:
-    """The blocks of the instance of ``tile`` (``dtype``, scaled or not)
-    that ``device`` holds at once, from the CUDA occupancy calculator:
-    its SMs times the blocks an SM holds at the instance's registers and
-    shared memory.  Asked of the card once per instance."""
-    key = (torch.device(device), dtype, bool(scaled), tuple(tile))
-    slots = _RESIDENT.get(key)
-    if slots is None:
-        fn = c_function("zblocked_helmholtz", "zblocked_helmholtz_resident",
-                        dtype, [ctypes.c_int] * 5
-                        + [ctypes.POINTER(ctypes.c_int)])
-        out = ctypes.c_int(0)
-        with torch.cuda.device(key[0]):
-            err = fn(int(bool(scaled)), *tile, ctypes.byref(out))
-        if err != 0 or out.value < 1:
-            raise RuntimeError(f"K2's occupancy query failed with CUDA "
-                               f"error {err} ({out.value} blocks)")
-        slots = _RESIDENT[key] = out.value
-    return slots
-
-
-_RESIDENT: dict = {}
+    """The blocks of K2's instance of ``tile`` (``dtype``, scaled or not)
+    that ``device`` holds at once (``_resident``)."""
+    return _resident("zblocked_helmholtz", "zblocked_helmholtz_resident",
+                     device, dtype, (int(bool(scaled)),), tile)
 
 
 def plan_on_card(f: torch.Tensor, scaled: bool) -> Plan:
     """The plan ``zblocked_helmholtz_apply`` launches for the CUDA field
-    ``f`` (its output comes from ``torch.empty_like``, aligned to at least
-    256 bytes)."""
-    ptr_f = f.data_ptr()
-    return launch_plan(f.shape, f.dtype,
-                       lambda tile: resident_blocks(f.device, f.dtype,
-                                                    scaled, tile),
-                       (ptr_f & -ptr_f) if ptr_f else 256)
-
-
-def plan_error(shape, plan: Plan):
-    """Why the C entry refuses ``plan`` for the 3D ``shape`` (it returns
-    cudaErrorInvalidValue and the wrapper raises), or None when it takes
-    it: the conditions of ``launch`` in ``csrc/zblocked_helmholtz.cu``,
-    but for one on the pointers: a vector tile also needs f and out
-    aligned to its vector."""
-    nz, ny, nx = shape
-    if min(shape) < 0:
-        return "a negative extent"
-    if min(shape) == 0:
-        return None  # nothing to launch
-    if nz * ny * nx >= 2 ** 31:
-        return "2^31 cells or more (32-bit offsets)"
-    if plan.kz < 1 or _ceil(nz, plan.kz) > MAX_CHUNKS:
-        return f"chunks of no plane, or more than {MAX_CHUNKS} of them"
-    if tuple(plan[:4]) not in TILES:
-        return f"no instance of the tile {tuple(plan[:4])}"
-    if nx % plan.vx:
-        return f"a vector of {plan.vx} columns for an x extent of {nx}"
-    return None
+    ``f``."""
+    return _plan_on_card(f, lambda tile: resident_blocks(f.device, f.dtype,
+                                                         scaled, tile))
 
 
 def _call(entry: str, f, vecs, periodic, scale, plan_args: tuple):

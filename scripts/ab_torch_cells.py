@@ -1,0 +1,232 @@
+"""The 3D cells of ``chip_smoke.py`` and the stencil kernels K1 and K2 on
+two checkouts of the repository in turns on one card: ms per step,
+device ms per step and the iteration counts of each cell, and the device
+time of each kernel at its main shapes.
+
+Run on a machine with a CUDA card, from the repository root, with the
+other checkout unpacked in a directory (for example ``git archive`` of
+the parent commit into ``parent_check/``):
+
+    python3 scripts/ab_torch_cells.py --parent parent_check
+    python3 scripts/ab_torch_cells.py --parent parent_check \
+        --cells sphere_fdm,sphere_mg
+
+Cells (``--cells``, all by default): the 256^3 TGV with the FDM pressure
+solve (``tgv_fdm``, phase 6) and with the multigrid-preconditioned CG
+one (``tgv_mg``, phase 8), and the 160x130x130 sphere likewise
+(``sphere_fdm``, phase 5; ``sphere_mg``, phase 8).  Each run is a
+process of its own that imports ``chip_smoke`` and ``petibm_tpu_torch``
+from its checkout (so each builds and runs its own kernels), in the
+order parent, change, change, parent.  A run first times K1 (the
+flagship's and the sphere's pressure), K2a (the sphere's and the TGV's
+u) and K2b (the sphere's and the TGV's pressure) through the wrappers
+in float32 (``chip_smoke._time_ms``: median device µs an apply); then
+runs each cell for its steps (``--steps``), times the steps after the
+first (host clock, synchronised), then profiles ``--profile`` more steps
+with torch.profiler (device ms per step: the device-side events only),
+and checks that every solve converged and, on the TGV, that the kinetic
+energy did not grow over the run.  Prints the card's name and power
+limit first, a JSON line per run, and the medians of each checkout's
+two runs (the MG-CG cells also with device ms per V-cycle: their device
+time follows the profile window's p_iters).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: cell: (case, extra parameters, steps)
+CELLS = {"tgv_fdm": ("tgv", {}, 20), "tgv_mg": ("tgv", {"fdm": False}, 10),
+         "sphere_fdm": ("sphere", {}, 30),
+         "sphere_mg": ("sphere", {"fdm": False}, 10)}
+
+
+def _energy(q: dict) -> float:
+    return 0.5 * sum(float(a.double().pow(2).mean()) for a in q.values())
+
+
+def _solver(tmp: str, cell: str):
+    import chip_smoke
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    case, params, _ = CELLS[cell]
+    if case == "sphere":
+        return DecoupledIBPMSolver(chip_smoke.sphere_config(
+            os.path.join(tmp, cell), nt=1, **params), device="cuda")
+    solver = NavierStokesSolver(chip_smoke.tgv3d_config(
+        os.path.join(tmp, cell), nt=1, **params), device="cuda")
+    chip_smoke.tgv3d_initial_state(solver)
+    return solver
+
+
+def _cell(tmp: str, cell: str, nsteps: int, profile_steps: int) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = _solver(tmp, cell)
+    energies = [_energy(solver.state["q"])]
+    solver.run()
+    energies.append(_energy(solver.state["q"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.nt = nsteps
+    solver.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (nsteps - 1)
+    energies.append(_energy(solver.state["q"]))
+    solver.nt += profile_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.run()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    energies.append(_energy(solver.state["q"]))
+    solver.close()
+    hist = solver.stats_history
+    if not all(v for s in hist for k, v in s.items() if k.endswith("_ok")):
+        raise AssertionError(f"{cell}: a solve did not converge")
+    window = [s["p_iters"] for s in hist[-profile_steps:]]
+    device_ms = device_us / profile_steps / 1e3
+    rec = {"ms_step": wall * 1e3, "device_ms_step": device_ms,
+           "window_p_iters": window,
+           # one V-cycle per CG iteration and one more (MG-CG only)
+           "device_ms_vcycle": device_ms / (statistics.mean(window) + 1),
+           "v_iters": [s["v_iters"] for s in hist],
+           "p_iters": [s["p_iters"] for s in hist]}
+    if CELLS[cell][0] == "tgv":
+        rec["energy"] = energies
+        rec["energy_grew"] = any(b > a for a, b in zip(energies,
+                                                       energies[1:]))
+    return rec
+
+
+def _kernels_us(tmp: str) -> dict:
+    """Median device µs an apply of K1, K2a and K2b through the wrappers,
+    float32, at the cells' shapes."""
+    import torch
+
+    import chip_smoke
+    from petibm_tpu_torch.linalg.mg import poisson_level0
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, make in (("flagship", chip_smoke.flagship_config),
+                       ("sphere", chip_smoke.sphere_config),
+                       ("tgv256", chip_smoke.tgv3d_config)):
+        cfg = make(os.path.join(tmp, f"k_{name}"))
+        mesh, bcs = chip_smoke._mesh_and_bcs(cfg)
+        dt = cfg["parameters"]["dt"]
+        level = poisson_level0(mesh.dxp, mesh.periodic, dtype=torch.float32,
+                               device="cuda", scale=dt)
+        phi = torch.randn(tuple(level.shape), generator=gen, device="cuda")
+        applies = {}
+        if name != "tgv256":
+            applies["K1"] = lambda x: cs.poisson_apply_separable(x, level)
+        if name != "flagship":
+            applies["K2b"] = cs.make_cuda_poisson_zblocked(level)
+            A = cs.make_cuda_momentum(mesh, bcs, dt, 0.5 * cfg["flow"]["nu"],
+                                      dtype=torch.float32, device="cuda")
+            u = torch.randn(tuple(mesh.shape(0)), generator=gen,
+                            device="cuda")
+            out[f"K2a {name} u"] = chip_smoke._time_ms(
+                lambda x: cs.zblocked_helmholtz_apply(x, A.vecs["u"],
+                                                      A.periodic), u)[0] * 1e3
+        for key, fn in applies.items():
+            out[f"{key} {name} p"] = chip_smoke._time_ms(fn, phi)[0] * 1e3
+    return out
+
+
+def child(root: str, args) -> None:
+    sys.path.insert(0, root)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = {"root": root, "kernels_us": _kernels_us(tmp)}
+        for cell in args.cells:
+            rec[cell] = _cell(tmp, cell, args.steps.get(cell,
+                                                        CELLS[cell][2]),
+                              args.profile)
+    print(json.dumps(rec), flush=True)
+
+
+def _steps(text: str) -> dict:
+    return {k: int(v) for k, v in (item.split("=") for item in
+                                   text.split(",") if item)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="the other checkout's directory")
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="comma-separated cells, of " + ", ".join(CELLS))
+    ap.add_argument("--steps", default="",
+                    help="steps of a cell, as cell=n,... (default "
+                    + ", ".join(f"{c}={v[2]}" for c, v in CELLS.items())
+                    + ")")
+    ap.add_argument("--profile", type=int, default=5)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    args.cells = [c for c in args.cells.split(",") if c]
+    unknown = [c for c in args.cells if c not in CELLS]
+    if unknown:
+        ap.error(f"unknown cells {unknown}")
+    args.steps = _steps(args.steps)
+    if args.child:
+        child(args.child, args)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    roots = {"parent": os.path.abspath(args.parent), "change": REPO}
+    runs = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             roots[label], "--cells", ",".join(args.cells), "--steps",
+             ",".join(f"{c}={n}" for c, n in args.steps.items()),
+             "--profile", str(args.profile)],
+            capture_output=True, text=True, cwd=roots[label])
+        if out.returncode != 0:
+            raise RuntimeError(f"{label} run failed:\n{out.stderr[-4000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        runs[label].append(rec)
+        print(label, json.dumps(rec), flush=True)
+    for label, recs in runs.items():
+        us = {k: [r["kernels_us"][k] for r in recs]
+              for k in recs[0]["kernels_us"]}
+        print(f"{label} kernels, device us an apply, median (runs): "
+              + "; ".join(f"{k} {statistics.median(t):.2f} ("
+                          + ", ".join(f"{x:.2f}" for x in t) + ")"
+                          for k, t in us.items()), flush=True)
+        for cell in args.cells:
+            wall = [r[cell]["ms_step"] for r in recs]
+            device = [r[cell]["device_ms_step"] for r in recs]
+            vcycle = [round(r[cell]["device_ms_vcycle"], 3) for r in recs]
+            window = [r[cell]["window_p_iters"] for r in recs]
+            print(f"{label} {cell}: ms/step {statistics.median(wall):.3f} "
+                  f"(runs {wall[0]:.3f}, {wall[1]:.3f}), device ms/step "
+                  f"{statistics.median(device):.3f} (runs {device[0]:.3f}, "
+                  f"{device[1]:.3f}); v_iters {recs[0][cell]['v_iters']}, "
+                  f"p_iters {recs[0][cell]['p_iters']}"
+                  + ("" if not cell.endswith("_mg") else
+                     f"; profile window p_iters {window}, device ms per "
+                     f"V-cycle {vcycle}"), flush=True)
+    grew = [label for label, recs in runs.items()
+            if any(r[c].get("energy_grew") for r in recs for c in args.cells)]
+    return 1 if grew else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,42 +1,50 @@
-"""K2 (csrc/zblocked_helmholtz.cu, the 3D 7-point apply) at the main
-paths' shapes: the launch plan against other tiles and chunk lengths,
-against the first design (one thread per cell), and against variants of
-its own source, to set the plan and show what bounds the kernel.
+"""K1's 3D path and K2, the two users of the z march (``csrc/march.cuh``,
+the 3D 7-point stencil that marches a tile of the xy plane up a chunk of
+z planes), at the main paths' shapes: the launch plan against other
+tiles and chunk lengths, against the first design (one thread per cell),
+and against variants of the march's source, to set the plan and show
+what bounds the kernels; and K1's 2D path against the floor of a launch.
 
 Run on a machine with a CUDA card, from the repository root:
 
     python3 scripts/bench_torch_stencil.py
 
-Shapes: the 256^3 TGV's velocity (K2a) and periodic, scaled pressure
-(K2b), and the sphere's u, v and w (K2a, 160x130x130 cells) in float32;
-the TGV's two in float64.  Against the plan (``cuda_stencil.launch_plan``)
-it times:
+Shapes: K2 at the 256^3 TGV's velocity (K2a) and periodic, scaled
+pressure (K2b), and the sphere's u, v and w (K2a, 160x130x130 cells) in
+float32, the TGV's two in float64; K1 at the sphere's pressure
+(130x130x160) and at a non-periodic stretched 256^3 level, in float32
+and float64.  Against the plan (``cuda_stencil.launch_plan``) it times:
 
-- ``cells``, the first design (the C entry ``zblocked_helmholtz_cells``);
+- ``cells``, the first design (the C entries ``zblocked_helmholtz_cells``
+  and ``poisson_apply_separable_cells``);
 - every other tile that takes the field, of ``cuda_stencil.TILES`` and
   of ``EXTRA_TILES`` (built by the source variant ``tiles``): vector
   tiles (two columns a thread, loaded and stored as one vector) and
   one-column tiles, with one to four rows a thread, each with its own
   plan; and the plan's tile with chunks of other lengths and with twice
   the blocks the card holds at once (two waves);
-- source variants, each the shipped source with one text substitution
-  (or other flags), built from a copy under a temporary directory:
-  ``fma`` (built without ``--fmad=false``: FMA contraction on; not the
-  twin's bits), ``ahead0`` (the z march loads no plane ahead: the next
-  plane is loaded in the plane that uses it), ``ahead2`` (two planes
-  ahead), ``stcs`` (the one-column tiles store with the streaming,
-  evict-first hint), ``nohalo`` (the halo loads compiled out, the halo
-  held at 0: not the twin's bits, an upper bound of what the halo costs),
-  each with the plan for its own resident blocks;
-- on the sphere's shapes (21.5 MB, which the 50 MB L2 holds between the
-  back-to-back launches of a warm timing), the plan and ``cells`` with
-  the L2 flushed before every launch.
+- source variants, each the shipped sources with text substitutions in
+  ``march.cuh`` (or other flags), built from a copy under a temporary
+  directory: ``fma`` (built without ``--fmad=false``: FMA contraction
+  on; not the twin's bits), ``ahead0`` (the z march loads no plane
+  ahead: the next plane is loaded in the plane that uses it), ``ahead2``
+  (two planes ahead), ``stcs`` (the one-column tiles store with the
+  streaming, evict-first hint), ``nohalo`` (the halo loads compiled out,
+  the halo held at 0: not the twin's bits, an upper bound of what the
+  halo costs), each with the plan for its own resident blocks;
+- ``torch.mul(f, 2)``, one PyTorch kernel that moves the same bytes;
+- on the sphere's shapes (21.5-21.6 MB, which the 50 MB L2 holds between
+  the back-to-back launches of a warm timing), the plan and ``cells``
+  with the L2 flushed before every launch.
 
 Every run that keeps the bits is held to the twin at tolerance 0 first
 (``fma`` and ``nohalo`` report their difference); then the pair is timed
 in turns (plan, other, other, plan; median device time per apply, CUDA
 events), each beside the bound (f read once and out written once at
-3.35 TB/s).  Prints the card's name and power limit first.
+3.35 TB/s).  Last, K1's 2D path at the flagship's 450^2 pressure in
+turns with ``torch.mul(f, 2)`` at that shape and an empty kernel's
+launch: the floor an apply of 1.6 MB is measured against.  Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -50,13 +58,17 @@ import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-SOURCE = "zblocked_helmholtz"
-#: name: (substitutions (text, its replacement at every occurrence),
-#: the flags that replace EXTRA_FLAGS)
+#: the sources that include the march, each built for every variant
+SOURCES = ("zblocked_helmholtz", "poisson_separable")
+#: the file the variants' substitutions edit
+HEADER = "march.cuh"
+#: name: (substitutions in HEADER (text, its replacement at every
+#: occurrence), the flags that replace EXTRA_FLAGS)
 VARIANTS = {
     "fma": ([], ("-Xptxas", "-v")),
     "ahead0": ([("constexpr int kAhead = 1;", "constexpr int kAhead = 0;")],
@@ -83,34 +95,111 @@ INEXACT = ("fma", "nohalo")
 #: chunk lengths timed beside the plan's, with every tile
 CHUNKS = (8, 16, 32, 64)
 
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
-def _variant(tmp: Path, name: str) -> Path:
-    """Build the K2 source with ``name``'s substitutions and flags;
-    returns the library's path."""
+
+def _nvcc(src: Path, so: Path, flags) -> None:
+    from petibm_tpu_torch import _kernels
+
+    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *flags, "-o", str(so),
+           str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+
+
+def _variant(tmp: Path, name: str) -> dict:
+    """Build every source of SOURCES with ``name``'s substitutions and
+    flags; returns {source: the library's path}."""
     from petibm_tpu_torch import _kernels
 
     subs, flags = VARIANTS[name]
     src = tmp / name
     shutil.copytree(_kernels._CSRC, src)
-    path = src / f"{SOURCE}.cu"
+    path = src / HEADER
     text = path.read_text()
     for old, new in subs:
         if old not in text:
             raise RuntimeError(f"variant {name}: the source text is gone")
         text = text.replace(old, new)
     path.write_text(text)
-    so = tmp / f"{SOURCE}-{name}.so"
-    extra = _kernels.EXTRA_FLAGS[SOURCE] if flags is None else flags
-    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *extra, "-o", str(so),
-           str(path)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stderr}")
-    return so
+    out = {}
+    for source in SOURCES:
+        so = tmp / f"{source}-{name}.so"
+        _nvcc(src / f"{source}.cu", so,
+              _kernels.EXTRA_FLAGS[source] if flags is None else flags)
+        out[source] = so
+    return out
 
 
-def _cases(tmp: str, dtype):
-    """(label, f, vecs, periodic, scale) at the main paths' shapes."""
+def _empty_kernel(tmp: Path):
+    """A launch of an empty kernel (one block of 32 threads) on the
+    current stream, as a function of one ignored argument."""
+    import torch
+
+    src, so = tmp / "empty.cu", tmp / "empty.so"
+    src.write_text(EMPTY_SOURCE)
+    _nvcc(src, so, ())
+    fn = ctypes.CDLL(str(so)).empty_launch
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+
+    def launch(_):
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel's launch failed")
+
+    return launch
+
+
+class Case(NamedTuple):
+    """One field and the kernel that applies to it."""
+    label: str
+    source: str        # the library the kernel is in
+    f: object          # the field
+    launch: Callable   # plan -> the function of f that launches the march
+    cells: Callable    # f -> the first design's result
+    twin: Callable     # f -> the plain twin's result
+    plan: Callable     # () -> the wrapper's plan
+    resident: Callable  # tile -> resident blocks of the loaded library
+    flushed: bool      # also timed with the L2 flushed
+
+
+def _k2_case(label, f, vecs, periodic, scale, flushed):
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    scaled = scale is not None
+    return Case(label, "zblocked_helmholtz", f,
+                lambda p: lambda x: cs.launch(x, vecs, periodic, scale, p),
+                lambda x: cs.launch_cells(x, vecs, periodic, scale),
+                lambda x: cs.zblocked_helmholtz_apply_ref(x, vecs, periodic,
+                                                          scale),
+                lambda: cs.plan_on_card(f, scaled),
+                lambda tile: cs.resident_blocks(f.device, f.dtype, scaled,
+                                                tile), flushed)
+
+
+def _k1_case(label, phi, level, flushed):
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    return Case(label, "poisson_separable", phi,
+                lambda p: lambda x: cs.separable_launch(x, level, p),
+                lambda x: cs.separable_launch_cells(x, level),
+                lambda x: cs.poisson_apply_separable_ref(x, level),
+                lambda: cs.separable_plan_on_card(phi),
+                lambda tile: cs.separable_resident_blocks(phi.device,
+                                                          phi.dtype, tile),
+                flushed)
+
+
+def _cases(tmp: str, dtype) -> list:
+    """The cases at the main paths' shapes."""
+    import numpy as np
     import torch
 
     import chip_smoke
@@ -118,6 +207,11 @@ def _cases(tmp: str, dtype):
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape):
+        return torch.randn(tuple(shape), generator=gen, device="cuda",
+                           dtype=dtype)
+
     cases = []
     names = (("tgv256", "u"), ("sphere", "uvw"))
     if dtype == torch.float64:
@@ -131,19 +225,27 @@ def _cases(tmp: str, dtype):
                                   0.5 * cfg["flow"]["nu"], dtype=dtype,
                                   device="cuda")
         for comp in comps:
-            f = torch.randn(mesh.shape("uvw".index(comp)), generator=gen,
-                            device="cuda", dtype=dtype)
-            cases.append((f"K2a {name} {comp}", f, A.vecs[comp], A.periodic,
-                          None))
+            f = randn(mesh.shape("uvw".index(comp)))
+            cases.append(_k2_case(f"K2a {name} {comp}", f, A.vecs[comp],
+                                  A.periodic, None, name == "sphere"))
         if name == "tgv256":
             level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
                                    device="cuda",
                                    scale=cfg["parameters"]["dt"])
             k2b = cs.make_cuda_poisson_zblocked(level)
-            f = torch.randn(tuple(level.shape), generator=gen, device="cuda",
-                            dtype=dtype)
-            cases.append((f"K2b {name} p", f, k2b.vecs, k2b.periodic,
-                          k2b.scale))
+            cases.append(_k2_case(f"K2b {name} p", randn(level.shape),
+                                  k2b.vecs, k2b.periodic, k2b.scale, False))
+    # K1: the sphere's pressure, and a stretched non-periodic 256^3 level
+    cfg = chip_smoke.sphere_config(os.path.join(tmp, f"k1_{str(dtype)[6:]}"))
+    mesh = chip_smoke._mesh_and_bcs(cfg)[0]
+    level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
+                           device="cuda", scale=cfg["parameters"]["dt"])
+    cases.append(_k1_case("K1 sphere p", randn(level.shape), level, True))
+    widths = [np.geomspace(0.01, 0.05, 256)] * 3
+    level = poisson_level0(widths, [False] * 3, dtype=dtype, device="cuda",
+                           scale=0.01)
+    cases.append(_k1_case("K1 stretched 256^3", randn(level.shape), level,
+                          False))
     return cases
 
 
@@ -151,53 +253,45 @@ def _name(plan) -> str:
     return f"{plan.tx}x{plan.ty} ry {plan.ry} vx {plan.vx} kz {plan.kz}"
 
 
-def _plans(f, scaled, plan, libs):
-    """(library, plan) of every other tile that takes the field, each with
+def _with_library(source: str, lib, fn):
+    """``fn()`` with the library ``lib`` of ``source`` in place of the
+    shipped one (and its own occupancy: a variant with more registers
+    holds fewer blocks at once)."""
+    from petibm_tpu_torch import _kernels
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    shipped = _kernels._LIBS[source]
+    _kernels._LIBS[source] = lib
+    cs._RESIDENT.clear()
+    try:
+        return fn()
+    finally:
+        _kernels._LIBS[source] = shipped
+        cs._RESIDENT.clear()
+
+
+def _plans(case: Case, plan, libs):
+    """(variant, plan) of every other tile that takes the field, each with
     its own plan (one wave of its resident blocks; ``EXTRA_TILES`` from
     the variant ``tiles``), and of the plan's tile with chunks of
     ``CHUNKS`` planes and with two waves."""
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
-    shape = tuple(f.shape)
-    out = [(lib, cs.plan_for_tile(shape, t, _resident(libs[lib], f, scaled,
-                                                      t)))
-           for lib, tiles in (("shipped", cs.TILES), ("tiles", EXTRA_TILES))
+    shape = tuple(case.f.shape)
+
+    def tile_plan(variant, tile):
+        return cs.plan_for_tile(shape, tile, _with_library(
+            case.source, libs[case.source, variant],
+            lambda: case.resident(tile)))
+
+    out = [(variant, tile_plan(variant, t))
+           for variant, tiles in (("shipped", cs.TILES),
+                                  ("tiles", EXTRA_TILES))
            for t in tiles if shape[2] % t[3] == 0]
-    slots = cs.resident_blocks(f.device, f.dtype, scaled, plan[:4])
+    slots = case.resident(plan[:4])
     out += [("shipped", plan._replace(kz=kz)) for kz in CHUNKS]
     out.append(("shipped", cs.plan_for_tile(shape, plan[:4], 2 * slots)))
-    return [(lib, p) for lib, p in dict.fromkeys(out) if p != plan]
-
-
-def _with_library(lib, fn):
-    """``fn()`` with the K2 library ``lib`` in place of the shipped one
-    (and its own occupancy: a variant with more registers holds fewer
-    blocks at once)."""
-    from petibm_tpu_torch import _kernels
-    from petibm_tpu_torch.operators import cuda_stencil as cs
-
-    shipped = _kernels._LIBS[SOURCE]
-    _kernels._LIBS[SOURCE] = lib
-    cs._RESIDENT.clear()
-    try:
-        return fn()
-    finally:
-        _kernels._LIBS[SOURCE] = shipped
-        cs._RESIDENT.clear()
-
-
-def _resident(lib, f, scaled, tile):
-    from petibm_tpu_torch.operators import cuda_stencil as cs
-
-    return _with_library(lib, lambda: cs.resident_blocks(f.device, f.dtype,
-                                                         scaled, tile))
-
-
-def _variant_plan(lib, f, scaled):
-    """The plan with the variant library ``lib``'s own resident blocks."""
-    from petibm_tpu_torch.operators import cuda_stencil as cs
-
-    return _with_library(lib, lambda: cs.plan_on_card(f, scaled))
+    return [(variant, p) for variant, p in dict.fromkeys(out) if p != plan]
 
 
 def _time_flushed(fn, arg, applies: int = 100) -> float:
@@ -219,12 +313,125 @@ def _time_flushed(fn, arg, applies: int = 100) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
+def _bench(case: Case, libs: dict, tag: str) -> None:
+    """The plan of ``case`` against the first design, the other plans and
+    the source variants, and ``torch.mul``, each in turns."""
     import torch
 
     import chip_smoke
     from petibm_tpu_torch import _kernels
     from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    f = case.f
+    shape = tuple(f.shape)
+    shipped = libs[case.source, "shipped"]
+    _kernels._LIBS[case.source] = shipped
+    cs._RESIDENT.clear()
+    plan = case.plan()
+    bound_us = 2 * f.numel() * f.element_size() / chip_smoke.HBM_BYTES_PER_S \
+        * 1e6
+    want = case.twin(f)
+    head = f"{case.label} {shape} {tag} (bound {bound_us:.2f} us)"
+    print(f"{head}: resident blocks of each tile " + ", ".join(
+        f"{t}: {case.resident(t)}" for t in cs.TILES), flush=True)
+
+    def march(p, variant="shipped"):
+        lib, launch = libs[case.source, variant], case.launch(p)
+
+        def run(x):
+            _kernels._LIBS[case.source] = lib
+            return launch(x)
+        return run
+
+    def cells(x):
+        _kernels._LIBS[case.source] = shipped
+        return case.cells(x)
+
+    others = [("cells", cells, True)]
+    others += [(_name(p) + ("" if variant == "shipped" else f" ({variant})"),
+                march(p, variant), True)
+               for variant, p in _plans(case, plan, libs)]
+    others += [(v, march(_with_library(case.source, libs[case.source, v],
+                                       case.plan), v), v not in INEXACT)
+               for v in VARIANTS if v != "tiles"]
+    mine = march(plan)
+    if not torch.equal(mine(f), want):
+        raise AssertionError(f"{head}: the plan differs from the twin")
+    for name, run, exact in others:
+        err = float((run(f) - want).abs().max())
+        if exact and err != 0.0:
+            raise AssertionError(f"{head}: {name} differs from the twin by "
+                                 f"{err}")
+        times = [chip_smoke._time_ms(g, f, 60)[0] * 1e3
+                 for g in (mine, run, run, mine)]
+        print(f"{head}: plan {_name(plan)} {times[0]:.2f}, {times[3]:.2f} "
+              f"us (share {bound_us / min(times[0], times[3]):.3f}); {name} "
+              f"{times[1]:.2f}, {times[2]:.2f} us (share "
+              f"{bound_us / min(times[1], times[2]):.3f})"
+              + ("" if exact else f"; max|diff| from the twin {err:.3e}"),
+              flush=True)
+    # the same bytes moved by one PyTorch elementwise kernel
+    copy = [chip_smoke._time_ms(g, f, 60)[0] * 1e3
+            for g in (mine, lambda x: torch.mul(x, 2.0),
+                      lambda x: torch.mul(x, 2.0), mine)]
+    print(f"{head}: plan {copy[0]:.2f}, {copy[3]:.2f} us; torch.mul(f, 2) "
+          f"{copy[1]:.2f}, {copy[2]:.2f} us (share "
+          f"{bound_us / min(copy[1], copy[2]):.3f})", flush=True)
+    if case.flushed:
+        flushed = [_time_flushed(g, f) * 1e3
+                   for g in (mine, cells, cells, mine)]
+        print(f"{head} L2 flushed before each apply: plan {flushed[0]:.2f}, "
+              f"{flushed[3]:.2f} us; cells {flushed[1]:.2f}, "
+              f"{flushed[2]:.2f} us", flush=True)
+    _kernels._LIBS[case.source] = shipped
+
+
+def _floor_2d(tmp: str, empty) -> None:
+    """K1's 2D path (one thread a cell) at the flagship's 450^2 pressure
+    in turns with torch.mul(f, 2) at that shape and an empty kernel's
+    launch, the floor of a launch that moves 1.6 MB."""
+    import torch
+
+    import chip_smoke
+    from petibm_tpu_torch.linalg.mg import poisson_level0
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    cfg = chip_smoke.flagship_config(os.path.join(tmp, "k1_2d"))
+    mesh = chip_smoke._mesh_and_bcs(cfg)[0]
+    level = poisson_level0(mesh.dxp, mesh.periodic, dtype=torch.float32,
+                           device="cuda", scale=cfg["parameters"]["dt"])
+    phi = torch.randn(tuple(level.shape), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    if not torch.equal(cs.poisson_apply_separable(phi, level),
+                       cs.poisson_apply_separable_ref(phi, level)):
+        raise AssertionError("K1 2D differs from the twin")
+
+    def k1(x):
+        return cs.poisson_apply_separable(x, level)
+
+    def mul(x):
+        return torch.mul(x, 2.0)
+
+    order = (("K1 2D", k1), ("torch.mul(f, 2)", mul), ("empty kernel", empty))
+    times = {name: [] for name, _ in order}
+    for name, fn in order + order[::-1]:
+        times[name].append(chip_smoke._time_ms(fn, phi, 200)[0] * 1e3)
+    med = {name: statistics.median(t) for name, t in times.items()}
+    bound_us = 2 * phi.numel() * 4 / chip_smoke.HBM_BYTES_PER_S * 1e6
+    print(f"K1 2D {tuple(phi.shape)} float32 (bound {bound_us:.2f} us): "
+          + "; ".join(f"{name} " + ", ".join(f"{t:.2f}" for t in ts) + " us"
+                      for name, ts in times.items())
+          + f" (device, median per apply); K1 2D / torch.mul "
+          f"{med['K1 2D'] / med['torch.mul(f, 2)']:.3f}, K1 2D / empty "
+          f"{med['K1 2D'] / med['empty kernel']:.3f}; within 1.5x of the "
+          f"floor (torch.mul): "
+          f"{med['K1 2D'] <= 1.5 * med['torch.mul(f, 2)']}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    from petibm_tpu_torch import _kernels
 
     if not torch.cuda.is_available():
         raise RuntimeError("bench_torch_stencil.py needs a CUDA device")
@@ -232,85 +439,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"shipped": _kernels.library(SOURCE)}
-        with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = {(s, "shipped"): _kernels.library(s) for s in SOURCES}
+        with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
+            empty = pool.submit(_empty_kernel, Path(tmp))
             built = pool.map(lambda v: (v, _variant(Path(tmp), v)), VARIANTS)
-            for name, so in built:
-                libs[name] = ctypes.CDLL(str(so))
+            for name, paths in built:
+                for source, so in paths.items():
+                    libs[source, name] = ctypes.CDLL(str(so))
+            empty = empty.result()
         for dtype in (torch.float32, torch.float64):
-            tag = str(dtype)[6:]
-            size = torch.finfo(dtype).bits // 8
-            for label, f, vecs, periodic, scale in _cases(tmp, dtype):
-                shape = tuple(f.shape)
-                _kernels._LIBS[SOURCE] = libs["shipped"]
-                cs._RESIDENT.clear()
-                plan = cs.plan_on_card(f, scale is not None)
-                bound_us = (2 * f.numel() * size / chip_smoke.HBM_BYTES_PER_S
-                            * 1e6)
-                want = cs.zblocked_helmholtz_apply_ref(f, vecs, periodic,
-                                                       scale)
-                head = f"{label} {shape} {tag} (bound {bound_us:.2f} us)"
-                resident = [cs.resident_blocks(f.device, dtype,
-                                               scale is not None, t)
-                            for t in cs.TILES]
-                print(f"{head}: resident blocks of each tile " + ", ".join(
-                    f"{t}: {n}" for t, n in zip(cs.TILES, resident)),
-                    flush=True)
-
-                def march(p, lib="shipped"):
-                    def run(x):
-                        _kernels._LIBS[SOURCE] = libs[lib]
-                        return cs.launch(x, vecs, periodic, scale, p)
-                    return run
-
-                def cells(x):
-                    _kernels._LIBS[SOURCE] = libs["shipped"]
-                    return cs.launch_cells(x, vecs, periodic, scale)
-
-                others = [("cells", cells, True)]
-                others += [(_name(p) + ("" if lib == "shipped"
-                                        else f" ({lib})"), march(p, lib),
-                            True)
-                           for lib, p in _plans(f, scale is not None, plan,
-                                                libs)]
-                others += [(v, march(_variant_plan(libs[v], f,
-                                                   scale is not None), v),
-                            v not in INEXACT)
-                           for v in VARIANTS if v != "tiles"]
-                mine = march(plan)
-                if not torch.equal(mine(f), want):
-                    raise AssertionError(f"{head}: the plan differs from "
-                                         "the twin")
-                for name, run, exact in others:
-                    err = float((run(f) - want).abs().max())
-                    if exact and err != 0.0:
-                        raise AssertionError(f"{head}: {name} differs from "
-                                             f"the twin by {err}")
-                    times = [chip_smoke._time_ms(g, f, 60)[0] * 1e3
-                             for g in (mine, run, run, mine)]
-                    print(f"{head}: plan {_name(plan)} "
-                          f"{times[0]:.2f}, {times[3]:.2f} us (share "
-                          f"{bound_us / min(times[0], times[3]):.3f}); {name} "
-                          f"{times[1]:.2f}, {times[2]:.2f} us (share "
-                          f"{bound_us / min(times[1], times[2]):.3f})"
-                          + ("" if exact else f"; max|diff| from the twin "
-                             f"{err:.3e}"), flush=True)
-                # the same bytes moved by one PyTorch elementwise kernel
-                copy = [chip_smoke._time_ms(g, f, 60)[0] * 1e3
-                        for g in (mine, lambda x: torch.mul(x, 2.0),
-                                  lambda x: torch.mul(x, 2.0), mine)]
-                print(f"{head}: plan {copy[0]:.2f}, {copy[3]:.2f} us; "
-                      f"torch.mul(f, 2) {copy[1]:.2f}, {copy[2]:.2f} us "
-                      f"(share {bound_us / min(copy[1], copy[2]):.3f})",
-                      flush=True)
-                if label.startswith("K2a sphere"):
-                    flushed = [_time_flushed(g, f) * 1e3
-                               for g in (mine, cells, cells, mine)]
-                    print(f"{head} L2 flushed before each apply: plan "
-                          f"{flushed[0]:.2f}, {flushed[3]:.2f} us; cells "
-                          f"{flushed[1]:.2f}, {flushed[2]:.2f} us",
-                          flush=True)
-        _kernels._LIBS[SOURCE] = libs["shipped"]
+            for case in _cases(tmp, dtype):
+                _bench(case, libs, str(dtype)[6:])
+        _floor_2d(tmp, empty)
     return 0
 
 
