@@ -10,9 +10,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    power limit;
 1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
    one nvcc per source, all at once, and print the registers and spills
-   of the line kernels (K4/K5, K6/K7) and of K1 and K2, instance by
-   instance (``ptxas -v``); an instance of the z march (K1's 3D path, K2)
-   that spills fails the phase;
+   of the line kernels (K4/K5, K6/K7) and of K1, K2 and K3, instance by
+   instance (``ptxas -v``); an instance of a z march (K1's 3D path, K2,
+   K3) that spills fails the phase;
 2. hold each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths, and time both beside the kernel's bound
    (bytes moved once over 3.35 TB/s, or operations over the card's peak)
@@ -28,7 +28,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 5. run the 3D sphere (Re=300, 160x130x130 stretched grid, the 1963-point
    body of ``examples/decoupledibpm/sphere3dRe300``, float32) through
    ``run()``: 50 warm-up and 100 timed steps; K1, K2a and K3 launch
-   counts against the stats; Cd and Cl;
+   counts against the stats (K3: one launch a step forms the three
+   components); Cd and Cl;
 6. run the 3D Taylor-Green vortex (Re=1600, 256^3 periodic, BiCGStab +
    Jacobi velocity solve, float32) through ``run()`` for 20 steps; K2a,
    K2b and K3 launch counts against the stats; the kinetic energy does
@@ -48,7 +49,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    path.
 
 Phase 2 holds K1 (450^2 and the sphere's pressure), K2a and K2b (every
-shape), K4/K5 (levels 0 and 1 of the flagship and of the sphere, every
+shape), K3 (the sphere's and the TGV's three components from one
+launch), K4/K5 (levels 0 and 1 of the flagship and of the sphere, every
 line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels, every
 axis) against their twins bit for bit, times K1's 3D march and K2 beside
 their first designs (one thread per cell) at each 3D shape, and K4/K5
@@ -72,9 +74,10 @@ SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
                            "sphere3dRe300", "sphere.body")
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
                   "line_sweep", "tridiag_pcr")
-#: the sources of the z march (csrc/march.cuh), none of whose march
-#: instances may spill
-MARCH_SOURCES = ("poisson_separable", "zblocked_helmholtz")
+#: the sources of a z march and the name of its kernel (csrc/march.cuh's
+#: zmarch; K3's own), none of whose instances may spill
+MARCH_SOURCES = {"poisson_separable": "zmarch", "zblocked_helmholtz": "zmarch",
+                 "convection3d": "convection3d_march"}
 DEVICE = "cuda"
 
 
@@ -284,7 +287,7 @@ def phase1_build() -> None:
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
     # registers and spills, instance by instance (ptxas -v)
     spills = []
-    for source in ("line_sweep", "tridiag_pcr") + MARCH_SOURCES:
+    for source in ("line_sweep", "tridiag_pcr", *MARCH_SOURCES):
         log = _kernels.BUILD_LOGS.get(source)
         if log is None:
             print(f"{source} was already built: no ptxas report")
@@ -295,7 +298,7 @@ def phase1_build() -> None:
                 name = line.split("Function properties for")[-1].strip()
             elif "spill" in line or "Used" in line:
                 print(f"ptxas {source} {name}: {line.strip()}")
-                if (source in MARCH_SOURCES and "zmarch" in name
+                if (MARCH_SOURCES.get(source, "?") in name
                         and "spill" in line
                         and " 0 bytes spill stores, 0 bytes spill loads"
                         not in line):
@@ -341,12 +344,18 @@ def _hold(label: str, kernel, twin, arg, tol: float, applies: int,
 
     got, want = kernel(arg), twin(arg)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
+    # a kernel of several outputs (K3) is held output by output
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    errs = [float((g - w).abs().max()) for g, w in pairs]
+    rels = [e / float(w.abs().max()) for e, (_, w) in zip(errs, pairs)]
+    err, rel = max(errs), max(rels)
+    each = ("" if len(pairs) == 1 else " (each output "
+            + " / ".join(f"{e:.3e}" for e in errs) + ")")
     ms, host_ms = _time_ms(kernel, arg, applies)
     plain_ms, plain_host_ms = _time_ms(twin, arg, applies)
     bound_ms, bound_by = _bound(*work)
-    print(f"{label}: max|kernel-twin| {err:.3e} (rel {rel:.3e}, tol {tol:g}); "
+    print(f"{label}: max|kernel-twin| {err:.3e}{each} (rel {rel:.3e}, tol "
+          f"{tol:g}); "
           f"per apply (median), device: kernel {ms * 1e3:.2f} us, twin "
           f"{plain_ms * 1e3:.2f} us; host wall: kernel {host_ms * 1e3:.2f} "
           f"us, twin {plain_host_ms * 1e3:.2f} us; bound "
@@ -530,24 +539,28 @@ def phase2_kernels(tmp: str) -> dict:
             _library(f"K2b tgv256 p {tag}", rec,
                      _k2_csr(tuple(phi.shape), k2b.vecs, k2b.periodic,
                              k2b.scale), phi, k2b(phi), applies)
-        # K3: every component of the sphere and of the TGV
+        # K3: the sphere's and the TGV's three components from one launch,
+        # bit for bit; bound: the three extended arrays read once and the
+        # three outputs written once
         for name in ("sphere", "tgv256"):
             mesh, bcs = meshes[name]
             conv = cs.make_cuda_convection(mesh, bcs, dtype=dtype, device=cuda)
             q = {k: randn(mesh.shape(c), dtype) for c, k in enumerate("uvw")}
             state = bcs.init_state(q)
             ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
-            for c, comp in enumerate("uvw"):
-                iv = conv.inv_dl[c]
-                n = q[comp].numel()
-                rec = _hold(
-                    f"K3 {name} {comp} {tuple(q[comp].shape)} {tag}",
-                    lambda e: cs.convection3d_apply(e, c, iv),
-                    lambda e: cs.convection3d_apply_ref(e, c, iv), ext, tol,
-                    applies, ((numel(ext) + n + numel(iv)) * size, 34 * n,
-                              dtype))
-                if (name, comp, dtype) == ("sphere", "u", torch.float32):
-                    records["K3"] = rec
+            n = numel(q.values())
+            ivs = [v for iv in conv.inv_dl for v in iv]
+            rec = _hold(
+                f"K3 {name} u/v/w " + " ".join(str(tuple(q[k].shape))
+                                               for k in "uvw")
+                + f" {tag} plan {tuple(cs.convection_plan_on_card(ext))}",
+                lambda e: cs.convection3d_apply(e, conv.inv_dl),
+                lambda e: tuple(cs.convection3d_apply_ref(e, c, conv.inv_dl[c])
+                                for c in range(3)), ext, 0.0,
+                applies, ((numel(ext) + n + numel(ivs)) * size, 34 * n,
+                          dtype))
+            if (name, dtype) == ("sphere", torch.float32):
+                records["K3"] = rec
         # K4/K5: the fused sweep on levels 0 and 1 of the flagship and of
         # the sphere, every line direction, bit for bit; at level 0 also
         # the block path (the first design, which takes lines of any length),
@@ -939,7 +952,7 @@ def phase5_sphere(tmp: str):
         "K1": sum(2 + s["p_iters"] for s in hist),
         # make_fdm_solver applies A twice, then once per refinement pass
         "K2a": sum(3 * (2 + s["v_iters"]) for s in hist),
-        "K2b": 0, "K3": 3 * len(hist)})
+        "K2b": 0, "K3": len(hist)})
     st = solver.state
     nx, ny, nz = (sum(sub["cells"] for sub in ax["subDomains"])
                   for ax in solver.config["mesh"])
@@ -999,7 +1012,7 @@ def phase6_tgv(tmp: str):
         # BiCGStab applies A once, then twice per iteration
         "K2a": sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
         "K2b": sum(2 + s["p_iters"] for s in hist),
-        "K3": 3 * len(hist)})
+        "K3": len(hist)})
     st = solver.state
     n = solver.mesh.shape(0)
     _check_fields(dict(st["q"], p=st["p"]),
@@ -1156,7 +1169,7 @@ def phase8_mg(tmp: str) -> tuple:
     hist = sph.stats_history
     _check_counts("sphere mg", counts[-1], dict(
         _mg_counts(sph), K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
-        K3=3 * len(hist)))
+        K3=len(hist)))
     st = sph.state
     _check_fields(dict(st["q"], p=st["p"]),
                   {k: sph.mesh.shape(f) for f, k in enumerate("uvwp")})
@@ -1186,7 +1199,7 @@ def phase8_mg(tmp: str) -> tuple:
     _check_run(hist, 10, "vp")
     _check_counts("tgv256 mg", counts[-1], dict(
         _mg_counts(tgv), K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
-        K3=3 * len(hist)))
+        K3=len(hist)))
     _check_fields(dict(tgv.state["q"], p=tgv.state["p"]),
                   {k: tgv.mesh.shape(0) for k in "uvwp"})
     print("tgv256 mg kinetic energy after steps 0, 1, 4, 7, 10: "

@@ -27,18 +27,17 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: per-source flags.  The line kernels, K1 and K2 contract no multiply-add
-#: into an FMA, so they round op for op as their twins do and equal them
-#: bit for bit: PCR on a stretched grid amplifies every rounding difference
-#: by the line systems' condition (1e-5 relative at the flagship's 450^2
-#: level in float32 with contraction); K1 and K2 are bound by bytes, and
-#: their uncontracted instructions cost them about 1% at 256^3 and 6% at
+#: per-source flags.  Every kernel contracts no multiply-add into an FMA,
+#: so each rounds op for op as its twin does and equals it bit for bit:
+#: PCR on a stretched grid amplifies every rounding difference by the line
+#: systems' condition (1e-5 relative at the flagship's 450^2 level in
+#: float32 with contraction); K1, K2 and K3 are bound by bytes, and the
+#: uncontracted instructions cost K1 and K2 about 1% at 256^3 and 6% at
 #: the sphere's shapes in float32 (scripts/bench_torch_stencil.py, variant
-#: fma).  Their builds report each kernel's registers and spills (ptxas
-#: -v).
+#: fma).  The builds report each kernel's registers and spills (ptxas -v).
 EXTRA_FLAGS = {name: ("--fmad=false", "-Xptxas", "-v")
                for name in ("line_sweep", "tridiag_pcr", "poisson_separable",
-                            "zblocked_helmholtz")}
+                            "zblocked_helmholtz", "convection3d")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: the compiler's messages of each source built by this process

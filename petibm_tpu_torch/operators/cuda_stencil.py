@@ -12,11 +12,14 @@ Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  Three kernels:
   the scaled conservative Poisson apply of 3D grids with a periodic axis
   (``make_cuda_poisson_zblocked``);
 - K3 ``convection3d_apply`` (``csrc/convection3d.cu``): the 3D
-  divergence-form convection of one velocity component from the three
-  ghost-extended velocity arrays (``make_cuda_convection``).
+  divergence-form convection of the three velocity components, in one
+  launch, from the three ghost-extended velocity arrays
+  (``make_cuda_convection``).
 
 K1's 3D path and K2 share one kernel design, the z march of
-``csrc/march.cuh``, and its launch plan (``launch_plan``).  Each wrapper
+``csrc/march.cuh``, and its launch plan (``launch_plan``); K3 marches
+its own tiles of three arrays (``convection_launch_plan``, on the same
+``plan_for_tile``).  Each wrapper
 launches its kernel on a CUDA tensor (one more in its ``launches``
 counter) and calls its plain PyTorch twin (``*_ref``) on a CPU tensor;
 it never falls back from one to the other on failure.
@@ -25,6 +28,7 @@ it never falls back from one to the other on failure.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -522,7 +526,7 @@ def make_cuda_poisson_zblocked(level: Level):
 
 
 # ----------------------------------------------------------------------
-# K3: 3D divergence-form convection, one component per launch
+# K3: 3D divergence-form convection, all three components in one launch
 
 def _window(ext: torch.Tensor, shape, offsets: dict) -> torch.Tensor:
     """ext[1 + o_z + k, 1 + o_y + j, 1 + o_x + i] over ``shape``;
@@ -560,65 +564,156 @@ def convection3d_apply_ref(ext, c: int, inv_dl) -> torch.Tensor:
     return total
 
 
-def _check_k3(ext, c: int, inv_dl) -> tuple:
+#: the tiles (TX, TY, RY, VX) K3 has instances of (``K3_TILES`` in
+#: ``csrc/convection3d.cu``), one column a thread (VX = 1: the extended
+#: rows are often odd and start unaligned): the plan's in float32, then in
+#: float64, where four rows a thread take 238 registers and one row 109
+#: (32 x 8 with one row a thread was 5-10% faster than 32 x 16 with four
+#: at the sphere's shapes and 256^3, scripts/bench_torch_stencil.py)
+CONVECTION_TILES = ((32, 16, 4, 1), (32, 8, 1, 1))
+
+
+def convection_union(ext_shapes) -> tuple:
+    """The box K3's grid covers: the largest extent of the three
+    components' shapes (each extended shape minus 2) on each axis."""
+    return tuple(max(s[ax] - 2 for s in ext_shapes) for ax in range(3))
+
+
+def convection_shape_error(ext_shapes):
+    """Why K3 does not take extended arrays of ``ext_shapes`` (three (z, y,
+    x) extents), or None: each has an interior and fewer than 2^31
+    values, the union box fewer than 2^31 cells, and every array is large
+    enough for the cells of each other component that read it (component
+    c reads ext d at offsets -1 and 0 along d, 0 and +1 along c)."""
+    if len(ext_shapes) != 3 or any(len(s) != 3 for s in ext_shapes):
+        return "not three 3D extended arrays"
+    if any(min(s) < 3 for s in ext_shapes):
+        return "an extended array with no interior"
+    if any(math.prod(s) >= 2 ** 31 for s in ext_shapes):
+        return "an extended array of 2^31 values or more (32-bit offsets)"
+    if math.prod(convection_union(ext_shapes)) >= 2 ** 31:
+        return "a union box of 2^31 cells or more (32-bit offsets)"
+    for c in range(3):
+        shape = [s - 2 for s in ext_shapes[c]]
+        for d in range(3):
+            need = [s + 1 for s in shape]
+            need[2 - c] += 1
+            if d != c and any(e < n for e, n in zip(ext_shapes[d], need)):
+                return (f"extended array {d} of shape "
+                        f"{tuple(ext_shapes[d])} is too small for component "
+                        f"{c} of shape {tuple(shape)}")
+    return None
+
+
+def convection_launch_plan(ext_shapes, dtype, slots) -> Plan:
+    """K3's plan for extended arrays of ``ext_shapes`` and ``dtype``: the
+    dtype's tile of ``CONVECTION_TILES`` with ``plan_for_tile``'s chunks
+    of the union box for ``slots(tile)`` blocks held at once
+    (``convection_resident_blocks``)."""
+    tile = CONVECTION_TILES[dtype == torch.float64]
+    return plan_for_tile(convection_union(ext_shapes), tile, slots(tile))
+
+
+def convection_plan_error(ext_shapes, plan: Plan):
+    """Why K3's C entry refuses ``plan`` for extended arrays of
+    ``ext_shapes`` (it returns cudaErrorInvalidValue and the wrapper
+    raises), or None when it takes it: the checks of ``launch`` and
+    ``launch_tile`` in ``csrc/convection3d.cu``."""
+    why = convection_shape_error(ext_shapes)
+    if why:
+        return why
+    nz = convection_union(ext_shapes)[0]
+    if plan.kz < 1 or _ceil(nz, plan.kz) > MAX_CHUNKS:
+        return f"chunks of no plane, or more than {MAX_CHUNKS} of them"
+    if tuple(plan[:4]) not in CONVECTION_TILES:
+        return f"no instance of the tile {tuple(plan[:4])}"
+    return None
+
+
+def _check_k3(ext, inv_dl) -> None:
+    """Raises unless K3 takes ``ext`` and ``inv_dl``: three 3D arrays of
+    one float dtype on one device that ``convection_shape_error`` passes,
+    and each component's three 1/dl vectors of its x, y and z extents."""
     if len(ext) != 3 or any(e.ndim != 3 for e in ext):
         raise ValueError("K3 takes three 3D extended velocity arrays")
-    if c not in (0, 1, 2):
-        raise ValueError(f"K3 computes component 0, 1 or 2, got {c}")
-    check_dtype("K3", ext[c])
+    check_dtype("K3", ext[0])
     for e in ext:
-        if e.device != ext[c].device or e.dtype != ext[c].dtype:
+        if e.device != ext[0].device or e.dtype != ext[0].dtype:
             raise ValueError("K3's extended arrays must share device and "
                              "dtype")
-    shape = tuple(s - 2 for s in ext[c].shape)
-    if min(shape) < 1:
-        raise ValueError(f"extended array {tuple(ext[c].shape)} has no "
-                         "interior")
-    for d in range(3):
-        if d == c:
-            continue
-        # component d is read at offsets -1, 0 along d, 0, +1 along c and
-        # 0 along the third direction: extended index 1 + offset + k
-        need = [s + 1 for s in shape]
-        need[2 - c] += 1
-        if any(e < n for e, n in zip(ext[d].shape, need)):
-            raise ValueError(f"extended array {d} of shape "
-                             f"{tuple(ext[d].shape)} is too small for "
-                             f"component {c} of shape {shape}")
-    check_vectors("K3", ext[c], inv_dl)
-    if tuple(v.shape[0] for v in inv_dl) != shape[::-1]:
-        raise ValueError("K3's inv_dl vectors must match the component's "
-                         "x, y and z extents")
-    return shape
+    why = convection_shape_error([tuple(e.shape) for e in ext])
+    if why:
+        raise ValueError(f"K3 does not take these arrays: {why}")
+    shapes = [tuple(s - 2 for s in e.shape) for e in ext]
+    if len(inv_dl) != 3 or any(not isinstance(iv, (tuple, list))
+                               or len(iv) != 3 for iv in inv_dl):
+        raise ValueError("K3 takes three 1/dl vectors per component")
+    for c in range(3):
+        check_vectors("K3", ext[0], inv_dl[c])
+        if tuple(v.shape[0] for v in inv_dl[c]) != shapes[c][::-1]:
+            raise ValueError(f"K3's inv_dl vectors of component {c} must "
+                             "match its x, y and z extents")
 
 
-def convection3d_apply(ext, c: int, inv_dl) -> torch.Tensor:
-    """K3: N(u)_c from the three ghost-extended velocity arrays ``ext``
-    (each its component's shape plus 2 on every axis) and component c's
-    ``inv_dl`` = (1/dx, 1/dy, 1/dz) as 1D tensors.
+def convection_resident_blocks(device, dtype, tile) -> int:
+    """The blocks of K3's instance of ``tile`` (``dtype``) that ``device``
+    holds at once (``_resident``)."""
+    return _resident("convection3d", "convection3d_resident", device, dtype,
+                     (), tile)
 
-    CUDA arrays launch the kernel on the current stream (one more in
-    ``convection3d_apply.launches``); CPU arrays run the plain twin.
-    Raises on what the kernel does not take and when the launch reports
-    an error."""
-    shape = _check_k3(ext, c, inv_dl)
-    if ext[c].device.type == "cpu":
-        return convection3d_apply_ref(ext, c, inv_dl)
-    for e in ext:
-        check_launchable("K3", e)
-    fn = c_function("convection3d", "convection3d", ext[c].dtype,
+
+def convection_plan_on_card(ext) -> Plan:
+    """The plan ``convection3d_apply`` launches for the CUDA arrays
+    ``ext``."""
+    return convection_launch_plan(
+        [tuple(e.shape) for e in ext], ext[0].dtype,
+        lambda tile: convection_resident_blocks(ext[0].device, ext[0].dtype,
+                                                tile))
+
+
+def convection_launch(ext, inv_dl, plan: Plan) -> tuple:
+    """One launch of K3 with ``plan`` on CUDA tensors that
+    ``convection3d_apply`` has checked: (N_u, N_v, N_w); counts nothing
+    (the wrapper does).  Raises when the C entry refuses the plan, naming
+    ``convection_plan_error``'s reason."""
+    e0 = ext[0]
+    fn = c_function("convection3d", "convection3d", e0.dtype,
                     [ctypes.c_void_p] * 3
                     + [ctypes.POINTER(ctypes.c_longlong)]
-                    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                    + [ctypes.c_int, ctypes.c_void_p])
-    out = torch.empty(shape, dtype=ext[c].dtype, device=ext[c].device)
+                    + [ctypes.c_void_p] * 3
+                    + [ctypes.POINTER(ctypes.c_void_p)]
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = tuple(torch.empty(tuple(s - 2 for s in e.shape), dtype=e0.dtype,
+                            device=e0.device) for e in ext)
     ext_shape = (ctypes.c_longlong * 9)(*(n for e in ext for n in e.shape))
-    device = ext[c].device
-    with torch.cuda.device(device):
-        err = fn(*(ptr(e) for e in ext), ext_shape, ptr(out),
-                 *(ptr(v) for v in inv_dl), *shape, c, stream(device))
+    iv = (ctypes.c_void_p * 9)(*(ptr(v) for vs in inv_dl for v in vs))
+    with torch.cuda.device(e0.device):
+        err = fn(*(ptr(e) for e in ext), ext_shape, *(ptr(o) for o in out),
+                 iv, *plan, stream(e0.device))
     if err != 0:
-        raise RuntimeError(f"K3 launch failed with CUDA error {err}")
+        why = convection_plan_error([tuple(e.shape) for e in ext], plan)
+        raise RuntimeError(f"K3 launch failed with CUDA error {err}"
+                           + (f": {why}" if why else ""))
+    return out
+
+
+def convection3d_apply(ext, inv_dl) -> tuple:
+    """K3: (N_u, N_v, N_w) from the three ghost-extended velocity arrays
+    ``ext`` (each its component's shape plus 2 on every axis) and each
+    component's ``inv_dl[c]`` = (1/dx, 1/dy, 1/dz) as 1D tensors.
+
+    CUDA arrays launch the kernel once on the current stream with
+    ``convection_plan_on_card``'s plan (one more in
+    ``convection3d_apply.launches``); CPU arrays run the plain twin per
+    component.  Raises on what the kernel does not take and when the
+    launch reports an error."""
+    _check_k3(ext, inv_dl)
+    if ext[0].device.type == "cpu":
+        return tuple(convection3d_apply_ref(ext, c, inv_dl[c])
+                     for c in range(3))
+    for e in ext:
+        check_launchable("K3", e)
+    out = convection_launch(ext, inv_dl, convection_plan_on_card(ext))
     convection3d_apply.launches += 1
     return out
 
@@ -629,8 +724,8 @@ convection3d_apply.launches = 0
 def make_cuda_convection(mesh, bcset, *, dtype: torch.dtype, device):
     """K3: ``convection(q, bcstate)`` matching ``make_convection`` in 3D
     (None in 2D).  ``BoundarySet.extend`` fills the ghosts outside the
-    kernel, as in the JAX package; then one K3 launch per component.  The
-    closure carries ``inv_dl`` (per component)."""
+    kernel, as in the JAX package; then one K3 launch forms the three
+    components.  The closure carries ``inv_dl`` (per component)."""
     if mesh.dim != 3:
         return None
     inv_dl = [tuple(torch.as_tensor(1.0 / np.asarray(mesh.dl(Field(c), d),
@@ -640,8 +735,7 @@ def make_cuda_convection(mesh, bcset, *, dtype: torch.dtype, device):
 
     def convection(q: dict, bcstate: dict) -> dict:
         ext = [bcset.extend(q[VEL_NAMES[e]], e, bcstate) for e in range(3)]
-        return {VEL_NAMES[c]: convection3d_apply(ext, c, inv_dl[c])
-                for c in range(3)}
+        return dict(zip(VEL_NAMES, convection3d_apply(ext, inv_dl)))
 
     convection.inv_dl = inv_dl
     return convection

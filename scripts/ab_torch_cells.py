@@ -1,5 +1,5 @@
-"""The 3D cells of ``chip_smoke.py`` and the stencil kernels K1 and K2 on
-two checkouts of the repository in turns on one card: ms per step,
+"""The 3D cells of ``chip_smoke.py`` and the stencil kernels K1, K2 and
+K3 on two checkouts of the repository in turns on one card: ms per step,
 device ms per step and the iteration counts of each cell, and the device
 time of each kernel at its main shapes.
 
@@ -19,8 +19,12 @@ process of its own that imports ``chip_smoke`` and ``petibm_tpu_torch``
 from its checkout (so each builds and runs its own kernels), in the
 order parent, change, change, parent.  A run first times K1 (the
 flagship's and the sphere's pressure), K2a (the sphere's and the TGV's
-u) and K2b (the sphere's and the TGV's pressure) through the wrappers
-in float32 (``chip_smoke._time_ms``: median device µs an apply); then
+u), K2b (the sphere's and the TGV's pressure) and K3 (the sphere's and
+the TGV's three components: one launch, or the sum of a launch per
+component where the checkout's ``convection3d_apply`` takes one) through
+the wrappers in float32 (``chip_smoke._time_ms``: median device µs an
+apply) and hashes K1's and K2's results (the same seeded inputs in every
+run: their bits must not differ between the checkouts); then
 runs each cell for its steps (``--steps``), times the steps after the
 first (host clock, synchronised), then profiles ``--profile`` more steps
 with torch.profiler (device ms per step: the device-side events only),
@@ -34,6 +38,8 @@ time follows the profile window's p_iters).
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import os
 import statistics
@@ -111,9 +117,20 @@ def _cell(tmp: str, cell: str, nsteps: int, profile_steps: int) -> dict:
     return rec
 
 
-def _kernels_us(tmp: str) -> dict:
-    """Median device µs an apply of K1, K2a and K2b through the wrappers,
-    float32, at the cells' shapes."""
+def _k3(cs, conv):
+    """K3's three components of the extended arrays: one launch, or one
+    launch a component (a checkout whose ``convection3d_apply`` takes the
+    component)."""
+    if len(inspect.signature(cs.convection3d_apply).parameters) == 3:
+        return lambda e: [cs.convection3d_apply(e, c, conv.inv_dl[c])
+                          for c in range(3)]
+    return lambda e: cs.convection3d_apply(e, conv.inv_dl)
+
+
+def _kernels_us(tmp: str) -> tuple:
+    """Median device µs an apply of K1, K2a, K2b and K3 through the
+    wrappers, float32, at the cells' shapes; and a hash of K1's and K2's
+    results."""
     import torch
 
     import chip_smoke
@@ -121,7 +138,7 @@ def _kernels_us(tmp: str) -> dict:
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
+    out, bits = {}, {}
     for name, make in (("flagship", chip_smoke.flagship_config),
                        ("sphere", chip_smoke.sphere_config),
                        ("tgv256", chip_smoke.tgv3d_config)):
@@ -140,18 +157,35 @@ def _kernels_us(tmp: str) -> dict:
                                       dtype=torch.float32, device="cuda")
             u = torch.randn(tuple(mesh.shape(0)), generator=gen,
                             device="cuda")
-            out[f"K2a {name} u"] = chip_smoke._time_ms(
-                lambda x: cs.zblocked_helmholtz_apply(x, A.vecs["u"],
-                                                      A.periodic), u)[0] * 1e3
+
+            def k2a(x):
+                return cs.zblocked_helmholtz_apply(x, A.vecs["u"], A.periodic)
+
+            out[f"K2a {name} u"] = chip_smoke._time_ms(k2a, u)[0] * 1e3
+            bits[f"K2a {name} u"] = _hash(k2a(u))
+            conv = cs.make_cuda_convection(mesh, bcs, dtype=torch.float32,
+                                           device="cuda")
+            q = {k: torch.randn(tuple(mesh.shape(c)), generator=gen,
+                                device="cuda") for c, k in enumerate("uvw")}
+            state = bcs.init_state(q)
+            ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
+            out[f"K3 {name} u/v/w"] = chip_smoke._time_ms(_k3(cs, conv),
+                                                          ext)[0] * 1e3
         for key, fn in applies.items():
             out[f"{key} {name} p"] = chip_smoke._time_ms(fn, phi)[0] * 1e3
-    return out
+            bits[f"{key} {name} p"] = _hash(fn(phi))
+    return out, bits
+
+
+def _hash(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def child(root: str, args) -> None:
     sys.path.insert(0, root)
     with tempfile.TemporaryDirectory() as tmp:
-        rec = {"root": root, "kernels_us": _kernels_us(tmp)}
+        us, bits = _kernels_us(tmp)
+        rec = {"root": root, "kernels_us": us, "kernels_bits": bits}
         for cell in args.cells:
             rec[cell] = _cell(tmp, cell, args.steps.get(cell,
                                                         CELLS[cell][2]),
@@ -203,6 +237,11 @@ def main(argv=None) -> int:
         rec = json.loads(out.stdout.strip().splitlines()[-1])
         runs[label].append(rec)
         print(label, json.dumps(rec), flush=True)
+    changed = [k for k in runs["parent"][0]["kernels_bits"]
+               if len({r["kernels_bits"][k] for recs in runs.values()
+                       for r in recs}) != 1]
+    print(f"K1 and K2 results over the four runs: bits differ in "
+          f"{changed or 'none'}", flush=True)
     for label, recs in runs.items():
         us = {k: [r["kernels_us"][k] for r in recs]
               for k in recs[0]["kernels_us"]}
@@ -225,7 +264,7 @@ def main(argv=None) -> int:
                      f"V-cycle {vcycle}"), flush=True)
     grew = [label for label, recs in runs.items()
             if any(r[c].get("energy_grew") for r in recs for c in args.cells)]
-    return 1 if grew else 0
+    return 1 if grew or changed else 0
 
 
 if __name__ == "__main__":

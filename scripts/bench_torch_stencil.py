@@ -1,13 +1,16 @@
 """K1's 3D path and K2, the two users of the z march (``csrc/march.cuh``,
 the 3D 7-point stencil that marches a tile of the xy plane up a chunk of
-z planes), at the main paths' shapes: the launch plan against other
-tiles and chunk lengths, against the first design (one thread per cell),
-and against variants of the march's source, to set the plan and show
-what bounds the kernels; and K1's 2D path against the floor of a launch.
+z planes), and K3, the convection's own z march of three arrays
+(``csrc/convection3d.cu``), at the main paths' shapes: the launch plan
+against other tiles and chunk lengths, against the first design (one
+thread per cell; K1 and K2), and against variants of the source, to set
+the plans and show what bounds the kernels; and K1's 2D path against the
+floor of a launch.
 
 Run on a machine with a CUDA card, from the repository root:
 
-    python3 scripts/bench_torch_stencil.py
+    python3 scripts/bench_torch_stencil.py         # K3, then K1 and K2
+    python3 scripts/bench_torch_stencil.py --k3    # K3 alone
 
 Shapes: K2 at the 256^3 TGV's velocity (K2a) and periodic, scaled
 pressure (K2b), and the sphere's u, v and w (K2a, 160x130x130 cells) in
@@ -36,6 +39,20 @@ and float64.  Against the plan (``cuda_stencil.launch_plan``) it times:
 - on the sphere's shapes (21.5-21.6 MB, which the 50 MB L2 holds between
   the back-to-back launches of a warm timing), the plan and ``cells``
   with the L2 flushed before every launch.
+
+K3 at the sphere's three components and at the TGV's 256^3, float32 and
+float64, one launch forming the three: the plan (``cuda_stencil.
+convection_launch_plan``) against every other tile of ``K3_EXTRA_TILES``
+(the source variant ``k3tiles``), each with its own one-wave plan, the
+plan's tile with chunks of other lengths and two waves, and the source
+variants ``k3fma`` (FMA contraction on: not the twin's bits),
+``k3ahead1`` and ``k3ahead3`` (one or three planes in flight ahead of
+the two the block computes from, instead of two) and ``k3minb`` (every
+instance bound to registers for 5 blocks an SM); then in
+float32 against ``torch.mul(f, 2)`` on a tensor whose read and write
+move the same bytes as the kernel's bound (the three extended arrays
+read once, the three outputs written once), warm and with the L2
+flushed before every launch.
 
 Every run that keeps the bits is held to the twin at tolerance 0 first
 (``fma`` and ``nohalo`` report their difference); then the pair is timed
@@ -67,6 +84,8 @@ sys.path.insert(0, str(REPO))
 SOURCES = ("zblocked_helmholtz", "poisson_separable")
 #: the file the variants' substitutions edit
 HEADER = "march.cuh"
+#: K3's source, the file its variants edit
+K3 = "convection3d"
 #: name: (substitutions in HEADER (text, its replacement at every
 #: occurrence), the flags that replace EXTRA_FLAGS)
 VARIANTS = {
@@ -92,6 +111,24 @@ VARIANTS["tiles"] = ([(
     + " ".join(f"X{t}" for t in EXTRA_TILES))], None)
 #: variants whose results are not the twin's
 INEXACT = ("fma", "nohalo")
+#: K3's tiles (TX, TY, RY, one column a thread) the plan does not take,
+#: built by the variant ``k3tiles`` (bound to no count of blocks an SM)
+K3_EXTRA_TILES = ((32, 16, 2, 1), (32, 16, 1, 1), (32, 8, 4, 1),
+                  (32, 8, 2, 1), (64, 8, 4, 1), (64, 8, 1, 1), (64, 4, 1, 1),
+                  (32, 4, 1, 1))
+#: K3's variants, substitutions in its own source
+K3_VARIANTS = {
+    "k3fma": ([], ("-Xptxas", "-v")),
+    "k3ahead1": ([("constexpr int kAhead = 2;", "constexpr int kAhead = 1;")],
+                 None),
+    "k3ahead3": ([("constexpr int kAhead = 2;", "constexpr int kAhead = 3;")],
+                 None),
+    "k3minb": ([("(sizeof(T) == 4 ? MINB32 : MINB64)", "5")], None),
+    "k3tiles": ([("#define K3_TILES(X) X(32, 16, 4, 4, 1) X(32, 8, 1, 2, 2)",
+                  "#define K3_TILES(X) X(32, 16, 4, 4, 1) X(32, 8, 1, 2, 2) "
+                  + " ".join(f"X({t[0]}, {t[1]}, {t[2]}, 1, 1)"
+                             for t in K3_EXTRA_TILES))], None),
+}
 #: chunk lengths timed beside the plan's, with every tile
 CHUNKS = (8, 16, 32, 64)
 
@@ -113,17 +150,21 @@ def _nvcc(src: Path, so: Path, flags) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def _variant(tmp: Path, name: str) -> dict:
-    """Build every source of SOURCES with ``name``'s substitutions and
-    flags; returns {source: the library's path}."""
+    """Build every source of SOURCES (K3's variants: K3's source) with
+    ``name``'s substitutions and flags; returns {source: the library's
+    path}."""
     from petibm_tpu_torch import _kernels
 
-    subs, flags = VARIANTS[name]
+    subs, flags = {**VARIANTS, **K3_VARIANTS}[name]
+    sources, edited = ((K3,), f"{K3}.cu") if name in K3_VARIANTS \
+        else (SOURCES, HEADER)
     src = tmp / name
     shutil.copytree(_kernels._CSRC, src)
-    path = src / HEADER
+    path = src / edited
     text = path.read_text()
     for old, new in subs:
         if old not in text:
@@ -131,10 +172,17 @@ def _variant(tmp: Path, name: str) -> dict:
         text = text.replace(old, new)
     path.write_text(text)
     out = {}
-    for source in SOURCES:
+    for source in sources:
         so = tmp / f"{source}-{name}.so"
-        _nvcc(src / f"{source}.cu", so,
-              _kernels.EXTRA_FLAGS[source] if flags is None else flags)
+        log = _nvcc(src / f"{source}.cu", so,
+                    _kernels.EXTRA_FLAGS[source] if flags is None else flags)
+        if source == K3:  # the registers of each instance
+            fn = "?"
+            for line in log.splitlines():
+                if "Function properties for" in line:
+                    fn = line.split("Function properties for")[-1].strip()
+                elif "Used" in line or "spill stores" in line:
+                    print(f"ptxas {name} {fn}: {line.strip()}", flush=True)
         out[source] = so
     return out
 
@@ -386,6 +434,120 @@ def _bench(case: Case, libs: dict, tag: str) -> None:
     _kernels._LIBS[case.source] = shipped
 
 
+def _k3_cases(tmp: str, dtype) -> list:
+    """(label, extended arrays, 1/dl) of the sphere and the 256^3 TGV."""
+    import torch
+
+    import chip_smoke
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, make in (("sphere", chip_smoke.sphere_config),
+                       ("tgv256", chip_smoke.tgv3d_config)):
+        cfg = make(os.path.join(tmp, f"k3_{name}_{str(dtype)[6:]}"))
+        mesh, bcs = chip_smoke._mesh_and_bcs(cfg)
+        conv = cs.make_cuda_convection(mesh, bcs, dtype=dtype, device="cuda")
+        q = {k: torch.randn(tuple(mesh.shape(c)), generator=gen,
+                            device="cuda", dtype=dtype)
+             for c, k in enumerate("uvw")}
+        state = bcs.init_state(q)
+        cases.append((f"K3 {name}", [bcs.extend(q[k], c, state)
+                                     for c, k in enumerate("uvw")],
+                      conv.inv_dl))
+    return cases
+
+
+def _bench_k3(label: str, ext, inv_dl, libs: dict, tag: str) -> None:
+    """K3's plan against its other tiles, chunks, two waves and the
+    ``k3fma`` variant, and (float32) against ``torch.mul`` moving the same
+    bytes, warm and with the L2 flushed; each in turns."""
+    import torch
+
+    import chip_smoke
+    from petibm_tpu_torch import _kernels
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    shapes = [tuple(e.shape) for e in ext]
+    union = cs.convection_union(shapes)
+    shipped = libs[K3, "shipped"]
+    _kernels._LIBS[K3] = shipped
+    cs._RESIDENT.clear()
+    plan = cs.convection_plan_on_card(ext)
+    want = [cs.convection3d_apply_ref(ext, c, inv_dl[c]) for c in range(3)]
+    size = ext[0].element_size()
+    nbytes = (sum(e.numel() for e in ext) + sum(w.numel() for w in want)) \
+        * size
+    bound_us = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e6
+    head = (f"{label} u/v/w {' '.join(str(tuple(w.shape)) for w in want)} "
+            f"{tag} (bound {bound_us:.2f} us, {nbytes / 1e6:.1f} MB)")
+
+    def resident(variant, tile):
+        return _with_library(K3, libs[K3, variant], lambda: (
+            cs.convection_resident_blocks(ext[0].device, ext[0].dtype,
+                                          tile)))
+
+    print(f"{head}: resident blocks of the plan's tile "
+          f"{resident('shipped', plan[:4])}", flush=True)
+
+    def march(p, variant="shipped"):
+        lib = libs[K3, variant]
+
+        def run(e):
+            _kernels._LIBS[K3] = lib
+            return cs.convection_launch(e, inv_dl, p)
+        return run
+
+    others = [(_name(p) + ("" if v == "shipped" else f" ({v})"),
+               march(p, v), True)
+              for v, p in dict.fromkeys(
+                  [(v, cs.plan_for_tile(union, t, resident(v, t)))
+                   for v, tiles in (("shipped", cs.CONVECTION_TILES),
+                                    ("k3tiles", K3_EXTRA_TILES))
+                   for t in tiles]
+                  + [("shipped", plan._replace(kz=kz)) for kz in CHUNKS]
+                  + [("shipped", cs.plan_for_tile(
+                      union, plan[:4], 2 * resident("shipped", plan[:4])))])
+              if p != plan]
+    for v in K3_VARIANTS:
+        if v != "k3tiles":
+            p = cs.plan_for_tile(union, plan[:4], resident(v, plan[:4]))
+            others.append((f"{v} {_name(p)}", march(p, v), v != "k3fma"))
+    mine = march(plan)
+    if not all(torch.equal(g, w) for g, w in zip(mine(ext), want)):
+        raise AssertionError(f"{head}: the plan differs from the twin")
+    for name, run, exact in others:
+        err = max(float((g - w).abs().max()) for g, w in zip(run(ext), want))
+        if exact and err != 0.0:
+            raise AssertionError(f"{head}: {name} differs from the twin by "
+                                 f"{err}")
+        times = [chip_smoke._time_ms(g, ext, 60)[0] * 1e3
+                 for g in (mine, run, run, mine)]
+        print(f"{head}: plan {_name(plan)} {times[0]:.2f}, {times[3]:.2f} "
+              f"us (share {bound_us / min(times[0], times[3]):.3f}); {name} "
+              f"{times[1]:.2f}, {times[2]:.2f} us (share "
+              f"{bound_us / min(times[1], times[2]):.3f})"
+              + ("" if exact else f"; max|diff| from the twin {err:.3e}"),
+              flush=True)
+    _kernels._LIBS[K3] = shipped
+    if ext[0].dtype != torch.float32:
+        return
+    # one PyTorch elementwise kernel moving the same bytes (read + write)
+    flat = torch.randn(nbytes // (2 * size), device="cuda")
+
+    def mul(_):
+        return torch.mul(flat, 2.0)
+
+    copy = [chip_smoke._time_ms(g, ext, 60)[0] * 1e3
+            for g in (mine, mul, mul, mine)]
+    flushed = [_time_flushed(g, ext) * 1e3 for g in (mine, mul, mul, mine)]
+    print(f"{head}: plan {copy[0]:.2f}, {copy[3]:.2f} us; torch.mul(f, 2) "
+          f"{copy[1]:.2f}, {copy[2]:.2f} us (share "
+          f"{bound_us / min(copy[1], copy[2]):.3f}); L2 flushed before each "
+          f"apply: plan {flushed[0]:.2f}, {flushed[3]:.2f} us; torch.mul "
+          f"{flushed[1]:.2f}, {flushed[2]:.2f} us", flush=True)
+
+
 def _floor_2d(tmp: str, empty) -> None:
     """K1's 2D path (one thread a cell) at the flagship's 450^2 pressure
     in turns with torch.mul(f, 2) at that shape and an empty kernel's
@@ -439,14 +601,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {(s, "shipped"): _kernels.library(s) for s in SOURCES}
-        with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
+        libs = {(s, "shipped"): _kernels.library(s) for s in SOURCES + (K3,)}
+        variants = [*VARIANTS, *K3_VARIANTS]
+        with ThreadPoolExecutor(len(variants) + 1) as pool:
             empty = pool.submit(_empty_kernel, Path(tmp))
-            built = pool.map(lambda v: (v, _variant(Path(tmp), v)), VARIANTS)
+            built = pool.map(lambda v: (v, _variant(Path(tmp), v)), variants)
             for name, paths in built:
                 for source, so in paths.items():
                     libs[source, name] = ctypes.CDLL(str(so))
             empty = empty.result()
+        for dtype in (torch.float32, torch.float64):
+            for label, ext, inv_dl in _k3_cases(tmp, dtype):
+                _bench_k3(label, ext, inv_dl, libs, str(dtype)[6:])
+        if "--k3" in sys.argv[1:]:
+            return 0
         for dtype in (torch.float32, torch.float64):
             for case in _cases(tmp, dtype):
                 _bench(case, libs, str(dtype)[6:])
