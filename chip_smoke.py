@@ -46,7 +46,18 @@ Phases, in order (any failure raises and the script exits non-zero):
    profile window's p_iters);
 9. A/B the three MG-CG paths with the kernels on and off from their
    developed states, and small MG-CG cases on the card against the CPU
-   path.
+   path;
+10. run the coupled IBPM through ``IBPMSolver.run()``:
+   ``examples/ibpm/cylinder2dRe550`` and its pinned-pressure twin
+   ``cylinder2dRe550_GPU`` (450^2 stretched, 314 points, float32) for
+   1200 steps to t = 3 each, every solve converged, Cd(t) within rms 0.06
+   and max 0.12 of the Koumoutsakos & Leonard (1995) curve over t in
+   [0.5, 3], setup seconds (the Schur build) and ms/step printed, one
+   JSON line each; Re=550 with ``fdm: false`` (CG on the coupled system,
+   the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 5
+   steps with its launches against the stats, one more step profiled,
+   then one step A/B'd with the kernels off; small 2D and 3D coupled
+   cases (K2a, K3) on the card against the CPU path.
 
 Phase 2 holds K1 (450^2 and the sphere's pressure), K2a and K2b (every
 shape), K3 (the sphere's and the TGV's three components from one
@@ -72,6 +83,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
                            "sphere3dRe300", "sphere.body")
+RE550_DIR = os.path.join(REPO, "examples", "ibpm", "cylinder2dRe550")
+KL_RE550 = os.path.join(REPO, "examples", "data", "koumoutsakos_leonard_"
+                        "1995_cylinder_dragCoefficientRe550.dat")
+#: the Re=550 bracket of scripts/validate_forces.py:_case_kl_cylinder: the
+#: rms and the largest deviation of Cd(t) from the K&L curve, t in [0.5, 3]
+KL_RMS, KL_MAX = 0.06, 0.12
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
                   "line_sweep", "tridiag_pcr")
 #: the sources of a z march and the name of its kernel (csrc/march.cuh's
@@ -146,6 +163,68 @@ def small_config(tmp: str, **params) -> dict:
     24 body points, Re=40)."""
     sub = [{"end": 2.0, "cells": 32, "stretchRatio": 1.0}]
     return _config(tmp, (-2.0, sub), nu=0.025, dt=0.005, npts=24, **params)
+
+
+def re550_config(tmp: str, pinned: bool = False, **params) -> dict:
+    """examples/ibpm/cylinder2dRe550 (``pinned``: cylinder2dRe550_GPU) as
+    a dict: Re=550 (nu 1/550, D = U = 1) on 450^2 cells stretched from a
+    uniform patch |x|, |y| <= 0.54, dt 0.0025, 1200 steps to t = 3, the
+    example's 314-point body; BiCGStab + Jacobi velocity solve, CG + gamg
+    pressure solve (the examples' .info files), atol 1e-6; ``pinned``
+    sets the pressure solve's type to GPU (the pinned pressure)."""
+    sub = [{"end": -0.54, "cells": 171, "stretchRatio": 0.980392156},
+           {"end": 0.54, "cells": 108, "stretchRatio": 1.0},
+           {"end": 15.0, "cells": 171, "stretchRatio": 1.02}]
+    cfg = _config(tmp, (-15.0, sub), nu=0.00181818181818, dt=0.0025,
+                  npts=314, **dict({
+                      "nt": 1200,
+                      "velocitySolver": _solver_opts(
+                          10000, rtol=0.0, kspType="bicgstab", pc="jacobi"),
+                      "poissonSolver": _solver_opts(
+                          20000, rtol=0.0, pc="mg",
+                          type="GPU" if pinned else "CPU")}, **params))
+    cfg["bodies"] = [{"type": "points",
+                      "file": os.path.join(RE550_DIR, "circle.body")}]
+    return cfg
+
+
+def _sphere(path: str, n: int) -> str:
+    """A body file: n points on the unit-diameter sphere at the origin
+    (Fibonacci lattice)."""
+    with open(path, "w") as fh:
+        fh.write(f"{n}\n")
+        for k in range(n):
+            polar = math.acos(1.0 - 2.0 * (k + 0.5) / n)
+            azim = math.pi * (1.0 + 5.0 ** 0.5) * (k + 0.5)
+            fh.write(f"{0.5 * math.cos(azim) * math.sin(polar):.10e}\t"
+                     f"{0.5 * math.sin(azim) * math.sin(polar):.10e}\t"
+                     f"{0.5 * math.cos(polar):.10e}\n")
+    return path
+
+
+def small3d_config(tmp: str, **params) -> dict:
+    """The sphere cut to 24x20x16 stretched cells in a walled box and a
+    100-point body, Re=100, dt 0.01 (tests/test_torch_sphere3d.py)."""
+    def axis(d, n_lo, n, end):
+        return {"direction": d, "start": -2.0, "subDomains": [
+            {"end": -0.6, "cells": n_lo, "stretchRatio": 0.9},
+            {"end": 0.6, "cells": 8, "stretchRatio": 1.0},
+            {"end": end, "cells": n - n_lo - 8, "stretchRatio": 1.1}]}
+
+    faces = [("xMinus", "DIRICHLET", 0.0), ("xPlus", "CONVECTIVE", 1.0),
+             ("yMinus", "DIRICHLET", 0.0), ("yPlus", "DIRICHLET", 0.0),
+             ("zMinus", "DIRICHLET", 0.0), ("zPlus", "DIRICHLET", 0.0)]
+    cfg = _base(tmp, [axis("x", 7, 24, 3.0), axis("y", 6, 20, 2.0),
+                      axis("z", 4, 16, 2.0)],
+                {"nu": 0.01, "initialVelocity": [1.0, 0.0, 0.0],
+                 "boundaryConditions": [
+                     {"location": loc, "u": [t, 1.0], "v": [t, vw],
+                      "w": [t, vw]} for loc, t, vw in faces]},
+                **dict({"dt": 0.01, "velocitySolver": _solver_opts(rtol=0.0),
+                        "poissonSolver": _solver_opts(rtol=0.0)}, **params))
+    cfg["bodies"] = [{"type": "points",
+                      "file": _sphere(os.path.join(tmp, "sphere.body"), 100)}]
+    return cfg
 
 
 def sphere_config(tmp: str, **params) -> dict:
@@ -897,9 +976,10 @@ def phase4_ab(tmp: str, solver) -> None:
         device=dev), ("p", "f"))
 
 
-def _cuda_vs_cpu(label: str, make, keys) -> None:
+def _cuda_vs_cpu(label: str, make, keys) -> dict:
     """A small float64 case on the card (kernels) and on the CPU (twins):
-    the fields agree to 1e-9, iteration counts and ok flags are equal."""
+    the fields agree to 1e-9, iteration counts and ok flags are equal.
+    Returns the two closed solvers by "card" and "cpu"."""
     runs = {}
     for tag, dev in (("card", DEVICE), ("cpu", "cpu")):
         s = make(dev, tag)
@@ -917,6 +997,7 @@ def _cuda_vs_cpu(label: str, make, keys) -> None:
                      for h in s.stats_history] for dev, s in runs.items()}
     if streams["card"] != streams["cpu"]:
         raise AssertionError("cuda and cpu iteration counts or ok flags differ")
+    return runs
 
 
 def phase5_sphere(tmp: str):
@@ -1083,25 +1164,29 @@ def _busy_share(solver, steps: int = 5) -> tuple:
     return busy_us / wall_us, wall_us / steps / 1e3, busy_us / steps / 1e3
 
 
-def _mg_counts(solver) -> dict:
+def _mg_counts(solver, level0_per_vcycle: int = 2) -> dict:
     """The launches of the MG-CG pressure solve the stats imply: one
     V-cycle per CG iteration and one more, each of sweeps_per_vcycle()
     line sweeps (K4/K5 on a non-periodic grid, K6/K7 on a periodic one),
     and the level-0 operator (K1 or K2b) twice per V-cycle (the CG
-    operator, A(x0) and one per iteration, and the V-cycle's residual)."""
+    operator, A(x0) and one per iteration, and the V-cycle's residual);
+    once in the coupled IBPM, whose CG operator is not K1."""
     hist = solver.stats_history
     vcycles = sum(1 + s["p_iters"] for s in hist)
     sweeps = solver.poisson_mg.sweeps_per_vcycle() * vcycles
     if any(solver.mesh.periodic):
-        return {"K6/K7": sweeps, "K2b": 2 * vcycles}
-    return {"K4/K5": sweeps, "K1": 2 * vcycles}
+        return {"K6/K7": sweeps, "K2b": level0_per_vcycle * vcycles}
+    return {"K4/K5": sweeps, "K1": level0_per_vcycle * vcycles}
 
 
 def _report_mg(label: str, solver, elapsed: float, nsteps: int,
-               extra: str = "") -> None:
+               extra: str = "", profile_steps: int = 5) -> None:
+    """ms/step and p_iters of the run, then a profile of ``profile_steps``
+    more steps (the profiler's post-processing grows with the events:
+    a coupled step of ~150 V-cycles takes one)."""
     hist = solver.stats_history
     p_iters = [s["p_iters"] for s in hist]
-    busy, wall_ms, device_ms = _busy_share(solver)
+    busy, wall_ms, device_ms = _busy_share(solver, profile_steps)
     print(f"{label} {elapsed / nsteps * 1e3:.3f} ms/step over the last "
           f"{nsteps} steps (synchronised); p_iters mean "
           f"{statistics.mean(p_iters):.2f}, last {p_iters[-1]}, max "
@@ -1111,7 +1196,8 @@ def _report_mg(label: str, solver, elapsed: float, nsteps: int,
     window = [s["p_iters"] for s in solver.stats_history[len(p_iters):]]
     # one V-cycle per CG iteration and one more: device time follows them
     vcycles = statistics.mean(window) + 1
-    print(f"{label} profile of 5 more steps: {wall_ms:.3f} ms/step wall, "
+    print(f"{label} profile of {profile_steps} more steps: "
+          f"{wall_ms:.3f} ms/step wall, "
           f"{device_ms:.3f} ms/step device, busy share {busy:.4f}; "
           f"p_iters {window}: {device_ms / vcycles:.3f} ms device per "
           "V-cycle")
@@ -1250,6 +1336,148 @@ def phase9_mg_ab(tmp: str, flag, sph, tgv) -> None:
     _cuda_vs_cpu("tgv 16^3 mg", small_tgv, ("p",))
 
 
+def kl_compare(t, cd) -> dict:
+    """Cd(t) against Koumoutsakos & Leonard (1995) at Re=550 over t in
+    [0.5, t_final]: the published time U t / R halved to U t / D, the
+    simulated curve interpolated at the published samples (the comparison
+    of scripts/validate_forces.py:_kl_curve_compare, unrounded)."""
+    import numpy as np
+
+    tp, cdp = np.loadtxt(KL_RE550, unpack=True)
+    tp = 0.5 * tp
+    sel = (tp >= 0.5) & (tp <= t[-1] + 1e-9)
+    dev = np.interp(tp[sel], t, cd) - cdp[sel]
+    rms, worst = float(np.sqrt(np.mean(dev ** 2))), float(np.abs(dev).max())
+    return {"n_published_samples": int(sel.sum()),
+            "t_range_compared": [float(tp[sel][0]), float(tp[sel][-1])],
+            "rms_dev": rms, "max_abs_dev": worst,
+            "pass": rms <= KL_RMS and worst <= KL_MAX}
+
+
+def re550_run(out: str, pinned: bool, warm: int = 100) -> tuple:
+    """examples/ibpm/cylinder2dRe550 (``pinned``: _GPU) through
+    ``IBPMSolver.run()``: steps 1 to ``warm``, then on to 1200 (t = 3)
+    timed; every solve converged; Cd(t) from the forces log against K&L.
+    Returns (the open solver, its record, the launches of the run)."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.solvers.ibpm import IBPMSolver
+
+    t0 = time.perf_counter()
+    solver = IBPMSolver(re550_config(out, pinned), device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _reset_counts()
+    elapsed = _timed_run(solver, warm, 1200)
+    launches = _counts()
+    hist = solver.stats_history
+    _check_run(hist, 1200, "vp")
+    st = solver.state
+    _check_fields({"u": st["q"]["u"], "v": st["q"]["v"], "p": st["p"],
+                   "f": st["f"]},
+                  {"u": solver.mesh.shape(0), "v": solver.mesh.shape(1),
+                   "p": solver.mesh.shape(3), "f": (solver.bodies.n_pts, 2)})
+    forces = np.loadtxt(os.path.join(solver.output_dir, "forces-0.txt"),
+                        ndmin=2)
+    if forces.shape != (1200, 3):
+        raise AssertionError(f"forces log has shape {forces.shape}")
+    t, cd = forces[:, 0], 2 * forces[:, 1]
+    p_iters = [s["p_iters"] for s in hist]
+    record = {"case": "cylinder2dRe550" + ("_GPU" if pinned else ""),
+              "solver": "IBPMSolver", "pressure": ("pinned" if pinned
+                                                   else "mean projection"),
+              "coupled_solve": "CG preconditioned by the Schur solve",
+              "grid": "x".join(str(n) for n in solver.mesh.shape(3)),
+              "body_points": solver.bodies.n_pts,
+              "dtype": "float32", "steps": len(hist), "t_final": float(t[-1]),
+              "cd_final": float(cd[-1]),
+              "setup_s": setup_s,
+              "ms_per_step": elapsed / (1200 - warm) * 1e3,
+              "timed_steps": [warm + 1, 1200],
+              "p_iters_mean": statistics.mean(p_iters),
+              "p_iters_max": max(p_iters),
+              "v_iters_mean": statistics.mean(s["v_iters"] for s in hist),
+              "curve_vs_koumoutsakos_leonard_1995": kl_compare(t, cd)}
+    return solver, record, launches
+
+
+def phase10_coupled(tmp: str) -> list:
+    """The coupled IBPM through ``IBPMSolver.run()``: (a) Re=550 and (b)
+    its pinned-pressure twin to t = 3 against the K&L curve (the Schur CG:
+    2D, no hand kernel in its path); (c) Re=550 with ``fdm: false`` (CG on
+    the coupled system with the V-cycle: K1 at its level-0 residual, the
+    K4/K5 sweeps), 5 steps with the launches against the stats, one step
+    A/B'd with the kernels off; (d) small 2D and 3D (K2a, K3) coupled
+    cases on the card against the CPU.  Returns the launches of each
+    run."""
+    from petibm_tpu_torch.convert import state_to_numpy
+    from petibm_tpu_torch.solvers.ibpm import IBPMSolver
+
+    t0 = time.perf_counter()
+
+    def part(name: str) -> None:
+        print(f"phase 10 {name} done at {time.perf_counter() - t0:.1f} s "
+              "into the phase")
+
+    counts = []
+    for label, pinned in (("re550", False), ("re550_GPU", True)):
+        solver, record, launches = re550_run(os.path.join(tmp, label),
+                                             pinned)
+        counts.append(launches)
+        _check_counts(label, launches, {})
+        busy, wall_ms, device_ms = _busy_share(solver)
+        solver.close()
+        record["profile_5_steps"] = {"wall_ms_per_step": wall_ms,
+                                     "device_ms_per_step": device_ms,
+                                     "device_busy_share": busy}
+        print(json.dumps({"coupled": record}))
+        cmp = record["curve_vs_koumoutsakos_leonard_1995"]
+        if not cmp["pass"]:
+            raise AssertionError(
+                f"{label}: Cd(t) off the K&L curve, rms {cmp['rms_dev']} "
+                f"(<= {KL_RMS}), max {cmp['max_abs_dev']} (<= {KL_MAX})")
+        part(label)
+
+    # (c) the outer CG with the V-cycle
+    def make_mg(name, **params):
+        return IBPMSolver(re550_config(os.path.join(tmp, name), fdm=False,
+                                       **params), device=DEVICE)
+
+    mg = make_mg("re550_mg")
+    if mg.poisson_mg._fused_apply0 is None:
+        raise AssertionError("re550 mg: K1 is not the V-cycle's level 0")
+    _reset_counts()
+    elapsed = _timed_run(mg, 1, 5)
+    counts.append(_counts())
+    _check_run(mg.stats_history, 5, "vp")
+    _check_counts("re550 mg", counts[-1], _mg_counts(mg, 1))
+    _report_mg("re550 mg", mg, elapsed, 4, profile_steps=1)
+    mg.close()
+    part("re550 mg")
+    _ab("re550 mg", make_mg, state_to_numpy(mg.state), 1, _ibm_fields,
+        f32_tol=1e-4, f64_tol=1e-10, same_iters=True)
+    part("re550 mg A/B")
+
+    # (d) small cases, card against CPU
+    _reset_counts()
+    _cuda_vs_cpu("32^2 coupled", lambda dev, tag: IBPMSolver(small_config(
+        os.path.join(tmp, f"small_ibpm_{tag}"), nt=20, dtype="float64"),
+        device=dev), ("p", "f"))
+    _check_counts("32^2 coupled", _counts(), {})
+    _reset_counts()
+    runs = _cuda_vs_cpu("24x20x16 coupled", lambda dev, tag: IBPMSolver(
+        small3d_config(os.path.join(tmp, f"small3d_ibpm_{tag}"), nt=5,
+                       dtype="float64"), device=dev), ("p", "f"))
+    counts.append(_counts())
+    hist = runs["card"].stats_history
+    _check_counts("24x20x16 coupled", counts[-1], {
+        # make_fdm_solver applies A twice, then once per refinement pass
+        "K2a": sum(3 * (2 + s["v_iters"]) for s in hist), "K3": len(hist)})
+    part("cuda vs cpu")
+    return counts
+
+
 def main() -> int:
     import tempfile
 
@@ -1275,8 +1503,10 @@ def main() -> int:
         done(8)
         phase9_mg_ab(tmp, *mg_solvers)
         done(9)
+        counts_coupled = phase10_coupled(tmp)
+        done(10)
     # each main path's launches, counted from 0 just before it ran
-    runs = [counts_2d, counts_sphere, counts_tgv] + counts_mg
+    runs = [counts_2d, counts_sphere, counts_tgv] + counts_mg + counts_coupled
     launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
     stencil = "petibm_tpu/operators/pallas_stencil.py:"

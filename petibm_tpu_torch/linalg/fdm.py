@@ -14,6 +14,11 @@ warm-started direct pass, then refinement passes judged on the recurrence
 residual with a stagnation exit.  The loop reads the residual norm on the
 host once per pass.
 
+``pinned_operator`` and ``PinnedSolve`` give the pinned pressure of the
+reference's GPU backend (row and column 0 of the pressure block the
+identity): its operator, and its exact inverse from a projected solve
+(the FDM pressure solve, or the coupled IBPM's Schur solve).
+
 Not ported yet: the FFT path for periodic uniform axes (ROADMAP item 14)
 and the sharded transform core (ROADMAP item 19).
 """
@@ -190,6 +195,65 @@ def helmholtz_lines(mesh, bcset, c: int) -> list:
                     "dpos": line.dpos(), "a0": a0,
                     "periodic": bool(mesh.periodic[d])})
     return out
+
+
+def set_first(flat: torch.Tensor, value) -> torch.Tensor:
+    """A copy of the 1D ``flat`` with entry 0 set to ``value``."""
+    out = flat.clone()
+    out[0] = value
+    return out
+
+
+def _leaf(tree, key):
+    return tree if key is None else tree[key]
+
+
+def _with_leaf(tree, key, value):
+    return value if key is None else dict(tree, **{key: value})
+
+
+def pinned_operator(A, key: str | None = None):
+    """The pinned-pressure operator of the reference's GPU (AmgX) backend:
+    A with row and column 0 of the pressure block replaced by the identity
+    (MatZeroRowsColumns, navierstokes.cpp:414-420).  ``key`` names the
+    pressure leaf when A acts on a dict (the coupled {p, f} system)."""
+
+    def apply(x):
+        p = _leaf(x, key)
+        flat = p.reshape(-1)
+        y = A(_with_leaf(x, key, set_first(flat, 0.0).reshape(p.shape)))
+        yp = _leaf(y, key)
+        return _with_leaf(y, key, set_first(yp.reshape(-1), flat[0])
+                          .reshape(yp.shape))
+
+    return apply
+
+
+class PinnedSolve:
+    """The exact inverse of ``pinned_operator(A)`` from a projected solve
+    ``inner.solve`` (a pseudo-inverse of A on its mean-free range).
+
+    The pinned solution x has x[0] = r[0] =: s, and x - s e0 solves A on
+    the rows != 0 with the right side r + beta e0, beta = s - sum(r) (the
+    compatibility shift that makes it sum-free); the gauge is fixed by
+    shifting the projected solution so its entry 0 is 0, then setting it
+    to s (JAX ``navierstokes.py:428-436``, ``ibpm.py:198-221``)."""
+
+    def __init__(self, inner, key: str | None = None):
+        self.inner = inner
+        self.key = key
+
+    def solve(self, r):
+        rp = _leaf(r, self.key)
+        flat = rp.reshape(-1)
+        s = flat[0]
+        beta = s - torch.sum(flat)  # -sum over i != 0
+        out = self.inner.solve(_with_leaf(
+            r, self.key, set_first(flat, beta).reshape(rp.shape)))
+        op = _leaf(out, self.key)
+        of = op.reshape(-1)
+        return _with_leaf(out, self.key,
+                          set_first(of - of[0], s).reshape(op.shape))
 
 
 def make_fdm_solver(fdm, A, opts: dict):

@@ -187,7 +187,6 @@ UNSUPPORTED = {
     "bn2": ({"BN": 2}, "ROADMAP item 18"),
     "mg_bf16": ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
     "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
-    "pinned_pressure": ({"poissonSolver": {"type": "GPU"}}, "ROADMAP item 13"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
     "restart": ({"startStep": 10}, "ROADMAP item 16"),
     "windowed": ({"deltaEngine": "windowed"}, "ROADMAP item 18"),

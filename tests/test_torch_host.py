@@ -127,6 +127,27 @@ def test_mesh_copy_matches_original(name):
     assert a.info() == b.info()
 
 
+@pytest.mark.parametrize("kind", ["make_r", "make_rinv", "make_mhat",
+                                  "make_m"])
+@pytest.mark.parametrize("name", sorted(MESH_CONFIGS))
+def test_diag_operators_match_original(name, kind):
+    """operators/diag.py (a port, not a copy: tensors on a device) against
+    the JAX package's, float64."""
+    import jax.numpy as jnp
+
+    import petibm_tpu.operators.diag as jdiag
+    import petibm_tpu_torch.operators.diag as tdiag
+
+    cfg = MESH_CONFIGS[name]()
+    got = getattr(tdiag, kind)(tmesh.StaggeredMesh(cfg),
+                               dtype=torch.float64, device="cpu")
+    want = getattr(jdiag, kind)(jmesh.StaggeredMesh(cfg), jnp.float64)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].dtype == torch.float64
+        _close(got[key].numpy(), want[key])
+
+
 def test_stretch_grid_copy_matches_original():
     for args in ((0.0, 2.0, 10, 1.1), (-15.0, -0.6, 120, 0.975),
                  (0.6, 15.0, 210, 1.02), (0.0, 1.0, 7, 1.0)):
@@ -231,6 +252,8 @@ def test_port_imports_no_jax():
             "petibm_tpu_torch.operators.cuda_stencil, "
             "petibm_tpu_torch.solvers.navierstokes, "
             "petibm_tpu_torch.cli.navierstokes, "
+            "petibm_tpu_torch.solvers.ibpm, petibm_tpu_torch.cli.ibpm, "
+            "petibm_tpu_torch.operators.diag, "
             "petibm_tpu_torch.linalg.krylov, "
             "petibm_tpu_torch.linalg.probe_diag\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
