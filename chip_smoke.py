@@ -57,9 +57,20 @@ Phases, in order (any failure raises and the script exits non-zero):
    the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 5
    steps with its launches against the stats, one more step profiled,
    then one step A/B'd with the kernels off; small 2D and 3D coupled
-   cases (K2a, K3) on the card against the CPU path.
+   cases (K2a, K3) on the card against the CPU path;
+11. run the moving body through ``RigidKinematicsSolver.run()``:
+   ``examples/decoupledibpm/oscillatingcylinder2dRe100`` (512^2, the
+   in-line oscillating cylinder, float32) for 600 steps, every solve
+   converged, K1's launches against the stats (2 + p_iters a step), the
+   in-line force, the force solve's fallbacks to the dense solve,
+   ms/step and the device busy share printed, and the window recompute
+   timed beside the same case with its body held still; a small float64
+   moving body on the card against the CPU path.  Phase 0 says whether
+   h5py imports: where it does not, the port writes its text logs only,
+   and the restart round trip is held by the CPU tests alone.
 
-Phase 2 holds K1 (450^2 and the sphere's pressure), K2a and K2b (every
+Phase 2 holds K1 (450^2, the oscillating cylinder's 512^2 and the
+sphere's pressure), K2a and K2b (every
 shape), K3 (the sphere's and the TGV's three components from one
 launch), K4/K5 (levels 0 and 1 of the flagship and of the sphere, every
 line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels, every
@@ -84,6 +95,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SPHERE_BODY = os.path.join(REPO, "examples", "decoupledibpm",
                            "sphere3dRe300", "sphere.body")
 RE550_DIR = os.path.join(REPO, "examples", "ibpm", "cylinder2dRe550")
+OSC_DIR = os.path.join(REPO, "examples", "decoupledibpm",
+                       "oscillatingcylinder2dRe100")
 KL_RE550 = os.path.join(REPO, "examples", "data", "koumoutsakos_leonard_"
                         "1995_cylinder_dragCoefficientRe550.dat")
 #: the Re=550 bracket of scripts/validate_forces.py:_case_kl_cylinder: the
@@ -185,6 +198,35 @@ def re550_config(tmp: str, pinned: bool = False, **params) -> dict:
                           type="GPU" if pinned else "CPU")}, **params))
     cfg["bodies"] = [{"type": "points",
                       "file": os.path.join(RE550_DIR, "circle.body")}]
+    return cfg
+
+
+def oscillating_config(tmp: str, **params) -> dict:
+    """examples/decoupledibpm/oscillatingcylinder2dRe100 as a dict: the
+    in-line oscillating cylinder (Dutsch et al. 1998), Re = Um D / nu =
+    100 (D = 1, KC = 5, f = 0.2: Am = D KC / 2 pi, Um = 2 pi f Am = 1;
+    nu 0.01) in fluid at rest, 512^2 uniform cells
+    on [-4, 4]^2 with no-slip walls, dt 0.002, the PESKIN_2002 delta, the
+    example's body; the solvers' defaults (atol 1e-6); float32."""
+    sub = [{"end": 4.0, "cells": 512, "stretchRatio": 1.0}]
+    cfg = _base(tmp, [{"direction": d, "start": -4.0, "subDomains": sub}
+                      for d in ("x", "y")],
+                {"nu": 0.01, "initialVelocity": [0.0, 0.0],
+                 "boundaryConditions": [
+                     {"location": loc, "u": ["DIRICHLET", 0.0],
+                      "v": ["DIRICHLET", 0.0]}
+                     for loc in ("xMinus", "xPlus", "yMinus", "yPlus")]},
+                **dict({"dt": 0.002, "startStep": 0, "nt": 10000,
+                        "nsave": 100, "nrestart": 5000,
+                        "delta": "PESKIN_2002",
+                        "velocitySolver": {"type": "CPU"},
+                        "poissonSolver": {"type": "CPU"},
+                        "forcesSolver": {"type": "CPU"}}, **params))
+    cfg["bodies"] = [{"type": "points", "name": "circle",
+                      "file": os.path.join(OSC_DIR, "circle.body"),
+                      "kinematics": {"type": "oscillation", "KC": 5.0,
+                                     "D": 1.0, "f": 0.2,
+                                     "center": [0.0, 0.0]}}]
     return cfg
 
 
@@ -348,6 +390,12 @@ def phase0_device() -> dict:
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on; the port computes in full f32")
     print(smi)
+    from petibm_tpu_torch.io import hdf5_available
+
+    print("h5py imports: " + ("yes (snapshots and restart files are "
+                              "written)" if hdf5_available() else
+                              "no (the solvers write their text logs "
+                              "only; restarts are refused)"))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -546,6 +594,7 @@ def phase2_kernels(tmp: str) -> dict:
     tols = {torch.float32: 1e-6, torch.float64: 1e-13}
     records = {}
     cases = {"450x450": flagship_config(os.path.join(tmp, "k_flagship")),
+             "oscillating": oscillating_config(os.path.join(tmp, "k_osc")),
              "sphere": sphere_config(os.path.join(tmp, "k_sphere")),
              "tgv256": tgv3d_config(os.path.join(tmp, "k_tgv"))}
     meshes = {name: _mesh_and_bcs(cfg) for name, cfg in cases.items()}
@@ -562,8 +611,9 @@ def phase2_kernels(tmp: str) -> dict:
         size = torch.finfo(dtype).bits // 8
         applies = 200 if dtype == torch.float32 else 40
         tol = tols[dtype]
-        # K1: the flagship's and the sphere's pressure, bit for bit
-        for name in ("450x450", "sphere"):
+        # K1: the flagship's, the oscillating cylinder's and the sphere's
+        # pressure, bit for bit
+        for name in ("450x450", "oscillating", "sphere"):
             mesh = meshes[name][0]
             level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
                                    device=cuda,
@@ -1478,6 +1528,123 @@ def phase10_coupled(tmp: str) -> list:
     return counts
 
 
+def phase11_moving(tmp: str) -> list:
+    """The oscillating cylinder through ``RigidKinematicsSolver.run()``:
+    steps 1-100, then 101-600 timed, K1 against the stats, the forces, the
+    fallbacks, a profile of 5 more steps; the window recompute timed, and
+    the same case with its body held still (``DecoupledIBPMSolver``, 100
+    + 100 steps) for its ms/step; then a small float64 moving body on the
+    card against the CPU.  Returns the launches of the two card runs."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.rigidkinematics import RigidKinematicsSolver
+
+    t0 = time.perf_counter()
+    solver = RigidKinematicsSolver(oscillating_config(
+        os.path.join(tmp, "osc"), nt=600), device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _reset_counts()
+    elapsed = _timed_run(solver, 100, 600)
+    counts = [_counts()]
+    hist = solver.stats_history
+    _check_run(hist, 600, "vpf")
+    _check_counts("oscillating", counts[0],
+                  {"K1": sum(2 + s["p_iters"] for s in hist)})
+    st = solver.state
+    _check_fields({"u": st["q"]["u"], "v": st["q"]["v"], "p": st["p"],
+                   "f": st["f"]},
+                  {"u": solver.mesh.shape(0), "v": solver.mesh.shape(1),
+                   "p": solver.mesh.shape(3), "f": (solver.bodies.n_pts, 2)})
+    forces = np.loadtxt(os.path.join(solver.output_dir, "forces-0.txt"),
+                        ndmin=2)
+    if forces.shape != (600, 3) or not np.isfinite(forces).all():
+        raise AssertionError(f"oscillating: forces log of shape "
+                             f"{forces.shape}, or not finite")
+    fx = forces[:, 1]
+    f_iters = [s["f_iters"] for s in hist]
+    # nsave 100: where h5py imports, five snapshots fall in the timed steps
+    snapshots = sum(os.path.exists(os.path.join(solver.output_dir,
+                                                f"{ite:07d}.h5"))
+                    for ite in range(101, 601))
+    print(f"oscillating: {snapshots} HDF5 snapshots written in the timed "
+          f"steps 101-600 (h5py {'imports' if solver.hdf5 else 'absent'})")
+    print(f"oscillating: setup {setup_s:.3f} s; "
+          f"{elapsed / 500 * 1e3:.3f} ms/step over steps 101-600 "
+          f"(synchronised); t = {solver.t:.4f}, state t "
+          f"{float(st['t']):.6f}; in-line force Fx {fx[-1]:.5f} (max |Fx| "
+          f"{np.abs(fx).max():.5f}), Fy {forces[-1, 2]:.3e}; "
+          f"force solve: {solver.fallbacks} fallbacks to the dense solve in "
+          f"600 steps, f_iters mean {statistics.mean(f_iters):.3f}, max "
+          f"{max(f_iters)}; p_iters mean "
+          f"{statistics.mean(s['p_iters'] for s in hist):.3f}, v_iters mean "
+          f"{statistics.mean(s['v_iters'] for s in hist):.3f}")
+    nsteps = len(hist)
+    # ~3.5 ms of host time a call: batches of 4 stay inside _time_ms's
+    # 25 ms spin, so the device number is the windows' own
+    windows_ms = _time_ms(solver._windows, st, applies=100, batch=4)
+    busy, wall_ms, device_ms = _busy_share(solver)
+    print(f"oscillating profile of 5 more steps: {wall_ms:.3f} ms/step "
+          f"wall, {device_ms:.3f} ms/step device, busy share {busy:.4f}; "
+          f"window recompute (coordinates and the delta windows) "
+          f"{windows_ms[0]:.4f} ms device, {windows_ms[1]:.4f} ms host "
+          "a step")
+    solver.close()
+
+    still_cfg = oscillating_config(os.path.join(tmp, "osc_still"), nt=100)
+    del still_cfg["bodies"][0]["kinematics"]
+    still = DecoupledIBPMSolver(still_cfg, device=DEVICE)
+    still_s = _timed_run(still, 100, 200)
+    _check_run(still.stats_history, 200, "vpf")
+    busy_s, wall_s, device_s = _busy_share(still)
+    still.close()
+    print(f"oscillating case, body held still: {still_s / 100 * 1e3:.3f} "
+          f"ms/step over steps 101-200; profile of 5 more steps: "
+          f"{wall_s:.3f} ms/step wall, {device_s:.3f} device, busy share "
+          f"{busy_s:.4f}")
+    print(json.dumps({"moving": {
+        "case": "oscillatingcylinder2dRe100", "solver":
+        "RigidKinematicsSolver", "grid": "x".join(
+            str(n) for n in solver.mesh.shape(3)), "body_points":
+        solver.bodies.n_pts, "dtype": "float32", "steps": nsteps,
+        "setup_s": setup_s, "ms_per_step": elapsed / 500 * 1e3,
+        "timed_steps": [101, 600], "hdf5_snapshots_timed": snapshots,
+        "fallbacks": solver.fallbacks,
+        "f_iters_mean": statistics.mean(f_iters),
+        "profile_5_steps": {"wall_ms_per_step": wall_ms,
+                            "device_ms_per_step": device_ms,
+                            "device_busy_share": busy},
+        "window_recompute_ms": {"device": windows_ms[0],
+                                "host": windows_ms[1]},
+        "still_body_ms_per_step": still_s / 100 * 1e3,
+        "still_body_profile_5_steps": {"wall_ms_per_step": wall_s,
+                                       "device_ms_per_step": device_s,
+                                       "device_busy_share": busy_s}}}))
+
+    def small(dev, tag):
+        cfg = small_config(os.path.join(tmp, f"small_osc_{tag}"), nt=20,
+                           dtype="float64")
+        cfg["bodies"][0]["kinematics"] = {"type": "oscillation", "f": 1.0,
+                                          "D": 1.0, "KC": 2.0}
+        return RigidKinematicsSolver(cfg, device=dev)
+
+    _reset_counts()
+    runs = _cuda_vs_cpu("32^2 moving", small, ("p", "f"))
+    counts.append(_counts())
+    card, cpu = runs["card"], runs["cpu"]
+    _check_counts("32^2 moving", counts[-1], {
+        "K1": sum(2 + s["p_iters"] for s in card.stats_history)})
+    if not torch.equal(card.state["t"].cpu(), cpu.state["t"]):
+        raise AssertionError("32^2 moving: the step's time differs")
+    print(f"32^2 moving: {card.fallbacks} fallbacks on the card, "
+          f"{cpu.fallbacks} on the CPU")
+    if card.fallbacks != cpu.fallbacks:
+        raise AssertionError("32^2 moving: the fallbacks differ")
+    return counts
+
+
 def main() -> int:
     import tempfile
 
@@ -1505,8 +1672,11 @@ def main() -> int:
         done(9)
         counts_coupled = phase10_coupled(tmp)
         done(10)
+        counts_moving = phase11_moving(tmp)
+        done(11)
     # each main path's launches, counted from 0 just before it ran
-    runs = [counts_2d, counts_sphere, counts_tgv] + counts_mg + counts_coupled
+    runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
+            + counts_coupled + counts_moving)
     launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
     stencil = "petibm_tpu/operators/pallas_stencil.py:"

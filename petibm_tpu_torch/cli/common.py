@@ -15,13 +15,17 @@ from ..config import load_config
 from ..solvers.navierstokes import resolve_device
 
 
-def make_parser(description: str) -> argparse.ArgumentParser:
+def make_parser(description: str,
+                device: bool = True) -> argparse.ArgumentParser:
+    """The reference's flags, and -device unless the tool runs on the host
+    only (``device=False``)."""
     ap = argparse.ArgumentParser(description=description)
     for name in ("directory", "config", "mesh", "flow", "parameters",
                  "bodies", "probes", "output", "logs"):
         ap.add_argument(f"-{name}", f"--{name}", dest=name, default=None)
-    ap.add_argument("-device", "--device", dest="device", default="cuda",
-                    help="where the fields live: cuda (default) or cpu")
+    if device:
+        ap.add_argument("-device", "--device", dest="device", default="cuda",
+                        help="where the fields live: cuda (default) or cpu")
     return ap
 
 

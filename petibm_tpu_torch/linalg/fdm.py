@@ -264,16 +264,17 @@ def make_fdm_solver(fdm, A, opts: dict):
     SolveResult``: one warm-started direct pass, then passes while the
     recurrence residual r_{k+1} = r_k - A dx_k is above
     max(atol, rtol*||b||), still shrinks by at least 10% per pass, and
-    fewer than max_it passes ran.  ``iters`` counts refinement passes."""
+    fewer than max_it passes ran.  ``iters`` counts refinement passes.
+    Arguments after ``x0`` go to ``A`` (a moving body's windows)."""
     atol = float(opts.get("atol", 1e-6))
     rtol = float(opts.get("rtol", 0.0))
     maxiter = int(opts.get("max_it", 10000))
 
-    def solve(b, x0) -> SolveResult:
-        r = tmap(lambda bi, ax: bi - ax, b, A(x0))
+    def solve(b, x0, *args) -> SolveResult:
+        r = tmap(lambda bi, ax: bi - ax, b, A(x0, *args))
         dx = fdm.solve(r)
         x = tmap(lambda xi, di: xi + di, x0, dx)
-        r = tmap(lambda ri, adi: ri - adi, r, A(dx))
+        r = tmap(lambda ri, adi: ri - adi, r, A(dx, *args))
         # one host read for both; the loop compares in the working dtype
         # (numpy scalars of it), as the JAX while_loop does
         tol, rn = host_scalars(torch.clamp(rtol * _norm(b), min=atol),
@@ -283,7 +284,7 @@ def make_fdm_solver(fdm, A, opts: dict):
         while rn > tol and rn < np_dtype(0.9) * prev and it < maxiter:
             dx = fdm.solve(r)
             x = tmap(lambda xi, di: xi + di, x, dx)
-            r = tmap(lambda ri, adi: ri - adi, r, A(dx))
+            r = tmap(lambda ri, adi: ri - adi, r, A(dx, *args))
             prev, rn, it = rn, host_scalars(_norm(r))[0], it + 1
         return SolveResult(x=x, iters=it, residual=float(rn),
                            converged=bool(rn <= tol))

@@ -30,9 +30,10 @@ The coupled solve, as the JAX package chooses it:
   block by the dense inverted (N, N) EBNH blocks (BN order 1) or the
   analytic diagonal of E B1 H.
 
-Not ported yet: the stage profiler (ROADMAP item 17) and the restart
-extras (ROADMAP item 16); the windowed delta engine is refused by
-``make_delta_op`` (ROADMAP item 18).
+A restart file carries ``force``, ``dP`` and ``dF`` (dPhi, the coupled
+solve's warm start) and the BC ghost state (JAX ``ibpm.py:443-468``).
+Not ported yet: the stage profiler (ROADMAP item 17); the windowed delta
+engine is refused by ``make_delta_op`` (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..linalg.fdm import (FastDiagPoisson, PinnedSolve, make_fdm_solver,
 from ..linalg.krylov import make_solver, tmap
 from ..linalg.probe_diag import extract_diagonal
 from ..operators.cuda_stencil import make_cuda_poisson
+from ..types import Field
 from ._forceslog import ForcesLogMixin
 from .navierstokes import NavierStokesSolver
 
@@ -310,3 +312,23 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
                         bc=bcstate, dPhi=dphi), stats
 
         return step
+
+    # ------------------------------------------------------------------
+    def _restart_extra(self) -> dict:
+        # the base class's dP is replaced by dPhi's; the BC ghost state
+        # stays
+        return dict({"force": self.state["f"],
+                     "dP": self.state["dPhi"]["p"],
+                     "dF": self.state["dPhi"]["f"]},
+                    **self._bc_restart_extra())
+
+    def _read_restart_extra(self, extra: dict) -> None:
+        fshape = (self.bodies.n_pts, self.mesh.dim)
+        if "force" in extra:
+            self.state["f"] = self._tensor(extra["force"].reshape(fshape))
+        if "dP" in extra and "dF" in extra:
+            self.state["dPhi"] = {
+                "p": self._tensor(extra["dP"].reshape(
+                    self.mesh.shape(Field.P))),
+                "f": self._tensor(extra["dF"].reshape(fshape))}
+        self._restore_bc_extra(extra)

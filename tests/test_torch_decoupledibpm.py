@@ -188,7 +188,6 @@ UNSUPPORTED = {
     "mg_bf16": ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
     "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
-    "restart": ({"startStep": 10}, "ROADMAP item 16"),
     "windowed": ({"deltaEngine": "windowed"}, "ROADMAP item 18"),
     "forces_krylov": ({"forcesSolver": {"type": "CPU", "dense": False}},
                       "ROADMAP item 18"),
@@ -204,7 +203,7 @@ def test_unsupported_configs_raise(tmp_path, name):
         item = "ROADMAP item 17"
     elif name == "moving":
         cfg["bodies"][0]["kinematics"] = {"type": "oscillation"}
-        item = "ROADMAP item 11"
+        item = "RigidKinematicsSolver"
     else:
         params, item = UNSUPPORTED[name]
         cfg["parameters"].update(params)

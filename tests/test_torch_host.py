@@ -2,9 +2,9 @@
 (float64, 1e-12), and the port's import isolation from jax.
 
 petibm_tpu_torch copies the numpy-only host modules (types, timeintegration,
-config, mesh, ics, ibm/body, utils/timers) because importing any module of
-petibm_tpu imports jax (petibm_tpu/__init__.py).  These tests hold each
-copy equal to its original."""
+config, mesh, ics, ibm/body, utils/timers, io/hdf5 and io/xdmf) because
+importing any module of petibm_tpu imports jax (petibm_tpu/__init__.py).
+These tests hold each copy equal to its original."""
 
 import os
 import subprocess
@@ -245,6 +245,108 @@ def test_timers_copy():
     assert "step" in timers.report()
 
 
+def _h5_datasets(path) -> dict:
+    import h5py
+
+    out = {}
+    with h5py.File(path, "r") as fh:
+        fh.visititems(lambda name, obj: out.__setitem__(
+            name, (np.asarray(obj), dict(obj.attrs)))
+            if isinstance(obj, h5py.Dataset) else None)
+    return out
+
+
+def _assert_same_h5(a, b, exact=True):
+    """Same dataset names, dtypes, shapes and attributes; the values equal,
+    or with ``exact`` false to the mesh copy's 1e-12."""
+    da, db = _h5_datasets(a), _h5_datasets(b)
+    assert sorted(da) == sorted(db)
+    for key in db:
+        (xa, attrs_a), (xb, attrs_b) = da[key], db[key]
+        assert xa.dtype == xb.dtype and xa.shape == xb.shape, key
+        if exact:
+            np.testing.assert_array_equal(xa, xb, err_msg=key)
+        else:
+            _close(xa, xb)
+        assert attrs_a == attrs_b, key
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CONFIGS))
+def test_hdf5_grid_copy_matches_original(tmp_path, name):
+    import petibm_tpu.io.hdf5 as jhdf5
+    import petibm_tpu_torch.io.hdf5 as thdf5
+
+    cfg = MESH_CONFIGS[name]()
+    thdf5.write_grid(tmesh.StaggeredMesh(cfg), str(tmp_path / "t.h5"))
+    jhdf5.write_grid(jmesh.StaggeredMesh(cfg), str(tmp_path / "j.h5"))
+    # the stretched lines of the mesh copy round as its test allows
+    _assert_same_h5(tmp_path / "t.h5", tmp_path / "j.h5", exact=False)
+
+
+def test_hdf5_solution_and_restart_copy_matches_original(tmp_path):
+    """write_solution, write_time and write_restart_histories of the copy
+    and of the original write the same file from the same arrays (float32
+    ones too: both store float64); each package reads either file back to
+    the same arrays."""
+    import petibm_tpu.io.hdf5 as jhdf5
+    import petibm_tpu_torch.io.hdf5 as thdf5
+
+    rng = np.random.default_rng(11)
+    shapes = {"u": (6, 5, 4), "v": (6, 4, 5), "w": (5, 5, 5)}
+
+    def qdict(dtype=np.float64):
+        return {k: rng.standard_normal(sh).astype(dtype)
+                for k, sh in shapes.items()}
+
+    fields = dict(qdict(np.float32), p=rng.standard_normal((6, 5, 5)))
+    conv, diff = [qdict(), qdict()], [qdict()]
+    extra = {"dP": rng.standard_normal((6, 5, 5)),
+             "force": rng.standard_normal((7, 3)).astype(np.float32),
+             "bc_u_xMinus_a1": rng.standard_normal((6, 5))}
+    for mod, name in ((thdf5, "t.h5"), (jhdf5, "j.h5")):
+        path = str(tmp_path / name)
+        mod.write_solution(path, fields)
+        mod.write_time(path, 0.1 + 0.2)
+        mod.write_restart_histories(path, 3, conv, diff, extra=extra)
+    _assert_same_h5(tmp_path / "t.h5", tmp_path / "j.h5")
+    for name in ("t.h5", "j.h5"):
+        path = str(tmp_path / name)
+        assert thdf5.read_time(path) == jhdf5.read_time(path) == 0.1 + 0.2
+        a = thdf5.read_solution(path, list(fields))
+        b = jhdf5.read_solution(path, list(fields))
+        for key in fields:
+            np.testing.assert_array_equal(a[key], b[key])
+            np.testing.assert_array_equal(a[key], fields[key])
+        ra = thdf5.read_restart_histories(path, 3, shapes, 2, 1,
+                                          extra_names=(*extra, "dF"))
+        rb = jhdf5.read_restart_histories(path, 3, shapes, 2, 1,
+                                          extra_names=(*extra, "dF"))
+        for hist_a, hist_b, want in ((ra[0], rb[0], conv),
+                                     (ra[1], rb[1], diff)):
+            for ha, hb, w in zip(hist_a, hist_b, want):
+                for key in shapes:
+                    np.testing.assert_array_equal(ha[key], hb[key])
+                    np.testing.assert_array_equal(ha[key], w[key])
+        assert sorted(ra[2]) == sorted(rb[2]) == sorted(extra)
+        for key in extra:
+            np.testing.assert_array_equal(ra[2][key], rb[2][key])
+            np.testing.assert_array_equal(ra[2][key], extra[key].ravel())
+    assert thdf5.hdf5_available()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_xdmf_copy_matches_original(tmp_path, dim):
+    import petibm_tpu.io.xdmf as jxdmf
+    import petibm_tpu_torch.io.xdmf as txdmf
+
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    n = [12, 10, 8][:dim] + [1] * (3 - dim)
+    a = txdmf.write_single_xdmf(str(tmp_path / "t"), "u", dim, n, 0, 20, 5)
+    b = jxdmf.write_single_xdmf(str(tmp_path / "j"), "u", dim, n, 0, 20, 5)
+    assert open(a).read() == open(b).read()
+
+
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import petibm_tpu_torch, petibm_tpu_torch.solvers.decoupledibpm, "
@@ -255,7 +357,11 @@ def test_port_imports_no_jax():
             "petibm_tpu_torch.solvers.ibpm, petibm_tpu_torch.cli.ibpm, "
             "petibm_tpu_torch.operators.diag, "
             "petibm_tpu_torch.linalg.krylov, "
-            "petibm_tpu_torch.linalg.probe_diag\n"
+            "petibm_tpu_torch.linalg.probe_diag, "
+            "petibm_tpu_torch.solvers.rigidkinematics, "
+            "petibm_tpu_torch.cli.rigidkinematics, petibm_tpu_torch.io, "
+            "petibm_tpu_torch.io.xdmf, petibm_tpu_torch.cli.createxdmf, "
+            "petibm_tpu_torch.cli.writemesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
             "assert not bad, bad\n"
