@@ -67,7 +67,25 @@ Phases, in order (any failure raises and the script exits non-zero):
    timed beside the same case with its body held still; a small float64
    moving body on the card against the CPU path.  Phase 0 says whether
    h5py imports: where it does not, the port writes its text logs only,
-   and the restart round trip is held by the CPU tests alone.
+   and the restart round trip is held by the CPU tests alone;
+12. the windowed delta engine, the matrix-free Krylov force solve,
+   probes, vorticity and the stage profiler: (a) the sphere of phase 5
+   with ``deltaEngine: windowed`` (the CG force solve, no
+   preconditioner), its windowed E and H held to the factor engine's in
+   float64 (1e-12), 5 steps converged with K1, K2a and K3 against the
+   stats, f_iters, ms/step and the busy share; (b) the sphere refined to
+   h = 1.2/90 in its inner box (220x190x190, the 17 671-point body of
+   ``scripts/make_sphere_body.py``; ``auto`` picks the windowed engine):
+   setup and window-build seconds, 5 steps (3 warm-up), ms/step, busy
+   share, f_iters, peak memory, E and H of both engines (and the windowed
+   one at the JAX package's 128 MB chunk budget) timed, K1, K2a and K3
+   bit-equal to their twins at that shape; one ``{"windowed": ...}`` JSON
+   line; (c) the flagship for 50 steps with a point probe on v and a
+   time-averaged volume probe on p (ASCII), each file's last record held
+   to the fields on the host (1e-6), and the vorticity on the card
+   against the CPU (float64, 1e-12); (d) the stage profiler on the
+   flagship and on (a): the phases chained bit-equal to the step, the
+   JAX package's phase names, both tables printed.
 
 Phase 2 holds K1 (450^2, the oscillating cylinder's 512^2 and the
 sphere's pressure), K2a and K2b (every
@@ -619,15 +637,8 @@ def phase2_kernels(tmp: str) -> dict:
                                    device=cuda,
                                    scale=cases[name]["parameters"]["dt"])
             phi = randn(level.shape, dtype)
-            n = phi.numel()
-            plan = (f" plan {tuple(cs.separable_plan_on_card(phi))}"
-                    if phi.ndim == 3 else "")
-            rec = _hold(f"K1 {name} p {tuple(level.shape)} {tag}{plan}",
-                        lambda x: cs.poisson_apply_separable(x, level),
-                        lambda x: cs.poisson_apply_separable_ref(x, level),
-                        phi, 0.0, applies,
-                        ((2 * n + numel(level.c1d + level.w1d)) * size,
-                         (26 if phi.ndim == 3 else 15) * n, dtype))
+            rec = _hold_k1(f"K1 {name} p {tuple(level.shape)} {tag}", level,
+                           phi, applies)
             if dtype == torch.float32:
                 _library(f"K1 {name} p {tag}", rec, _k1_csr(level), phi,
                          cs.poisson_apply_separable(phi, level), applies)
@@ -673,21 +684,8 @@ def phase2_kernels(tmp: str) -> dict:
         # three outputs written once
         for name in ("sphere", "tgv256"):
             mesh, bcs = meshes[name]
-            conv = cs.make_cuda_convection(mesh, bcs, dtype=dtype, device=cuda)
             q = {k: randn(mesh.shape(c), dtype) for c, k in enumerate("uvw")}
-            state = bcs.init_state(q)
-            ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
-            n = numel(q.values())
-            ivs = [v for iv in conv.inv_dl for v in iv]
-            rec = _hold(
-                f"K3 {name} u/v/w " + " ".join(str(tuple(q[k].shape))
-                                               for k in "uvw")
-                + f" {tag} plan {tuple(cs.convection_plan_on_card(ext))}",
-                lambda e: cs.convection3d_apply(e, conv.inv_dl),
-                lambda e: tuple(cs.convection3d_apply_ref(e, c, conv.inv_dl[c])
-                                for c in range(3)), ext, 0.0,
-                applies, ((numel(ext) + n + numel(ivs)) * size, 34 * n,
-                          dtype))
+            rec = _hold_k3(f"K3 {name}", mesh, bcs, q, applies)
             if (name, dtype) == ("sphere", torch.float32):
                 records["K3"] = rec
         # K4/K5: the fused sweep on levels 0 and 1 of the flagship and of
@@ -758,6 +756,45 @@ def phase2_kernels(tmp: str) -> dict:
                               applies // 2)
         del mg, dl, diag, du
     return records
+
+
+def _hold_k1(label: str, level, phi, applies: int) -> dict:
+    """K1 against its twin bit for bit on ``phi``, timed beside its bound
+    (the field read and written once, and the 1D factors)."""
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    n = phi.numel()
+    small = sum(t.numel() for t in level.c1d + level.w1d)
+    plan = (f" plan {tuple(cs.separable_plan_on_card(phi))}"
+            if phi.ndim == 3 else "")
+    return _hold(f"{label}{plan}",
+                 lambda x: cs.poisson_apply_separable(x, level),
+                 lambda x: cs.poisson_apply_separable_ref(x, level),
+                 phi, 0.0, applies,
+                 ((2 * n + small) * phi.element_size(),
+                  (26 if phi.ndim == 3 else 15) * n, phi.dtype))
+
+
+def _hold_k3(label: str, mesh, bcs, q: dict, applies: int) -> dict:
+    """K3 forming u, v and w from one launch on the ghost-extended ``q``,
+    held output by output to its twin bit for bit; bound: the three
+    extended arrays read once and the three outputs written once."""
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    u = q["u"]
+    conv = cs.make_cuda_convection(mesh, bcs, dtype=u.dtype, device=u.device)
+    state = bcs.init_state(q)
+    ext = [bcs.extend(q[k], c, state) for c, k in enumerate("uvw")]
+    n = sum(t.numel() for t in q.values())
+    small = sum(v.numel() for iv in conv.inv_dl for v in iv)
+    return _hold(
+        f"{label} u/v/w " + " ".join(str(tuple(q[k].shape)) for k in "uvw")
+        + f" {str(u.dtype)[6:]} plan {tuple(cs.convection_plan_on_card(ext))}",
+        lambda e: cs.convection3d_apply(e, conv.inv_dl),
+        lambda e: tuple(cs.convection3d_apply_ref(e, c, conv.inv_dl[c])
+                        for c in range(3)), ext, 0.0, applies,
+        ((sum(t.numel() for t in ext) + n + small) * u.element_size(),
+         34 * n, u.dtype))
 
 
 def _hold_k2(label: str, f, vecs, periodic, scale, cells_tol: float,
@@ -1196,7 +1233,10 @@ def phase7_ab3d(tmp: str, sphere, tgv) -> None:
 def _busy_share(solver, steps: int = 5) -> tuple:
     """Device busy share over ``steps`` more steps, with the wall and
     device ms per step (torch.profiler; only the device-side events count:
-    the operators that launch them carry the same time again)."""
+    the operators that launch them carry the same time again).  The
+    profiler's raw events are summed: ``key_averages()`` takes about a
+    millisecond an event to build, a minute for one step of a Krylov
+    force solve."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1209,8 +1249,8 @@ def _busy_share(solver, steps: int = 5) -> tuple:
         solver.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_us = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA) / 1e3
     return busy_us / wall_us, wall_us / steps / 1e3, busy_us / steps / 1e3
 
 
@@ -1645,6 +1685,406 @@ def phase11_moving(tmp: str) -> list:
     return counts
 
 
+#: the stage profiler's phase names, as the JAX package's _profile_phases
+#: gives them (navierstokes.py:698-702, decoupledibpm.py:320-328)
+JAX_PHASES = {
+    "navierstokes": ("rhsVelocity", "solveVelocity", "rhsPoisson",
+                     "solvePoisson", "update"),
+    "decoupledibpm": ("moveIB", "rhsVelocity", "solveVelocity", "rhsForces",
+                      "solveForces", "applyNoSlip", "rhsPoisson",
+                      "solvePoisson", "update"),
+}
+#: the refined sphere's body spacing: the inner box's cell width, 1.2 / 90
+REFINED_DS = 1.2 / 90
+
+
+def refined_sphere_config(tmp: str, **params) -> dict:
+    """``sphere_config`` with the inner box [-0.6, 0.6]^3 refined to 90
+    cells (h = 1.2 / 90 = 0.013333): the outer subdomains keep their cell
+    counts and ends, their stretch ratios become 0.912 upstream, 1.061
+    downstream in x and 1.097 in y and z, so the cells next to the box are
+    0.0140, 0.0132 and 0.0138; 220x190x190 cells.  The body is
+    ``scripts/make_sphere_body.py --ds h`` (17 671 points), built in
+    ``tmp``."""
+    cfg = sphere_config(tmp, **params)
+    for ax, ratio_hi in zip(cfg["mesh"], (1.061, 1.097, 1.097)):
+        lo, box, hi = ax["subDomains"]
+        lo["stretchRatio"] = 0.912
+        box["cells"] = 90
+        hi["stretchRatio"] = ratio_hi
+    body = os.path.join(tmp, "sphere.body")
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts",
+                                                 "make_sphere_body.py"),
+                    body, "--ds", repr(REFINED_DS)], check=True,
+                   capture_output=True, timeout=120)
+    cfg["bodies"] = [{"type": "points", "file": body}]
+    return cfg
+
+
+def _engines_ab(label: str, mesh, X, dtype, tol, applies: int = 0,
+                budgets: tuple = ()) -> dict:
+    """The windowed delta engine's E and H against the factor engine's on
+    one body's windows (seeded fields and forces), within ``tol`` of the
+    factor result's maximum; with ``applies``, each engine's E and H
+    timed (device and host ms per apply, median), the windowed engine at
+    the card's chunk budget and at each of ``budgets`` (bytes)."""
+    import torch
+
+    from petibm_tpu_torch.ibm.interp import DeltaOp, WindowedDeltaOp
+
+    cuda = torch.device(DEVICE)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    kw = dict(dtype=dtype, device=cuda)
+    X = X.to(dtype)
+    engines = {"factor": DeltaOp(mesh, **kw)}
+    for budget in (WindowedDeltaOp._chunk_budget,) + tuple(budgets):
+        op = WindowedDeltaOp(mesh, **kw)
+        op._chunk_budget = budget
+        engines[f"windowed {budget >> 20} MB"] = op
+    t0 = time.perf_counter()
+    wins = {}
+    for name, op in engines.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wins[name] = op.windows(X)
+        torch.cuda.synchronize()
+        print(f"{label} {name} windows built in "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, "
+              f"synchronised)")
+    q = {k: torch.randn(mesh.shape(c), generator=gen, **kw)
+         for c, k in enumerate("uvw"[:mesh.dim])}
+    f = torch.randn((X.shape[0], mesh.dim), generator=gen, **kw)
+    want_e = engines["factor"].interpolate(q, wins["factor"])
+    want_h = engines["factor"].spread(f, wins["factor"])
+    out = {}
+    for name, op in engines.items():
+        if name == "factor":
+            continue
+        win = wins[name]
+        err_e = _rel_err(op.interpolate(q, win), want_e)
+        got_h = op.spread(f, win)
+        err_h = max(_rel_err(got_h[k], want_h[k]) for k in want_h)
+        chunks = [-(-X.shape[0] // op._chunk_size(win[c]))
+                  for c in range(mesh.dim)]
+        print(f"{label} {name} vs factor ({str(dtype)[6:]}, {X.shape[0]} "
+              f"points, window boxes "
+              + ", ".join("x".join(str(h - lo) for lo, h in zip(
+                  win[c]["lo"], win[c]["hi"])) for c in range(mesh.dim))
+              + f", chunks {chunks}): E rel {err_e:.3e}, H rel "
+              f"{err_h:.3e} (tol {tol:g})")
+        if not (err_e <= tol and err_h <= tol):
+            raise AssertionError(f"{label}: the windowed engine differs "
+                                 f"from the factor engine: {err_e}, {err_h}")
+        out[name] = {"E_rel": err_e, "H_rel": err_h, "chunks": chunks}
+    if applies:
+        for name, op in engines.items():
+            win = wins[name]
+            e_ms = _time_ms(lambda a: op.interpolate(a, win), q, applies,
+                            batch=2)
+            h_ms = _time_ms(lambda a: op.spread(a, win), f, applies,
+                            batch=2)
+            print(f"{label} {name} ({str(dtype)[6:]}): E {e_ms[0]:.3f} ms "
+                  f"device, {e_ms[1]:.3f} ms host; H {h_ms[0]:.3f} ms "
+                  f"device, {h_ms[1]:.3f} ms host (median per apply)")
+            out.setdefault(name, {}).update(
+                E_ms=e_ms[0], E_host_ms=e_ms[1], H_ms=h_ms[0],
+                H_host_ms=h_ms[1])
+    return out
+
+
+def _chained_equals_step(label: str, solver) -> None:
+    """The profiler's phases chained once equal one production step bit
+    for bit on the card, from the solver's state; the phase names are the
+    JAX package's."""
+    import torch
+
+    from petibm_tpu_torch.utils.profiling import chain_phases
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    phases = solver._profile_phases()
+    kind = ("decoupledibpm" if hasattr(solver, "delta") else "navierstokes")
+    names = tuple(n for n, _ in phases)
+    if names != JAX_PHASES[kind]:
+        raise AssertionError(f"{label}: phases {names} != JAX's "
+                             f"{JAX_PHASES[kind]}")
+    chained = leaves(chain_phases(phases, solver.state)["state"])
+    stepped = leaves(solver._step_fn(solver.state)[0])
+    same = len(chained) == len(stepped) and all(
+        torch.equal(a, b) for a, b in zip(chained, stepped))
+    print(f"{label}: the {len(names)} phases chained equal the production "
+          f"step bit for bit ({len(stepped)} state tensors): {same}")
+    if not same:
+        raise AssertionError(f"{label}: chained phases differ from the step")
+
+
+def _profile_table(label: str, solver) -> dict:
+    """``profile_stages(steps=5)`` and its table, printed."""
+    result = solver.profile_stages(steps=5)
+    path = os.path.join(solver.logs_dir, f"stages-{solver.ite}.txt")
+    print(f"{label} stage table (profile_stages(steps=5), {path}):")
+    with open(path) as fh:
+        print(fh.read().rstrip())
+    return result
+
+
+def phase12_windowed(tmp: str) -> list:
+    """The windowed delta engine with the Krylov force solve, probes,
+    vorticity and the stage profiler: (a) the sphere with ``deltaEngine:
+    windowed``, (b) the 17 671-point refined sphere (``auto`` picks the
+    windowed engine), (c) the flagship with a point and a volume probe,
+    and the vorticity on the card against the CPU, (d) the stage profiler
+    on the flagship and on (a).  Returns the launches of the runs of
+    (a), (b) and (c)."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.io.vorticity import compute_vorticity
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+
+    t_phase = time.perf_counter()
+
+    def part(name: str) -> None:
+        print(f"phase 12 {name} done at "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    counts = []
+
+    def sphere_counts(hist):
+        return {"K1": sum(2 + s["p_iters"] for s in hist),
+                "K2a": sum(3 * (2 + s["v_iters"]) for s in hist),
+                "K3": len(hist)}
+
+    # (a) the sphere through the windowed engine and the CG force solve
+    sph = DecoupledIBPMSolver(sphere_config(
+        os.path.join(tmp, "win_sphere"), nt=5, deltaEngine="windowed"),
+        device=DEVICE)
+    if not sph.delta.windowed or sph._dense_forces(sph._fopts):
+        raise AssertionError("sphere (a): not the windowed Krylov path")
+    coords = torch.as_tensor(sph.bodies.all_coords(), device=DEVICE)
+    _engines_ab("sphere (a)", sph.mesh, coords, torch.float64, 1e-12)
+    _engines_ab("sphere (a)", sph.mesh, coords, torch.float32, 1e-5,
+                applies=20)
+    _reset_counts()
+    t0 = time.perf_counter()
+    sph.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts.append(_counts())
+    hist = sph.stats_history
+    _check_run(hist, 5, "vpf")
+    _check_counts("sphere (a) windowed", counts[-1], sphere_counts(hist))
+    busy, wall_ms, device_ms = _busy_share(sph, 2)
+    print(f"sphere (a) windowed, CG force solve (atol "
+          f"{sph._fopts['atol']:g}, no preconditioner): "
+          f"{elapsed / 5 * 1e3:.3f} ms/step over 5 steps (synchronised); "
+          f"f_iters {[s['f_iters'] for s in hist]}, p_iters "
+          f"{[s['p_iters'] for s in hist]}, v_iters "
+          f"{[s['v_iters'] for s in hist]}; profile of 2 more steps: "
+          f"{wall_ms:.3f} ms/step wall, {device_ms:.3f} device, busy share "
+          f"{busy:.4f}")
+    part("(a)")
+
+    # (b) the design scale: 17 671 points, auto picks the windowed engine;
+    # its peak memory counted above what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    big = DecoupledIBPMSolver(refined_sphere_config(
+        os.path.join(tmp, "refined"), nt=3), device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shape = tuple(big.mesh.shape(3))
+    n_pts = int(round(4.0 * math.pi * 0.25 / REFINED_DS ** 2))
+    if big.bodies.n_pts != n_pts or not big.delta.windowed:
+        raise AssertionError(f"refined sphere: {big.bodies.n_pts} points, "
+                             f"windowed {big.delta.windowed}")
+    X = torch.as_tensor(big.bodies.all_coords(), dtype=big.dtype,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.delta.windows(X)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    print(f"refined sphere: {shape[::-1]} cells, {big.bodies.n_pts} points, "
+          f"setup {setup_s:.3f} s, the window build alone {window_s * 1e3:.3f}"
+          f" ms (host clock, synchronised)")
+    _reset_counts()
+    t0 = time.perf_counter()
+    big.nt = 1
+    big.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    # 5 steps in all, 3 of them warm-up; 2 (1 warm-up) where the first
+    # takes more than 3 s
+    warm, total = (3, 5) if first_s <= 3.0 else (1, 2)
+    big.nt = warm
+    big.run()
+    t0 = time.perf_counter()
+    big.nt = total
+    big.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    nsteps = total - warm
+    counts.append(_counts())
+    hist = big.stats_history
+    _check_run(hist, total, "vpf")
+    _check_counts("refined sphere", counts[-1], sphere_counts(hist))
+    peak = torch.cuda.max_memory_allocated() - held
+    busy, wall_ms, device_ms = _busy_share(big, 1)
+    st = big.state
+    nz, ny, nx = shape
+    _check_fields(dict(st["q"], p=st["p"], f=st["f"]),
+                  {"u": (nz, ny, nx - 1), "v": (nz, ny - 1, nx),
+                   "w": (nz - 1, ny, nx), "p": (nz, ny, nx),
+                   "f": (big.bodies.n_pts, 3)})
+    fx, fy, fz = big.bodies.avg_forces(st["f"].cpu().numpy())[0]
+    f_iters = [s["f_iters"] for s in hist]
+    print(f"refined sphere: {elapsed / nsteps * 1e3:.3f} ms/step over steps "
+          f"{warm + 1}-{total} (synchronised; step 1 {first_s:.3f} s); "
+          f"f_iters {f_iters}, p_iters {[s['p_iters'] for s in hist]}, "
+          f"v_iters {[s['v_iters'] for s in hist]}; peak device memory "
+          f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+          f"before it; profile of 1 more step: "
+          f"{wall_ms:.3f} ms wall, {device_ms:.3f} ms device, busy share "
+          f"{busy:.4f}; t = {big.t:.4f}: Cd {2 * fx / (np.pi / 4):.5f}")
+    part("(b) run")
+    ab = _engines_ab("refined sphere", big.mesh, X, torch.float32, 1e-5,
+                     applies=6, budgets=(128 << 20,))
+    part("(b) E/H A/B")
+    kernels = _hold_at_shape(big, applies=40)
+    for key, rec in kernels.items():
+        rec["launches_per_step"] = counts[-1][key] / total
+    part("(b) kernels")
+    print(json.dumps({"windowed": {
+        "case": "sphere3dRe300 refined to h 0.013333", "grid": "x".join(
+            str(n) for n in shape[::-1]), "body_points": big.bodies.n_pts,
+        "dtype": "float32", "engine": "windowed (auto)",
+        "chunk_budget_MB": big.delta._chunk_budget >> 20,
+        "setup_s": setup_s, "window_build_ms": window_s * 1e3,
+        "warmup_steps": warm, "timed_steps": nsteps,
+        "ms_per_step": elapsed / nsteps * 1e3, "f_iters": f_iters,
+        "peak_memory_GiB": peak / 2**30, "held_before_GiB": held / 2**30,
+        "profile_1_step": {"wall_ms": wall_ms, "device_ms": device_ms,
+                           "device_busy_share": busy},
+        "delta_engines": ab, "kernels": kernels}}))
+    big.close()
+    del big, st, X
+    torch.cuda.empty_cache()
+
+    # (c) probes and vorticity on the flagship
+    probes = [{"type": "POINT", "field": "v", "path": "probe-v.txt",
+               "loc": [1.5, 0.2], "n_monitor": 5},
+              {"type": "VOLUME", "field": "p", "path": "probe-p.txt",
+               "viewer": "ascii", "n_sum": 5,
+               "box": {"x": [0.6, 1.2], "y": [-0.3, 0.3]}}]
+    cfg = flagship_config(os.path.join(tmp, "probes"), nt=45)
+    cfg["probes"] = probes
+    flag = DecoupledIBPMSolver(cfg, device=DEVICE)
+    _reset_counts()
+    flag.run()
+    box = flag.probes[1]
+    slices = []
+    for _ in range(5):  # the last n_sum steps, one at a time
+        flag.nt += 1
+        flag.run()
+        slices.append(flag.state["p"][box._slices()].double().cpu().numpy())
+    counts.append(_counts())
+    hist = flag.stats_history
+    _check_run(hist, 50, "vpf")
+    _check_counts("flagship with probes", counts[-1],
+                  {"K1": sum(2 + s["p_iters"] for s in hist)})
+    flag.flush_logs()
+    for probe in flag.probes:
+        probe.close()
+    v = flag.state["q"]["v"].double().cpu().numpy()
+    mesh = flag.mesh
+    xs, ys = mesh.coord(1, 0), mesh.coord(1, 1)
+    i = int(np.searchsorted(xs, 1.5, side="right")) - 1
+    j = int(np.searchsorted(ys, 0.2, side="right")) - 1
+    wx = (1.5 - xs[i]) / (xs[i + 1] - xs[i])
+    wy = (0.2 - ys[j]) / (ys[j + 1] - ys[j])
+    want_v = ((1 - wy) * ((1 - wx) * v[j, i] + wx * v[j, i + 1])
+              + wy * ((1 - wx) * v[j + 1, i] + wx * v[j + 1, i + 1]))
+    lines = open(os.path.join(flag.output_dir, "probe-v.txt")).read().split()
+    t_last, got_v = float(lines[-2]), float(lines[-1])
+    rel_v = abs(got_v - want_v) / max(abs(want_v), 1e-30)
+    text = open(os.path.join(flag.output_dir, "probe-p.txt")).read()
+    block = text.rsplit("\nt = ", 1)[-1].split("\n")
+    got_p = np.array([float(x) for x in block[2:] if x.strip()])
+    want_p = np.mean(slices, axis=0).ravel()
+    rel_p = float(np.abs(got_p - want_p).max() / np.abs(want_p).max())
+    print(f"flagship probes after 50 steps: point v at (1.5, 0.2) t "
+          f"{t_last:.6f}: {got_v:.8e} against numpy's bilinear "
+          f"{want_v:.8e} (rel {rel_v:.3e}, tol 1e-6); volume p, "
+          f"{got_p.size} values averaged over steps 46-50 against the box "
+          f"slices' mean: rel {rel_p:.3e} (tol 1e-6); "
+          f"{text.count(chr(10) + 't = ')} volume records, "
+          f"{len(lines) // 2} point records")
+    if not (rel_v <= 1e-6 and rel_p <= 1e-6 and abs(t_last - flag.t) < 1e-9
+            and got_p.size == want_p.size):
+        raise AssertionError("flagship probes differ from the fields")
+    q64 = {k: a.double() for k, a in flag.state["q"].items()}
+    card = compute_vorticity(mesh, flag.bc, q64, flag.bc.init_state(q64))
+    q_cpu = {k: a.cpu() for k, a in q64.items()}
+    cpu = compute_vorticity(mesh, flag.bc, q_cpu, flag.bc.init_state(q_cpu))
+    rel_w = _rel_err(card["wz"].cpu(), cpu["wz"])
+    print(f"flagship vorticity wz {tuple(card['wz'].shape)} float64, card "
+          f"against CPU: rel {rel_w:.3e} (tol 1e-12)")
+    if not rel_w <= 1e-12:
+        raise AssertionError(f"vorticity differs on the card: {rel_w}")
+    part("(c)")
+
+    # (d) the stage profiler
+    _chained_equals_step("flagship", flag)
+    _profile_table("flagship", flag)
+    _chained_equals_step("sphere (a)", sph)
+    _profile_table("sphere (a)", sph)
+    flag.close()
+    sph.close()
+    part("(d)")
+    return counts
+
+
+def _hold_at_shape(solver, applies: int) -> dict:
+    """K1 (the pressure), K2a (u, v, w) and K3 at the solver's 3D shape
+    against their twins bit for bit, float32, timed beside their bounds;
+    returns their records."""
+    import torch
+
+    from petibm_tpu_torch.linalg.mg import poisson_level0
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    cuda = torch.device(DEVICE)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    mesh, bcs = solver.mesh, solver.bc
+    label = f"refined sphere {tuple(mesh.shape(3))} float32"
+
+    def randn(shape):
+        return torch.randn(tuple(shape), generator=gen, device=cuda,
+                           dtype=torch.float32)
+
+    level = poisson_level0(mesh.dxp, mesh.periodic, dtype=torch.float32,
+                           device=cuda, scale=solver.dt)
+    out = {"K1": _hold_k1(f"K1 {label} p", level, randn(level.shape),
+                          applies)}
+    A = cs.make_cuda_momentum(mesh, bcs, solver.dt, 0.5 * solver.nu,
+                              dtype=torch.float32, device=cuda)
+    for c, comp in enumerate("uvw"):
+        rec = _hold_k2(f"K2a {label} {comp}", randn(mesh.shape(c)),
+                       A.vecs[comp], A.periodic, None, 1e-6, applies)
+        out.setdefault("K2a", rec)
+    out["K3"] = _hold_k3("K3 refined sphere", mesh, bcs,
+                         {k: randn(mesh.shape(c))
+                          for c, k in enumerate("uvw")}, applies)
+    return out
+
+
 def main() -> int:
     import tempfile
 
@@ -1674,9 +2114,11 @@ def main() -> int:
         done(10)
         counts_moving = phase11_moving(tmp)
         done(11)
+        counts_windowed = phase12_windowed(tmp)
+        done(12)
     # each main path's launches, counted from 0 just before it ran
     runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
-            + counts_coupled + counts_moving)
+            + counts_coupled + counts_moving + counts_windowed)
     launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
     stencil = "petibm_tpu/operators/pallas_stencil.py:"

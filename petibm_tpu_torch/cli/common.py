@@ -2,9 +2,10 @@
 
 Counterpart of ``petibm_tpu/cli/common.py``: the reference's PETSc-style
 flags (-directory, -config, -mesh, -flow, -parameters, -bodies, -output,
--logs; parser.cpp:175-237), single- or double-dash, and -device (cuda by
+-logs; parser.cpp:175-237), single- or double-dash, -device (cuda by
 default, cpu only when asked for: the counterpart of the JAX package's
-``JAX_PLATFORMS``).  The stage profiler flag waits for ROADMAP item 17.
+``JAX_PLATFORMS``) and ``--profile-stages STEPS``, the stage profiler
+run after the solve (``maybe_profile``; utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -26,20 +27,38 @@ def make_parser(description: str,
     if device:
         ap.add_argument("-device", "--device", dest="device", default="cuda",
                         help="where the fields live: cuda (default) or cpu")
+        ap.add_argument("--profile-stages", dest="profile_stages", type=int,
+                        default=0, metavar="STEPS",
+                        help="after the run, time each solver phase over "
+                             "STEPS steps and write logs/stages-<n>.txt "
+                             "(the reference's PETSc log-stage dump)")
     return ap
 
 
-def parse_args(description: str, argv=None):
+def parse_args(description: str, argv=None, extra=None):
     """The parsed flags, ``args.device`` resolved to a ``torch.device``;
     exits with the parser's usage error when cuda is asked for (the
-    default) and no card is present."""
+    default) and no card is present.  ``extra(parser)`` adds a tool's own
+    flags."""
     ap = make_parser(description)
+    if extra is not None:
+        extra(ap)
     args = ap.parse_args(argv)
     try:
         args.device = resolve_device(args.device)
     except RuntimeError as err:
         ap.error(str(err))
     return args
+
+
+def maybe_profile(solver, args) -> None:
+    """Run the stage profiler when --profile-stages was given, and print
+    its result (JAX cli/common.py:26-33)."""
+    if getattr(args, "profile_stages", 0):
+        result = solver.profile_stages(steps=args.profile_stages)
+        width = max(len(k) for k in result)
+        for name, ms in result.items():
+            print(f"  {name:>{width}s}: {ms:8.3f} ms")
 
 
 def config_from_args(args) -> dict:

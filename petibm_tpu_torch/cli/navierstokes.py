@@ -10,7 +10,7 @@ from __future__ import annotations
 import sys
 
 from ..solvers.navierstokes import NavierStokesSolver
-from .common import config_from_args, parse_args
+from .common import config_from_args, maybe_profile, parse_args
 
 
 def main(argv=None) -> int:
@@ -21,6 +21,7 @@ def main(argv=None) -> int:
     print(solver.mesh.info())
     print(f"device: {solver.device}, dtype: {solver.dtype}")
     solver.run(progress=True)
+    maybe_profile(solver, args)
     solver.close()
     print(solver.timers.report())
     return 0

@@ -12,7 +12,7 @@ from __future__ import annotations
 import sys
 
 from ..solvers.rigidkinematics import RigidKinematicsSolver
-from .common import config_from_args, parse_args
+from .common import config_from_args, maybe_profile, parse_args
 
 
 def main(argv=None) -> int:
@@ -24,6 +24,7 @@ def main(argv=None) -> int:
     print(f"device: {solver.device}, dtype: {solver.dtype}")
     print(f"bodies: {solver.bodies.n_bodies} ({solver.bodies.n_pts} points)")
     solver.run(progress=True)
+    maybe_profile(solver, args)
     solver.close()
     print(f"force solves that fell back to the dense solve: "
           f"{solver.fallbacks}")

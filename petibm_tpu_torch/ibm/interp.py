@@ -1,17 +1,19 @@
 """Interpolation (E) and spreading (H) through regularized delta windows.
 
 Counterpart of ``petibm_tpu/ibm/interp.py`` (the factor engine,
-interp.py:38-161, ``dense_ebnh_blocks`` :314 and ``make_delta_op`` :337;
-reference: createdelta.cpp:28-208, decoupledibpm.cpp:149-216).  The
-tensor-product delta is kept separated as per-direction banded factor
-matrices S_d of shape (nPts, n_d), each row holding one Lagrangian point's
-1D kernel weights on its ±w gridline window.  Then
+interp.py:38-161, the windowed engine :164-312, ``dense_ebnh_blocks`` :314
+and ``make_delta_op`` :337; reference: createdelta.cpp:28-208,
+decoupledibpm.cpp:149-216).  The tensor-product delta is kept separated
+as per-direction banded factor matrices S_d of shape (nPts, n_d), each row
+holding one Lagrangian point's 1D kernel weights on its ±w gridline
+window.  Then
 
   interpolation (2D):  E u = sum_x ( (S_y^vol @ u) * S_x^vol )
   spreading (2D):      H f = (S_y^delta * f)^T @ S_x^delta
 
-as dense matmuls.  The windowed gather/scatter engine for bodies above
-16 384 points is ROADMAP item 18.
+as dense matmuls.  Above WINDOWED_THRESHOLD points ``auto`` picks
+``WindowedDeltaOp``, which keeps only the (N, K) window weights and
+expands them to factor rows chunk by chunk inside each apply.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ VEL_NAMES = ("u", "v", "w")
 
 class DeltaOp:
     """The factor-matrix delta engine: windows, E and H on tensors."""
+
+    #: True for the windowed engine, whose windows hold no (N, n_d) factor
+    #: rows: the consumers of dense E B_N H blocks check it
+    windowed = False
 
     def __init__(self, mesh: StaggeredMesh, kernel: str = "ROMA_ET_AL_1999",
                  *, dtype: torch.dtype, device):
@@ -63,11 +69,10 @@ class DeltaOp:
                 for d in range(self.dim)]
         return torch.stack(cols, dim=1)
 
-    def windows(self, X) -> dict:
-        """Banded factor matrices for all components:
-        {c: {"sd": [per-dir (N, n_d)], "sv": [per-dir (N, n_d)]}}; sd holds
-        the 1D delta weights, sv additionally the component cell widths
-        (prod over directions of sv = delta * cell volume, the E scaling)."""
+    def _window_weights(self, X) -> dict:
+        """The K window gridlines and 1D kernel weights of every point:
+        {c: [per-dir (idx, w)]}, each (N, K); walls clamp the index and
+        zero the weight, periodic directions wrap (JAX interp.py:92-114)."""
         X = torch.as_tensor(X, dtype=self.dtype, device=self.device)
         ijk = self.cell_index(X)
         offsets = torch.arange(-self.half, self.half + 1, device=self.device)
@@ -80,7 +85,7 @@ class DeltaOp:
 
         out = {}
         for c in range(self.dim):
-            sd_d, sv_d = [], []
+            out[c] = []
             for d in range(self.dim):
                 n = self.n[c][d]
                 s = ijk[:, d:d + 1] + offsets[None, :]  # (N, K)
@@ -95,9 +100,22 @@ class DeltaOp:
                     idx = torch.clamp(s, 0, n - 1)
                     x = self.coord[c][d][idx]
                 w = self.kernel(X[:, d:d + 1] - x, widths[d])
-                w = torch.where(valid, w, torch.zeros_like(w))
+                out[c].append((idx, torch.where(valid, w,
+                                                torch.zeros_like(w))))
+        return out
+
+    def windows(self, X) -> dict:
+        """Banded factor matrices for all components:
+        {c: {"sd": [per-dir (N, n_d)], "sv": [per-dir (N, n_d)]}}; sd holds
+        the 1D delta weights, sv additionally the component cell widths
+        (prod over directions of sv = delta * cell volume, the E scaling)."""
+        out = {}
+        for c, dirs in self._window_weights(X).items():
+            sd_d, sv_d = [], []
+            for d, (idx, w) in enumerate(dirs):
                 # the K window weights into banded (N, n) rows
-                sd = torch.zeros((X.shape[0], n), dtype=self.dtype,
+                sd = torch.zeros((idx.shape[0], self.n[c][d]),
+                                 dtype=self.dtype,
                                  device=self.device).scatter_add_(1, idx, w)
                 sd_d.append(sd)
                 sv_d.append(sd * self.dl[c][d][None, :])
@@ -137,6 +155,136 @@ class DeltaOp:
         return out
 
 
+class WindowedDeltaOp(DeltaOp):
+    """The large-body delta engine (JAX interp.py:164-312): the windows
+    keep the K weights of each point per direction, ``idx``/``sd``/``sv``
+    of shape (N, K), so their memory and build are O(N K).  E and H keep
+    the factor engine's separable matmul algebra: each chunk of B points
+    has its (B, K) rows expanded to dense factor rows (``_expand``) and
+    contracted with ``torch.einsum``/``matmul``, so no atomics enter the
+    spread and its bits repeat from run to run.
+
+    Two choices differ from the JAX engine and change only which exact
+    zeros enter a sum:
+    - the factor rows span only the window box, the gridlines
+      ``lo[d]:hi[d]`` the body's windows touch (read once per
+      ``windows`` call), not the whole grid line: every product outside
+      the box is a zero;
+    - the chunk budget is the card's (``_chunk_budget``), not the TPU's
+      128 MB; chunking changes only the order in which H sums its chunks.
+    The banded reductions the solvers share (diag(E B1 H) from
+    sum(sd * sv, axis=1)) equal the factor engine's: its (N, n_d) rows
+    hold the same K nonzeros.
+    """
+
+    windowed = True
+
+    #: bytes of a chunk's largest intermediate, (B, plane of the window
+    #: box); the JAX engine's is 128 MB
+    _chunk_budget = 512 * 1024 * 1024
+    #: the largest chunk (the JAX engine caps it at 8192)
+    _max_chunk = 1 << 16
+
+    def windows(self, X) -> dict:
+        """{c: {"idx", "sd", "sv": [per-dir (N, K)], "lo", "hi": [per-dir
+        int]}}: the JAX engine's keys, and the window box of each
+        component on the host (one read)."""
+        weights = self._window_weights(X)
+        ends = torch.stack([torch.stack([idx.min(), idx.max()])
+                            for dirs in weights.values()
+                            for idx, _ in dirs]).tolist()
+        out, k = {}, 0
+        for c, dirs in weights.items():
+            ent = {"idx": [], "sd": [], "sv": [], "lo": [], "hi": []}
+            for d, (idx, w) in enumerate(dirs):
+                ent["idx"].append(idx)
+                ent["sd"].append(w)
+                ent["sv"].append(w * self.dl[c][d][idx])
+                ent["lo"].append(int(ends[k][0]))
+                ent["hi"].append(int(ends[k][1]) + 1)
+                k += 1
+            out[c] = ent
+        return out
+
+    def _chunk_size(self, w: dict) -> int:
+        """Points per chunk: the budget over the bytes of one point's
+        (plane) row, the plane being the window box's extents but the
+        last-contracted one, rounded down to a power of two in [8,
+        _max_chunk] (JAX ``_chunk_size``)."""
+        plane = 1
+        for d in range(self.dim - 1):
+            plane *= w["hi"][d] - w["lo"][d]
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        b = self._chunk_budget // max(1, plane * itemsize)
+        b = min(self._max_chunk, 1 << int(b).bit_length() >> 1) if b >= 1 else 1
+        return max(8, b)
+
+    def _expand(self, w: dict, d: int, idx, wt) -> torch.Tensor:
+        """(B, K) banded rows -> (B, hi - lo) dense factor rows over the
+        window box, by one-hot comparison (no scatter)."""
+        lo, hi = w["lo"][d], w["hi"][d]
+        grid = torch.arange(lo, hi, device=idx.device)
+        onehot = (idx[:, :, None] == grid[None, None, :]).to(self.dtype)
+        return torch.einsum("pk,pkn->pn", wt, onehot)
+
+    def _box(self, w: dict) -> tuple:
+        """The window box as (z, y, x) slices of a component's array."""
+        return tuple(slice(w["lo"][d], w["hi"][d])
+                     for d in reversed(range(self.dim)))
+
+    def _chunks(self, w: dict, key: str):
+        """(first, last, expanded factor rows per direction) per chunk."""
+        N = w["idx"][0].shape[0]
+        B = self._chunk_size(w)
+        for a in range(0, N, B):
+            b = min(N, a + B)
+            yield a, b, [self._expand(w, d, w["idx"][d][a:b], w[key][d][a:b])
+                         for d in range(self.dim)]
+
+    def interpolate(self, q: dict, win: dict) -> torch.Tensor:
+        """E u chunk by chunk on the window box: the factor engine's
+        algebra with (B, box) factor rows; returns (N, dim)."""
+        cols = []
+        for c in range(self.dim):
+            w = win[c]
+            arr = q[VEL_NAMES[c]][self._box(w)]
+            if self.dim == 3:
+                # (bz, by * bx) once for every chunk's matmul
+                arr = arr.reshape(arr.shape[0], -1)
+            parts = []
+            for _, _, s in self._chunks(w, "sv"):
+                if self.dim == 2:
+                    t = torch.matmul(s[1], arr)
+                else:
+                    t = torch.matmul(s[2], arr).reshape(
+                        s[2].shape[0], s[1].shape[1], s[0].shape[1])
+                    t = torch.einsum("py,pyx->px", s[1], t)
+                parts.append(torch.sum(t * s[0], dim=1))
+            cols.append(torch.cat(parts))
+        return torch.stack(cols, dim=1)
+
+    def spread(self, f: torch.Tensor, win: dict) -> dict:
+        """H f chunk by chunk on the window box, the chunks summed in
+        order, then placed in the component's zero grid."""
+        out = {}
+        for c in range(self.dim):
+            w = win[c]
+            acc = None
+            for a, b, s in self._chunks(w, "sd"):
+                fc = f[a:b, c]
+                if self.dim == 2:
+                    g = torch.matmul((s[1] * fc[:, None]).T, s[0])
+                else:
+                    t = torch.einsum("pz,py->pzy", s[2] * fc[:, None], s[1])
+                    g = torch.einsum("pzy,px->zyx", t, s[0])
+                acc = g if acc is None else acc + g
+            shape = tuple(self.n[c][d] for d in reversed(range(self.dim)))
+            full = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            full[self._box(w)] = acc
+            out[VEL_NAMES[c]] = full
+        return out
+
+
 def dense_ebnh_blocks(win: dict, dim: int, dt: float) -> list:
     """Per-component dense (N, N) blocks of E B1 H = dt * E H for factor
     windows: the product over directions of S_vol,d @ S_delta,d^T
@@ -151,24 +299,22 @@ def dense_ebnh_blocks(win: dict, dim: int, dt: float) -> list:
     return mats
 
 
-#: factor-matrix engine up to this many Lagrangian points (the JAX
-#: package switches to its windowed engine above)
+#: factor-matrix engine up to this many Lagrangian points, windowed above
+#: (JAX interp.py:334: the (N, n_d) factors and their build dominate)
 WINDOWED_THRESHOLD = 16384
 
 
 def make_delta_op(mesh: StaggeredMesh, kernel: str = "ROMA_ET_AL_1999", *,
                   dtype: torch.dtype, device, n_pts: int | None = None,
                   engine: str = "auto") -> DeltaOp:
-    """The factor-matrix delta engine; ``auto`` picks it up to
-    WINDOWED_THRESHOLD points, as the JAX package does."""
+    """Pick the delta engine as the JAX package does: ``auto`` takes the
+    factor engine up to WINDOWED_THRESHOLD points and the windowed engine
+    above; ``factor`` / ``windowed`` force one."""
     if engine == "auto":
         engine = ("windowed" if n_pts is not None
                   and n_pts > WINDOWED_THRESHOLD else "factor")
     if engine == "windowed":
-        raise NotImplementedError(
-            "the windowed delta engine (bodies above "
-            f"{WINDOWED_THRESHOLD} points or deltaEngine: windowed) is not "
-            "ported yet (ROADMAP item 18)")
+        return WindowedDeltaOp(mesh, kernel, dtype=dtype, device=device)
     if engine == "factor":
         return DeltaOp(mesh, kernel, dtype=dtype, device=device)
     raise ValueError(f"unknown delta engine {engine!r} "

@@ -16,10 +16,13 @@ For BN order 1, E B1 H = dt * E H is block-diagonal over velocity
 components with dense (N, N) blocks built from the window factors.  For a
 stationary body the blocks are constant: they are inverted once at setup
 (host numpy float64) and each step applies the inverse with refinement
-against the blocks (``make_fdm_solver`` semantics).  The hooks
-``_pre_step``, ``_windows`` and ``_body_velocity`` are where a moving
-body (``solvers/rigidkinematics.py``) enters the step.  The
-matrix-free Krylov force solve (``dense: false``) is ROADMAP item 18.
+against the blocks (``make_fdm_solver`` semantics).  BN > 1, the
+windowed delta engine and ``forcesSolver.dense: false`` take the
+matrix-free Krylov force solve instead (JAX :211-215): the force
+solver's method (CG by default) on E B_N H applied as interpolate after
+spread, with no preconditioner.  The hooks ``_pre_step``, ``_windows``
+and ``_body_velocity`` are where a moving body
+(``solvers/rigidkinematics.py``) enters the step.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ from ..config import solver_config
 from ..ibm.body import BodyPack
 from ..ibm.interp import dense_ebnh_blocks, make_delta_op
 from ..linalg.fdm import make_fdm_solver
-from ..linalg.krylov import tmap
+from ..linalg.krylov import make_solver, tmap
 from ._forceslog import ForcesLogMixin
-from .navierstokes import NavierStokesSolver, _not_ported
+from .navierstokes import NavierStokesSolver
 
 
 def blocks_apply(mats, x):
@@ -84,24 +87,44 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
                 "cli/rigidkinematics.py); the decoupled solver's bodies are "
                 "stationary")
 
-    def _dense_force_blocks(self, fopts: dict) -> tuple:
-        """The dense E B_N H blocks of BN order 1 at the body's first
-        coordinates and their inverse (JAX decoupledibpm.py:83-95)."""
-        if self.bn_order != 1:
-            raise _not_ported("BN > 1 with the decoupled IBPM (its force "
-                              "solve is the matrix-free Krylov one)",
-                              "ROADMAP item 18")
-        if not bool(fopts.get("dense", True)):
-            raise _not_ported("forcesSolver.dense: false (matrix-free Krylov "
-                              "force solve)", "ROADMAP item 18")
+    def _ebnh(self, df, win):
+        """E B_N H df, matrix-free (interpolate after spread)."""
+        return self.delta.interpolate(self.bn(self.delta.spread(df, win)),
+                                      win)
+
+    def _dense_forces(self, fopts: dict) -> bool:
+        """The dense block solve: BN order 1 and factor windows, unless
+        ``forcesSolver.dense: false`` (JAX decoupledibpm.py:83-85)."""
+        blocks = self.bn_order == 1 and not self.delta.windowed
+        return bool(fopts.get("dense", blocks)) and blocks
+
+    def _dense_force_blocks(self) -> tuple:
+        """The dense E B1 H blocks at the body's first coordinates and
+        their inverse (JAX decoupledibpm.py:88-95, 150-155)."""
         mats = dense_ebnh_blocks(self._static_windows, self.mesh.dim, self.dt)
         return mats, BlockInverse(mats, self.dtype, self.device)
 
     def _make_force_solver(self, fopts: dict) -> None:
-        """The stationary body's force solve, as in the JAX package
-        (decoupledibpm.py:133-172): the blocks inverted once at setup, then
+        """The force solve, as the JAX package chooses it: the dense one
+        (``_make_dense_force_solver``) or the matrix-free Krylov one
+        (decoupledibpm.py:211-215)."""
+        self._fopts = fopts
+        if self._dense_forces(fopts):
+            self._make_dense_force_solver(fopts)
+            return
+        ebnh = self._ebnh
+
+        def solve_forces(rhsf, win, x0=None):
+            solver = make_solver(lambda df: ebnh(df, win), fopts)
+            return solver(rhsf, torch.zeros_like(rhsf) if x0 is None else x0)
+
+        self._solve_forces = solve_forces
+
+    def _make_dense_force_solver(self, fopts: dict) -> None:
+        """The stationary body's dense force solve (JAX
+        decoupledibpm.py:133-172): the blocks inverted once at setup, then
         refinement against the blocks."""
-        mats, inverse = self._dense_force_blocks(fopts)
+        mats, inverse = self._dense_force_blocks()
         refine = make_fdm_solver(inverse, lambda df: blocks_apply(mats, df),
                                  fopts)
 
@@ -124,44 +147,67 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         rigidkinematics.cpp:143-159)."""
         return None
 
-    def _build_step(self):
-        def step(state):
-            state = self._pre_step(state)
-            win = self._windows(state)
-            # momentum RHS + spread forces (decoupledibpm.cpp:245)
-            rhs1, state = self._rhs_velocity(state)
-            hf = self.delta.spread(state["f"], win)
-            rhs1 = tmap(lambda r, x: r + x, rhs1, hf)
-            vsol = self._solve_velocity(rhs1, state)
-            ustar = vsol.x
+    def _step_stats(self, ctx: dict) -> dict:
+        # forces ride along in the stats: the forces log reads them
+        fsol = ctx["fsol"]
+        return dict(super()._step_stats(ctx), f_iters=fsol.iters,
+                    f_res=fsol.residual, f_ok=fsol.converged,
+                    f=ctx["state"]["f"])
 
-            # force system (decoupledibpm.cpp:253-285)
-            rhsf = -self.delta.interpolate(ustar, win)
-            ub = self._body_velocity(state)
+    # ------------------------------------------------------------------
+    def _profile_phases(self):
+        """The step as the reference's IBM log stages (JAX
+        ``decoupledibpm.py:274-330``; decoupledibpm.cpp:93-97,
+        rigidkinematics.cpp:58): the NS stages with moveIB ahead, the
+        spread forces in the velocity RHS (decoupledibpm.cpp:245), the
+        force system (:253-285) and the no-slip correction u** = u* +
+        B_N H df (:288-299) after the momentum solve; f += df in the
+        update."""
+        ns = dict(super()._profile_phases())
+
+        def moveIB(ctx):
+            state = self._pre_step(ctx["state"])
+            return dict(ctx, state=state, win=self._windows(state))
+
+        def rhsVelocity(ctx):
+            rhs1, state = self._rhs_velocity(ctx["state"])
+            hf = self.delta.spread(state["f"], ctx["win"])
+            return dict(ctx, state=state,
+                        rhs1=tmap(lambda r, x: r + x, rhs1, hf))
+
+        def rhsForces(ctx):
+            rhsf = -self.delta.interpolate(ctx["ustar"], ctx["win"])
+            ub = self._body_velocity(ctx["state"])
             if ub is not None:
                 rhsf = rhsf + ub
+            return dict(ctx, rhsf=rhsf)
+
+        def solveForces(ctx):
+            state = ctx["state"]
             x0 = state["df"] if self.warm_start_poisson else None
-            fsol = self._solve_forces(rhsf, win, x0)
-            df = fsol.x
+            fsol = self._solve_forces(ctx["rhsf"], ctx["win"], x0)
+            return dict(ctx, fsol=fsol, df=fsol.x)
 
-            # no-slip correction u** = u* + BN H df (decoupledibpm.cpp:288-299)
-            ustar = tmap(lambda u, x: u + x, ustar,
-                         self.bn(self.delta.spread(df, win)))
+        def applyNoSlip(ctx):
+            hdf = self.bn(self.delta.spread(ctx["df"], ctx["win"]))
+            return dict(ctx, ustar=tmap(lambda u, x: u + x, ctx["ustar"],
+                                        hdf))
 
-            qnew, pnew, dP, psol = self._poisson_project(ustar, state)
-            bcstate = self.bc.update_ghost_values(state["bc"], qnew)
-            fnew = state["f"] + df
-            stats = {"v_iters": vsol.iters, "v_res": vsol.residual,
-                     "v_ok": vsol.converged,
-                     "p_iters": psol.iters, "p_res": psol.residual,
-                     "p_ok": psol.converged,
-                     "f_iters": fsol.iters, "f_res": fsol.residual,
-                     "f_ok": fsol.converged,
-                     "f": fnew}
-            return dict(state, q=qnew, p=pnew, bc=bcstate, dP=dP, df=df,
-                        f=fnew), stats
+        def update(ctx):
+            ctx = ns["update"](ctx)
+            state = ctx["state"]
+            return dict(ctx, state=dict(state, df=ctx["df"],
+                                        f=state["f"] + ctx["df"]))
 
-        return step
+        return [("moveIB", moveIB),
+                ("rhsVelocity", rhsVelocity),
+                ("solveVelocity", ns["solveVelocity"]),
+                ("rhsForces", rhsForces),
+                ("solveForces", solveForces),
+                ("applyNoSlip", applyNoSlip),
+                ("rhsPoisson", ns["rhsPoisson"]),
+                ("solvePoisson", ns["solvePoisson"]),
+                ("update", update)]
 
     # ------------------------------------------------------------------
     def _iter_log_stats(self, s: dict):

@@ -18,7 +18,8 @@ when pinned); the coupled solve for dPhi = {dp, df}, warm-started from
 the last one; u = u* - B_N (G dp - H df), p += dp, f += df.
 
 The coupled solve, as the JAX package chooses it:
-- BN order 1 and pc mg or fdm (unless ``coupledDirect: false``): the
+- BN order 1, factor windows and pc mg or fdm (unless ``coupledDirect:
+  false``): the
   setup-time Schur complement of the force block, formed column by column
   through the FDM pressure solve and inverted on the host in float64; CG
   preconditioned by that exact block inverse (``coupledMode: pcg``, the
@@ -27,13 +28,14 @@ The coupled solve, as the JAX package chooses it:
 - otherwise CG on -M preconditioned per block: the pressure block by the
   V-cycle (its level-0 residual the CUDA kernel K1, BN order 1 and not
   pinned), the FDM pseudo-inverse or a probed Jacobi diagonal; the force
-  block by the dense inverted (N, N) EBNH blocks (BN order 1) or the
-  analytic diagonal of E B1 H.
+  block by the dense inverted (N, N) EBNH blocks (BN order 1 and factor
+  windows) or the analytic diagonal of E B1 H (BN > 1 or the windowed
+  delta engine, whose windows hold no factor rows).
 
 A restart file carries ``force``, ``dP`` and ``dF`` (dPhi, the coupled
 solve's warm start) and the BC ghost state (JAX ``ibpm.py:443-468``).
-Not ported yet: the stage profiler (ROADMAP item 17); the windowed delta
-engine is refused by ``make_delta_op`` (ROADMAP item 18).
+The step is ``_profile_phases`` chained (JAX ``ibpm.py:392-441``), the
+stages the stage profiler times (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -109,7 +111,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
         # block -D B1 G has the exact FDM inverse, so the block system is
         # solved through a setup-time dense force-space Schur complement
         params = config.get("parameters", {})
-        use_direct = (self.bn_order == 1
+        use_direct = (self.bn_order == 1 and not self.delta.windowed
                       and popts.get("pc", "mg") in ("mg", "fdm")
                       and bool(params.get("coupledDirect", True)))
         if use_direct and self.is_ref_p:
@@ -208,8 +210,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
     def _finish_cg_solver(self, config: dict, popts: dict, negM,
                           p_pre) -> None:
         """CG on -M with a block preconditioner (``ibpm.py:248-335``): BN
-        > 1, ``coupledDirect: false``, ``fdm: false``, or a pc other than
-        mg and fdm."""
+        > 1, the windowed delta engine, ``coupledDirect: false``, ``fdm:
+        false``, or a pc other than mg and fdm."""
         win, bn = self._win, self.bn
         pc = popts.get("pc", "mg")
         if pc in ("mg", "fdm"):
@@ -240,7 +242,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             def p_pre(r):
                 return r / diag_p
         dim = self.mesh.dim
-        if self.bn_order == 1:
+        if self.bn_order == 1 and not self.delta.windowed:
             # the exact inverse of the force block: dense per-component
             # (N, N) E B1 H blocks inverted once on the host in float64
             inv_f = [torch.as_tensor(
@@ -255,7 +257,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
                                           for c in range(dim)], dim=1)}
         else:
             # the analytic order-1 diagonal, diag(E B1 H) =
-            # dt * prod_d sum_k sd * sv
+            # dt * prod_d sum_k sd * sv (the same in both window layouts)
             cols = []
             for c in range(dim):
                 prod = None
@@ -272,46 +274,61 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             negM, popts, M=M_block if pc != "none" else None)
 
     # ------------------------------------------------------------------
-    def _build_step(self):
-        def step(state):
-            # momentum RHS: the combined gradient [G, -H] of the reference
-            # (ibpm.cpp:164-169) puts -G p + H f in it
-            rhs1, state = self._rhs_velocity(state)
-            hf = self.delta.spread(state["f"], self._win)
-            rhs1 = tmap(lambda r, x: r + x, rhs1, hf)
-            vsol = self._solve_velocity(rhs1, state)
-            ustar = vsol.x
+    def _step_stats(self, ctx: dict) -> dict:
+        # the coupled solve's stats stand as the pressure solve's; forces
+        # ride along for the forces log
+        return dict(super()._step_stats(ctx), f=ctx["state"]["f"])
 
-            # combined Poisson RHS [D u* + Dbc; E u*] (ibpm.cpp:286-313)
+    # ------------------------------------------------------------------
+    def _profile_phases(self):
+        """The coupled step's stages (JAX ``ibpm.py:392-441``): the
+        momentum RHS gains + H f (the reference's combined gradient [G, -H]
+        on phi = (p, f), ibpm.cpp:164-169); the combined {p, f} system
+        fills the rhsPoisson (the right side [D u* + Dbc; E u*],
+        ibpm.cpp:286-313) and solvePoisson stages; the update projects
+        u -= B_N (G dp - H df) and adds dphi to (p, f)."""
+        ns = dict(super()._profile_phases())
+
+        def rhsVelocity(ctx):
+            rhs1, state = self._rhs_velocity(ctx["state"])
+            hf = self.delta.spread(state["f"], self._win)
+            return dict(ctx, state=state,
+                        rhs1=tmap(lambda r, x: r + x, rhs1, hf))
+
+        def rhsPoisson(ctx):
+            state, ustar = ctx["state"], ctx["ustar"]
             rhs_p = self.div(ustar, state["bc"])
             rhs_f = self.delta.interpolate(ustar, self._win)
             if self.is_ref_p:
                 rhs_p = set_first(rhs_p.reshape(-1), 0.0).reshape(rhs_p.shape)
             else:
                 rhs_p = rhs_p - torch.mean(rhs_p)
-            rhs = {"p": -rhs_p, "f": -rhs_f}
+            return dict(ctx, rhs={"p": -rhs_p, "f": -rhs_f})
 
+        def solvePoisson(ctx):
+            state = ctx["state"]
             phi0 = (state["dPhi"] if self.warm_start_poisson
                     else tmap(torch.zeros_like, state["dPhi"]))
-            psol = self._coupled_solver(rhs, phi0)
-            dphi = psol.x
+            psol = self._coupled_solver(ctx["rhs"], phi0)
+            return dict(ctx, psol=psol, dphi=psol.x)
+
+        def update(ctx):
+            state, dphi = ctx["state"], ctx["dphi"]
             if not self.is_ref_p:
                 dphi = dict(dphi, p=dphi["p"] - torch.mean(dphi["p"]))
-
-            # projection u -= B_N (G dp - H df); phi += dphi
-            qnew = tmap(lambda u, g: u - g, ustar,
+            qnew = tmap(lambda u, g: u - g, ctx["ustar"],
                         self.bn(self._G_combined(dphi)))
-            bcstate = self.bc.update_ghost_values(state["bc"], qnew)
-            fnew = state["f"] + dphi["f"]
-            stats = {"v_iters": vsol.iters, "v_res": vsol.residual,
-                     "v_ok": vsol.converged,
-                     "p_iters": psol.iters, "p_res": psol.residual,
-                     "p_ok": psol.converged,
-                     "f": fnew}
-            return dict(state, q=qnew, p=state["p"] + dphi["p"], f=fnew,
-                        bc=bcstate, dPhi=dphi), stats
+            bc = self.bc.update_ghost_values(state["bc"], qnew)
+            return dict(ctx, state=dict(state, q=qnew,
+                                        p=state["p"] + dphi["p"],
+                                        f=state["f"] + dphi["f"], bc=bc,
+                                        dPhi=dphi))
 
-        return step
+        return [("rhsVelocity", rhsVelocity),
+                ("solveVelocity", ns["solveVelocity"]),
+                ("rhsPoisson", rhsPoisson),
+                ("solvePoisson", solvePoisson),
+                ("update", update)]
 
     # ------------------------------------------------------------------
     def _restart_extra(self) -> dict:

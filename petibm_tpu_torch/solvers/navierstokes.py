@@ -38,7 +38,14 @@ every ``nsave`` steps and the restart histories every ``nrestart``, with
 the dP warm start and the BC ghost state as extras so that a restart is
 exact.  Fields go to the host only at those points.  Where h5py does not
 import, the solver says so once on stderr at init and writes the text
-logs only; a restart start (``startStep > 0``) then raises.
+logs only; a restart start (``startStep > 0``) then raises.  The probes
+of ``config["probes"]`` (``io/probes.py``) are monitored after each
+step's output (JAX ``navierstokes.py:911-930``); each copies only its own
+values to the host.
+
+The step is the reference's log stages chained (``_profile_phases``), so
+the stage profiler, ``profile_stages`` (``utils/profiling.py``; JAX
+``navierstokes.py:667-718``), times the production step's own code.
 
 Configurations this port does not cover raise ``NotImplementedError``
 naming the ROADMAP item; nothing is substituted silently.
@@ -71,6 +78,7 @@ from ..operators.cuda_stencil import (make_cuda_convection,
 from ..operators.stencil import make_divergence, make_gradient, make_laplacian
 from ..timeintegration import create_time_integration
 from ..types import Field
+from ..utils.profiling import chain_phases
 from ..utils.timers import StageTimers
 
 VEL_NAMES = ("u", "v", "w")
@@ -87,8 +95,6 @@ def check_supported(config: dict) -> None:
     params = config.get("parameters", {})
     if params.get("sharding") or params.get("distributed"):
         raise _not_ported("sharding", "ROADMAP item 19")
-    if config.get("probes"):
-        raise _not_ported("probes", "ROADMAP item 17")
     fdm_cfg = fdm_config(params)
     if bool(fdm_cfg.get("fft", False)):
         raise _not_ported("fdm.fft: true", "ROADMAP item 14")
@@ -111,7 +117,8 @@ def resolve_device(device=None) -> torch.device:
 
 class NavierStokesSolver:
     """The projection-method solver; the IBM solvers extend it through
-    ``_extra_init`` and ``_build_step``."""
+    ``_extra_init``, ``_profile_phases`` (the step's stages) and
+    ``_step_stats``."""
 
     #: set by a subclass that replaces the pressure system (the coupled
     #: IBPM's {p, f} block system)
@@ -181,6 +188,7 @@ class NavierStokesSolver:
         self._create_operators(config)
         self._create_solvers(config)
         self._extra_init(config)
+        self._create_probes(config)
         self._step_fn = self._build_step()
 
         self.iter_log_path = os.path.join(
@@ -460,28 +468,71 @@ class NavierStokesSolver:
         qnew = tmap(lambda u, g: u - g, ustar, self.bn(self.grad(dP)))
         return qnew, state["p"] + dP, dP
 
-    def _poisson_project(self, ustar, state):
-        rhs2 = self._rhs_poisson(ustar, state)
-        psol = self._solve_poisson(rhs2, state)
-        qnew, pnew, dP = self._project_update(ustar, psol.x, state)
-        return qnew, pnew, dP, psol
-
     def _build_step(self):
-        """One time step as a state -> (state, stats) function
-        (advance, navierstokes.cpp:240-266)."""
+        """One time step as a state -> (state, stats) function (advance,
+        navierstokes.cpp:240-266): the phases of ``_profile_phases``
+        chained, the solves' stats read from the last context."""
+        phases = self._profile_phases()
 
         def step(state):
-            rhs1, state = self._rhs_velocity(state)
-            vsol = self._solve_velocity(rhs1, state)
-            qnew, pnew, dP, psol = self._poisson_project(vsol.x, state)
-            bcstate = self.bc.update_ghost_values(state["bc"], qnew)
-            stats = {"v_iters": vsol.iters, "v_res": vsol.residual,
-                     "v_ok": vsol.converged,
-                     "p_iters": psol.iters, "p_res": psol.residual,
-                     "p_ok": psol.converged}
-            return dict(state, q=qnew, p=pnew, bc=bcstate, dP=dP), stats
+            ctx = chain_phases(phases, state)
+            return ctx["state"], self._step_stats(ctx)
 
         return step
+
+    def _step_stats(self, ctx: dict) -> dict:
+        vsol, psol = ctx["vsol"], ctx["psol"]
+        return {"v_iters": vsol.iters, "v_res": vsol.residual,
+                "v_ok": vsol.converged,
+                "p_iters": psol.iters, "p_res": psol.residual,
+                "p_ok": psol.converged}
+
+    def _profile_phases(self):
+        """The step as an ordered list of (name, fn) phases, each fn
+        mapping a context dict to the next: the reference's PETSc log
+        stages (navierstokes.cpp:99-199; JAX ``navierstokes.py:667-703``),
+        which the stage profiler times one by one and ``_build_step``
+        chains."""
+
+        def rhsVelocity(ctx):
+            rhs1, state = self._rhs_velocity(ctx["state"])
+            return dict(ctx, state=state, rhs1=rhs1)
+
+        def solveVelocity(ctx):
+            vsol = self._solve_velocity(ctx["rhs1"], ctx["state"])
+            return dict(ctx, vsol=vsol, ustar=vsol.x)
+
+        def rhsPoisson(ctx):
+            return dict(ctx, rhs2=self._rhs_poisson(ctx["ustar"],
+                                                    ctx["state"]))
+
+        def solvePoisson(ctx):
+            psol = self._solve_poisson(ctx["rhs2"], ctx["state"])
+            return dict(ctx, psol=psol, dP=psol.x)
+
+        def update(ctx):
+            state = ctx["state"]
+            qnew, pnew, dP = self._project_update(ctx["ustar"], ctx["dP"],
+                                                  state)
+            bc = self.bc.update_ghost_values(state["bc"], qnew)
+            return dict(ctx, state=dict(state, q=qnew, p=pnew, dP=dP, bc=bc))
+
+        return [("rhsVelocity", rhsVelocity),
+                ("solveVelocity", solveVelocity),
+                ("rhsPoisson", rhsPoisson),
+                ("solvePoisson", solvePoisson),
+                ("update", update)]
+
+    def profile_stages(self, steps: int = 10, warmup: int = 3,
+                       path: str | None = None) -> dict:
+        """The per-phase time of the step (``utils/profiling.py``): writes
+        the stage table to logs/stages-<ite>.txt (or ``path``) and returns
+        {phase: ms, "_total": ..., "_fused": ...}."""
+        from ..utils.profiling import profile_stages
+
+        if path is None:
+            path = os.path.join(self.logs_dir, f"stages-{self.ite}.txt")
+        return profile_stages(self, steps=steps, warmup=warmup, path=path)
 
     # ------------------------------------------------------------------
     def advance(self) -> None:
@@ -597,6 +648,7 @@ class NavierStokesSolver:
                                               f"{self.ite:07d}.log"))
             if self.hdf5 and self.ite % self.nrestart == 0:
                 self.write_restart_data_hdf5(self._snapshot_path())
+        self.monitor_probes()
 
     def _iter_log_stats(self, s: dict) -> list[tuple]:
         return [(s["v_iters"], s["v_res"]), (s["p_iters"], s["p_res"])]
@@ -640,6 +692,31 @@ class NavierStokesSolver:
                 raise SolverDivergedError(msg)
             print(f"WARNING: {msg}", file=sys.stderr)
 
+    def _create_probes(self, config: dict) -> None:
+        """The probes of ``config["probes"]``, relative paths under the
+        output directory (navierstokes.cpp:167-177)."""
+        from ..io.probes import create_probe
+
+        self.probes = []
+        for node in config.get("probes", []) or []:
+            node = dict(node)
+            if not os.path.isabs(node.get("path", "")):
+                node["path"] = os.path.join(self.output_dir, node["path"])
+            self.probes.append(create_probe(node, self.mesh, self.bc))
+
+    def monitor_probes(self) -> None:
+        """monitorProbes (navierstokes.cpp:840-856): each probe reads the
+        fields on the device."""
+        if not self.probes:
+            return
+        with self.timers.stage("monitor"):
+            fields = {VEL_NAMES[c]: self.state["q"][VEL_NAMES[c]]
+                      for c in range(self.mesh.dim)}
+            fields["p"] = self.state["p"]
+            fields["_bcstate"] = self.state["bc"]
+            for probe in self.probes:
+                probe.monitor(fields, self.ite, self.t)
+
     # ------------------------------------------------------------------
     def run(self, progress: bool = False) -> None:
         """Main loop (applications/navierstokes/main.cpp:45-78), after
@@ -672,3 +749,5 @@ class NavierStokesSolver:
         self._flush_iter_log()
         if self._iter_log and not self._iter_log.closed:
             self._iter_log.close()
+        for probe in self.probes:
+            probe.close()

@@ -3,11 +3,14 @@
 Counterpart of ``petibm_tpu/solvers/rigidkinematics.py`` (reference:
 applications/rigidkinematics/rigidkinematics.{h,cpp}).  The body
 coordinates are a function of time evaluated at the top of each step:
-the delta windows are recomputed from them on the device, and the force
-solve keeps the inverse taken at the body's first coordinates and
-refines against the matrix-free E B_N H of the step's windows; where that
+the delta windows are recomputed from them on the device.  With the
+dense force solve (BN order 1, factor windows, ``dense`` not false) the
+step keeps the inverse taken at the body's first coordinates and refines
+against the matrix-free E B_N H of the step's windows; where that
 refinement exits above tolerance, the step solves the dense blocks of its
-windows directly (``fallbacks`` counts those steps).
+windows directly (``fallbacks`` counts those steps).  Otherwise the step
+takes the decoupled solver's matrix-free Krylov force solve, as the JAX
+package does (decoupledibpm.py:85, 211-215).
 
 The step's time is ``state["t"]``, a 0-d tensor of the solver's dtype on
 its device, advanced as ``t + dt`` inside the step, as the JAX package
@@ -54,21 +57,17 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
     def _refuse_kinematics(self, config: dict) -> None:
         """Moving bodies are this solver's to run."""
 
-    def _make_force_solver(self, fopts: dict) -> None:
-        """The moving body's force solve (JAX decoupledibpm.py:174-209):
+    def _make_dense_force_solver(self, fopts: dict) -> None:
+        """The moving body's dense force solve (JAX decoupledibpm.py:174-209):
         refinement from the setup-time inverse against the matrix-free
         E B_N H of the step's windows, and where it exits above tolerance
         the direct solve of the step's dense blocks, reported as JAX's
         ``_result`` (:98-114): iters 0, the full matrix-free residual,
         convergence judged on the blocks' residual."""
-        _, inverse = self._dense_force_blocks(fopts)
-        delta, bn, dim, dt = self.delta, self.bn, self.mesh.dim, self.dt
+        _, inverse = self._dense_force_blocks()
+        ebnh, dim, dt = self._ebnh, self.mesh.dim, self.dt
         atol = float(fopts.get("atol", 1e-6))
         rtol = float(fopts.get("rtol", 0.0))
-
-        def ebnh(df, win):
-            return delta.interpolate(bn(delta.spread(df, win)), win)
-
         refine = make_fdm_solver(inverse, ebnh, fopts)
 
         def dense_solve(rhsf, win):

@@ -184,24 +184,16 @@ def test_d_cli_logs_match(tmp_path, capsys):
 
 
 UNSUPPORTED = {
-    "bn2": ({"BN": 2}, "ROADMAP item 18"),
     "mg_bf16": ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
     "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
-    "windowed": ({"deltaEngine": "windowed"}, "ROADMAP item 18"),
-    "forces_krylov": ({"forcesSolver": {"type": "CPU", "dense": False}},
-                      "ROADMAP item 18"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED) + ["probes", "moving"])
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED) + ["moving"])
 def test_unsupported_configs_raise(tmp_path, name):
     cfg = config(tmp_path, "run")
-    if name == "probes":
-        cfg["probes"] = [{"name": "p", "type": "POINT", "field": "u",
-                          "loc": [0.0, 1.0]}]
-        item = "ROADMAP item 17"
-    elif name == "moving":
+    if name == "moving":
         cfg["bodies"][0]["kinematics"] = {"type": "oscillation"}
         item = "RigidKinematicsSolver"
     else:

@@ -266,12 +266,3 @@ def test_delta_windows_interp_spread_ebnh_match_jax(ndim, periodic, kernel):
     for a, b in zip(tinterp.dense_ebnh_blocks(twin, ndim, 0.02),
                     jinterp.dense_ebnh_blocks(jwin, ndim, 0.02, jnp.float64)):
         _close(a, b, 1e-12)
-
-
-def test_windowed_engine_not_ported():
-    cfg = _ib_mesh(2, False)
-    mesh = tm.StaggeredMesh(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tinterp.make_delta_op(mesh, n_pts=20000, **F64)
-    with pytest.raises(NotImplementedError):
-        tinterp.make_delta_op(mesh, engine="windowed", **F64)

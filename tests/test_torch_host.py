@@ -361,7 +361,10 @@ def test_port_imports_no_jax():
             "petibm_tpu_torch.solvers.rigidkinematics, "
             "petibm_tpu_torch.cli.rigidkinematics, petibm_tpu_torch.io, "
             "petibm_tpu_torch.io.xdmf, petibm_tpu_torch.cli.createxdmf, "
-            "petibm_tpu_torch.cli.writemesh\n"
+            "petibm_tpu_torch.cli.writemesh, petibm_tpu_torch.ibm.interp, "
+            "petibm_tpu_torch.io.probes, petibm_tpu_torch.io.vorticity, "
+            "petibm_tpu_torch.cli.vorticity, petibm_tpu_torch.cli.common, "
+            "petibm_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
             "assert not bad, bad\n"

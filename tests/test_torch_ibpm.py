@@ -350,7 +350,9 @@ def test_cli_logs_match(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"deltaEngine": "windowed"}, "ROADMAP item 18"),
+    ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
+    ({"fdm": {"fft": True}}, "ROADMAP item 14"),
+    ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
 ])
 def test_unsupported_configs_raise(tmp_path, params, item):
     cfg = config(tmp_path, "port")
