@@ -85,14 +85,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    to the fields on the host (1e-6), and the vorticity on the card
    against the CPU (float64, 1e-12); (d) the stage profiler on the
    flagship and on (a): the phases chained bit-equal to the step, the
-   JAX package's phase names, both tables printed.
+   JAX package's phase names, both tables printed;
+13. the FFT transforms and the bfloat16 V-cycle: (a) the 256^3 TGV with
+   ``fdm: {velocity: false, fft: true}`` (its pressure solve by rfftn /
+   irfftn on all three axes) for phase 6's 20 steps beside phase 6's
+   dense-transform run: ms/step, busy shares, energies, the fields'
+   difference at step 20, refinement passes, launches against the stats;
+   (b) phase 8's MG cells with ``mg: {dtype: bfloat16}``: the TGV for 5
+   steps through ``run()`` (converged, launches against the stats, p_iters
+   and device ms per V-cycle beside float32), and one pressure system of
+   the flagship and of the sphere by CG with the float32 and the bfloat16
+   V-cycle (the bfloat16 one does not converge on their stretched grids:
+   reported); (c) in float64, card against CPU: the pinned periodic TGV2D
+   at 32^2 (its FDM solve by FFT), a 16^3 TGV with ``fdm.fft: true`` and
+   the 32^2 cylinder with the bfloat16 V-cycle (its V-cycle inputs
+   compared).
 
 Phase 2 holds K1 (450^2, the oscillating cylinder's 512^2 and the
 sphere's pressure), K2a and K2b (every
 shape), K3 (the sphere's and the TGV's three components from one
 launch), K4/K5 (levels 0 and 1 of the flagship and of the sphere, every
 line direction) and K6/K7 (the TGV's 256^3, 128^3 and 64^3 levels, every
-axis) against their twins bit for bit, times K1's 3D march and K2 beside
+axis) against their twins bit for bit, and the bfloat16 instances (K1
+at 450^2 and the sphere's pressure, K4/K5 at both level 0s, K6/K7 at
+256^3) too, times K1's 3D march and K2 beside
 their first designs (one thread per cell) at each 3D shape, and K4/K5
 and K6/K7 at their finest levels beside their block paths.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -465,9 +481,11 @@ def _rel_err(a, b) -> float:
 
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and operations/s
-#: outside the tensor cores
+#: outside the tensor cores in float32 and float64; bfloat16 at the
+#: tensor cores' dense rate, the table's only bfloat16 rate (every bfloat16
+#: kernel here binds by bytes, far above either rate's time)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 
 def _bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -572,21 +590,26 @@ def _k2_csr(shape, vecs, periodic, scale=None):
     return _csr((diag * s).expand(shape), terms)
 
 
-def _library(label: str, rec: dict, csr, arg, want, applies: int) -> None:
+def _library(label: str, rec: dict, csr, arg, want, applies: int,
+             tol: float = 1e-5) -> None:
     """One PyTorch call computing the kernel's function, timed on ``arg``
     beside the kernel (``rec``): ``torch.sparse.mm`` with the operator
     assembled once as CSR.  Its result is held to the kernel's ``want``
-    at 1e-5 relative (another order of summation)."""
+    at ``tol`` relative (another order of summation: 1e-5 in float32;
+    bfloat16 sums rounded in another order, and the operator's entries
+    rounded as products, take a few units of 2^-8 of the largest
+    value)."""
     import torch
 
     col = arg.reshape(-1, 1)
-    rel = _rel_err(torch.sparse.mm(csr, col).reshape(arg.shape), want)
+    rel = _rel_err(torch.sparse.mm(csr, col).reshape(arg.shape).float(),
+                   want.float())
     rec["library_ms"] = _time_ms(lambda v: torch.sparse.mm(csr, v), col,
                                  applies)[0]
     print(f"{label} library torch.sparse.mm (CSR, {csr.values().numel()} "
           f"values): {rec['library_ms'] * 1e3:.2f} us per apply (device), "
-          f"kernel {rec['ms'] * 1e3:.2f} us; rel diff {rel:.3e} (tol 1e-5)")
-    if not rel <= 1e-5:
+          f"kernel {rec['ms'] * 1e3:.2f} us; rel diff {rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
         raise AssertionError(f"{label}: the CSR operator differs: {rel}")
 
 
@@ -755,7 +778,96 @@ def phase2_kernels(tmp: str) -> dict:
                               cuda_pcr.block_plan(shape, axis), rhs,
                               applies // 2)
         del mg, dl, diag, du
+    _phase2_bf16(records, cases, meshes, randn)
     return records
+
+
+#: the record keys of a bfloat16 hold in the JSON line
+_BF16_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+
+def _phase2_bf16(records: dict, cases: dict, meshes: dict, randn) -> None:
+    """The bfloat16 instances (the mixed-precision V-cycle's hierarchy)
+    against their twins at tolerance 0, timed beside their bounds (2-byte
+    values read and written once): K1 at 450^2 and the sphere's pressure
+    (beside ``torch.sparse.mm`` on the bfloat16 CSR operator where
+    cuSPARSE takes it), K4/K5 at the flagship's and the sphere's level 0,
+    every direction, K6/K7 at 256^3, every axis.  Each kernel's record
+    takes its main shape's hold as ``bf16``."""
+    import torch
+
+    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
+    from petibm_tpu_torch.linalg.mg import PoissonMG, poisson_level0
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    cuda, bf16, applies = torch.device(DEVICE), torch.bfloat16, 40
+
+    def keep(key, rec):
+        records[key]["bf16"] = {k: rec[k] for k in _BF16_KEYS}
+
+    for name in ("450x450", "sphere"):
+        mesh = meshes[name][0]
+        level = poisson_level0(mesh.dxp, mesh.periodic, dtype=bf16,
+                               device=cuda,
+                               scale=cases[name]["parameters"]["dt"])
+        phi = randn(level.shape, bf16)
+        label = f"K1 {name} p {tuple(level.shape)} bfloat16"
+        rec = _hold_k1(label, level, phi, applies)
+        try:
+            csr = _k1_csr(level)
+            torch.sparse.mm(csr, phi.reshape(-1, 1))
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            print(f"{label}: torch.sparse.mm does not take the bfloat16 CSR "
+                  f"operator on this card ({str(err).splitlines()[0]}); "
+                  "no library time")
+        else:
+            _library(label, rec, csr, phi,
+                     cs.poisson_apply_separable(phi, level), applies,
+                     tol=2.0 ** -5)
+        if name == "sphere":
+            keep("K1", rec)
+    for name in ("450x450", "sphere"):
+        mesh = meshes[name][0]
+        mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=bf16, device=cuda,
+                       scale=cases[name]["parameters"]["dt"])
+        shape = tuple(mg.levels[0].shape)
+        pair = (randn(shape, bf16), randn(shape, bf16))
+        n = pair[0].numel()
+        shape3 = (1,) * (3 - mesh.dim) + shape
+        for d in range(mesh.dim):
+            axis, aux = mesh.dim - 1 - d, mg._aux(0, d)
+            plan = cuda_sweep.launch_plan(shape3, axis + 3 - mesh.dim)
+            ops = 7 + 6 * (mesh.dim - 1) + 14 * _steps(shape[axis])
+            rec = _hold(
+                f"K4/K5 {name} level 0 {shape} direction {d} bfloat16 "
+                f"{plan}",
+                lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis, 1.0),
+                lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux, axis,
+                                                     1.0),
+                pair, 0.0, applies,
+                ((3 * n + sum(t.numel() for t in aux)) * 2, ops * n, bf16))
+            if (name, d) == ("sphere", 0):
+                keep("K4/K5", rec)
+        del mg, pair
+    mesh = meshes["tgv256"][0]
+    mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=bf16, device=cuda,
+                   scale=cases["tgv256"]["parameters"]["dt"])
+    shape = tuple(mg.levels[0].shape)
+    rhs = randn(shape, bf16)
+    n = rhs.numel()
+    for d in range(3):
+        axis = 2 - d
+        dl, diag, du = mg._line_system(0, d)
+        rec = _hold(
+            f"K6/K7 tgv256 level 0 {shape} axis {axis} "
+            f"{cuda_pcr.launch_plan(shape, axis)} bfloat16",
+            lambda x: cuda_pcr.pcr(dl, diag, du, x, axis),
+            lambda x: cuda_pcr.pcr_ref(dl, diag, du, x, axis), rhs, 0.0,
+            applies, (5 * n * 2, (14 * _steps(shape[axis]) + 1) * n, bf16))
+        if axis == 0:
+            keep("K6/K7", rec)
 
 
 def _hold_k1(label: str, level, phi, applies: int) -> dict:
@@ -1193,6 +1305,9 @@ def phase6_tgv(tmp: str):
     print(f"tgv256 {elapsed / 19 * 1e3:.3f} ms/step over steps 2-20 "
           f"(synchronised); last step v/p iters {last['v_iters']}/"
           f"{last['p_iters']}; t = {solver.t:.4f}")
+    # phase 13 (a) prints the FFT run beside this one
+    solver.smoke_report = {"ms_step": elapsed / 19 * 1e3,
+                           "energies": energies}
     return solver, launches
 
 
@@ -1291,6 +1406,10 @@ def _report_mg(label: str, solver, elapsed: float, nsteps: int,
           f"{device_ms:.3f} ms/step device, busy share {busy:.4f}; "
           f"p_iters {window}: {device_ms / vcycles:.3f} ms device per "
           "V-cycle")
+    # phase 13 prints its bfloat16 cells beside these
+    solver.smoke_report = {"ms_step": elapsed / nsteps * 1e3,
+                           "p_iters": p_iters, "busy": busy,
+                           "device_ms_vcycle": device_ms / vcycles}
 
 
 def _timed_run(solver, warm: int, total: int) -> float:
@@ -1383,6 +1502,7 @@ def phase8_mg(tmp: str) -> tuple:
     if any(b > a for a, b in zip(energies, energies[1:])):
         raise AssertionError(f"kinetic energy grew: {energies}")
     _report_mg("tgv256 mg", tgv, elapsed, 9)
+    tgv.smoke_report["energies"] = energies
     for solver in (flag, sph, tgv):
         solver.close()
     return (flag, sph, tgv), counts
@@ -2051,9 +2171,330 @@ def phase12_windowed(tmp: str) -> list:
     return counts
 
 
+def tgv2d_config(tmp: str, n: int = 32, **params) -> dict:
+    """examples/navierstokes/taylorgreenvortex2dRe100 as a dict (the card
+    need not have pyyaml), cut from 256^2 to n^2 cells: Re=100 (nu 0.01)
+    on the periodic box [-pi, pi]^2, dt 0.01, BiCGStab + Jacobi velocity
+    solve, CG + MG pressure solve, both at atol 1e-6, the symbolic
+    initial fields."""
+    pi = math.pi
+    return _base(tmp, [{"direction": d, "start": -pi, "subDomains": [
+        {"end": pi, "cells": n, "stretchRatio": 1.0}]} for d in "xy"],
+        {"nu": 0.01,
+         "initialVelocity": ["cos(x) * sin(y)", "- sin(x) * cos(y)"],
+         "initialPressure": "- (cos(2*x) + cos(2*y)) / 4",
+         "boundaryConditions": [
+             {"location": d + side, "u": ["PERIODIC", 0.0],
+              "v": ["PERIODIC", 0.0]}
+             for d in "xy" for side in ("Minus", "Plus")]},
+        **dict({"dt": 0.01,
+                "velocitySolver": _solver_opts(1000, rtol=0.0,
+                                               kspType="bicgstab",
+                                               pc="jacobi"),
+                "poissonSolver": _solver_opts(20000, rtol=0.0, pc="mg")},
+               **params))
+
+
+def _phase13_fft_tgv(tmp: str, dense) -> dict:
+    """(a) The 256^3 TGV with ``fdm: {velocity: false, fft: true}`` (the
+    pressure solve by rfft/irfft on all three axes) for phase 6's 20
+    steps, beside phase 6's dense-transform run ``dense``: ms/step, the
+    busy share of 5 more steps of each (the dense one from its step-20
+    state), the energies, the fields' difference at step 20 and the
+    refinement passes.  Returns the run's launches."""
+    import torch
+
+    from petibm_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    fdm = {"velocity": False, "fft": True}
+    t0 = time.perf_counter()
+    fft = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "tgv_fft"), nt=1,
+                                          fdm=fdm), device=DEVICE)
+    tgv3d_initial_state(fft)
+    if fft.poisson_fdm._fft_axes != (0, 1, 2):
+        raise AssertionError(f"fft axes {fft.poisson_fdm._fft_axes}")
+    torch.cuda.synchronize()
+    print(f"tgv256 fft setup {time.perf_counter() - t0:.2f} s")
+    energies = [_energy(fft.state["q"])]
+    _reset_counts()
+    fft.run()
+    energies.append(_energy(fft.state["q"]))
+    elapsed = 0.0
+    for nt in (5, 10, 15, 20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fft.nt = nt
+        fft.run()
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        energies.append(_energy(fft.state["q"]))
+    launches = _counts()
+    hist = fft.stats_history
+    _check_run(hist, 20, "vp")
+    _check_counts("tgv256 fft", launches, {
+        "K2a": sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
+        "K2b": sum(2 + s["p_iters"] for s in hist), "K3": len(hist)})
+    n = fft.mesh.shape(0)
+    _check_fields(dict(fft.state["q"], p=fft.state["p"]),
+                  {"u": n, "v": n, "w": n, "p": n})
+    print("tgv256 fft kinetic energy after steps 0, 1, 5, 10, 15, 20: "
+          + ", ".join(f"{e:.8f}" for e in energies) + "; dense (phase 6): "
+          + ", ".join(f"{e:.8f}" for e in dense.smoke_report["energies"]))
+    if any(b > a for a, b in zip(energies, energies[1:])):
+        raise AssertionError(f"kinetic energy grew: {energies}")
+    diffs = {k: _rel_err(fft.state["q"][k], dense.state["q"][k])
+             for k in "uvw"}
+    diffs["p"] = _rel_err(fft.state["p"], dense.state["p"])
+    print("tgv256 fft vs dense at step 20, max rel diff: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in diffs.items()))
+    p_fft = [s["p_iters"] for s in hist]
+    p_dense = [s["p_iters"] for s in dense.stats_history]
+    print(f"tgv256 p_iters (refinement passes) fft {p_fft}, dense {p_dense}"
+          + ("" if p_fft == p_dense else "; they differ at steps "
+             + str([i + 1 for i, (a, b) in enumerate(zip(p_fft, p_dense))
+                    if a != b])))
+    # the busy share of 5 more steps of each, the dense run resumed from
+    # its step-20 state in a solver of its own (phase 6's is closed)
+    resumed = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "tgv_dense"),
+                                              nt=0), device=DEVICE)
+    resumed.state = state_from_numpy(state_to_numpy(dense.state), DEVICE,
+                                     resumed.dtype)
+    busy = {"dense": _busy_share(resumed), "fft": _busy_share(fft)}
+    for solver in (resumed, fft):
+        _check_run(solver.stats_history, solver.nt, "vp")
+        solver.close()
+    print(f"tgv256 fft {elapsed / 19 * 1e3:.3f} ms/step over steps 2-20 "
+          f"(synchronised), dense (phase 6) "
+          f"{dense.smoke_report['ms_step']:.3f}; 5 more steps profiled: "
+          + "; ".join(f"{k} {b[1]:.3f} ms/step wall, {b[2]:.3f} device, "
+                      f"busy {b[0]:.4f}" for k, b in busy.items()))
+    return launches
+
+
+def _beside_f32(label: str, bf16, f32) -> None:
+    """p_iters and device ms per V-cycle of the bfloat16 run beside the
+    float32 run's (phase 8) over the same steps from the same start."""
+    ours, theirs = bf16.smoke_report, f32.smoke_report
+    n = len(ours["p_iters"])
+    print(f"{label}: p_iters over steps 1-{n} bfloat16 {ours['p_iters']}, "
+          f"float32 {theirs['p_iters'][:n]} (means "
+          f"{statistics.mean(ours['p_iters']):.2f} / "
+          f"{statistics.mean(theirs['p_iters'][:n]):.2f}); device ms per "
+          f"V-cycle {ours['device_ms_vcycle']:.3f} / "
+          f"{theirs['device_ms_vcycle']:.3f}; busy {ours['busy']:.4f} / "
+          f"{theirs['busy']:.4f}")
+
+
+def _bf16_system(label: str, solver, maxiter: int = 300) -> list:
+    """One pressure system of ``solver`` (a consistent random right side,
+    seeded) by CG with the float32 V-cycle and with the bfloat16 one
+    (``solver``'s own preconditioner), at the cell's atol relative to the
+    right side, at most ``maxiter`` iterations each: one bfloat16 V-cycle's
+    output against the float32 one's, the iterations and the residual each
+    reaches.  The float32 solve must converge; the bfloat16 one is
+    reported.  Launches of each solve against its iterations (one V-cycle
+    an application of M, the first residual's included; K1 as the CG
+    operator and, in the bfloat16 V-cycle, at its level-0 residual).
+    Returns the launches of the bfloat16 solve."""
+    import torch
+
+    from petibm_tpu_torch.linalg.krylov import cg
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    b = torch.randn(solver.poisson_mg.levels[0].shape, generator=gen,
+                    device=DEVICE)
+    b = b - b.mean()
+    m32 = solver.poisson_mg.preconditioner()
+    m16 = solver._M_p  # the solver's own: the bfloat16 V-cycle
+    o32, o16 = m32(b), m16(b)
+    print(f"{label}: one bfloat16 V-cycle against the float32 one: rel "
+          f"diff {_rel_err(o16, o32):.3e} ({len(solver.poisson_mg_lp.levels)}"
+          " levels)")
+    sweeps = solver.poisson_mg.sweeps_per_vcycle()
+    counts = None
+    for tag, M in (("float32", m32), ("bfloat16", m16)):
+        _reset_counts()
+        res = cg(solver._negA_p, b, torch.zeros_like(b), M=M,
+                 atol=1e-6 * float(b.norm()), maxiter=maxiter)
+        counts = _counts()
+        vcycles = 1 + res.iters
+        _check_counts(f"{label} {tag} system", counts, {
+            "K4/K5": sweeps * vcycles,
+            "K1": 2 * vcycles})
+        print(f"{label} {tag} V-cycle CG: converged {res.converged}, "
+              f"{res.iters} iterations, residual {res.residual:.3e} (atol "
+              f"{1e-6 * float(b.norm()):.3e})")
+        if tag == "float32" and not res.converged:
+            raise AssertionError(f"{label}: the float32 V-cycle CG did not "
+                                 "converge")
+    return [counts]
+
+
+def _phase13_bf16_cells(tmp: str, flag32, sph32, tgv32) -> list:
+    """(b) Phase 8's MG cells with ``mg: {dtype: bfloat16}`` (CG in
+    float32, the V-cycle in bfloat16: K4/K5 or K6/K7 in bfloat16, K1 at
+    its level-0 residual on the walled grids).  The 256^3 TGV through
+    run() for 5 steps: every solve converged, every launch against the
+    stats, p_iters and device ms per V-cycle beside the float32
+    V-cycle's.  The flagship and the sphere: one pressure system each
+    (``_bf16_system``).  Their stretched grids defeat the bfloat16
+    V-cycle of the JAX package's design, which rounds the fields to
+    bfloat16 between operations: a residual of a smooth field is a small
+    difference of large terms there, and one V-cycle comes out far from
+    the float32 one (printed), so their CG does not converge
+    (``scripts/bf16_vcycle_error.py`` takes it apart on the CPU).  Returns
+    the runs' launches."""
+    import torch
+
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    mg = {"dtype": "bfloat16"}
+
+    def check_lp(solver, k1: bool) -> None:
+        lp = solver.poisson_mg_lp
+        if (lp.dtype != torch.bfloat16 or solver.poisson_mg.dtype
+                != torch.float32 or (lp._fused_apply0 is not None) != k1):
+            raise AssertionError("the bfloat16 V-cycle is not the one built")
+
+    tgv = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "bf16_tgv"),
+                                          fdm=False, mg=mg), device=DEVICE)
+    tgv3d_initial_state(tgv)
+    check_lp(tgv, False)
+    energies = [_energy(tgv.state["q"])]
+    _reset_counts()
+    elapsed = _timed_run(tgv, 1, 5)
+    energies.append(_energy(tgv.state["q"]))
+    counts = [_counts()]
+    hist = tgv.stats_history
+    _check_run(hist, 5, "vp")
+    # K2b is the CG operator alone: the bfloat16 V-cycle's periodic
+    # level-0 residual is its closure, as in the JAX package
+    _check_counts("tgv256 mg bf16", counts[-1], dict(
+        _mg_counts(tgv, level0_per_vcycle=1),
+        K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist), K3=len(hist)))
+    print(f"tgv256 mg bf16 kinetic energy after steps 0, 5: "
+          f"{energies[0]:.8f}, {energies[1]:.8f}; float32 V-cycle (phase 8) "
+          f"after 0, 1, 4: " + ", ".join(f"{e:.8f}" for e in
+                                         tgv32.smoke_report["energies"][:3]))
+    if energies[1] > energies[0]:
+        raise AssertionError(f"kinetic energy grew: {energies}")
+    _report_mg("tgv256 mg bf16", tgv, elapsed, 4, profile_steps=2)
+    _beside_f32("tgv256 mg bf16", tgv, tgv32)
+    tgv.close()
+    for name, make in (("flagship", flagship_config),
+                       ("sphere", sphere_config)):
+        solver = DecoupledIBPMSolver(make(os.path.join(tmp, f"bf16_{name}"),
+                                          fdm=False, mg=mg), device=DEVICE)
+        check_lp(solver, True)
+        counts += _bf16_system(f"{name} mg bf16", solver)
+        solver.close()
+    return counts
+
+
+def _vcycle_inputs(solver) -> list:
+    """Record the bfloat16 bits of every V-cycle input of ``solver``'s
+    low-precision hierarchy (on the host)."""
+    import torch
+
+    lp = solver.poisson_mg_lp
+    seen, vcycle = [], lp.vcycle
+
+    def recorded(lvl, rhs):
+        if lvl == 0:
+            seen.append(rhs.detach().cpu().view(torch.int16).clone())
+        return vcycle(lvl, rhs)
+
+    lp.vcycle = recorded
+    return seen
+
+
+def _phase13_small(tmp: str) -> None:
+    """(c) Small cases in float64 on the card against the CPU: the pinned
+    periodic TGV2D at 32^2 (its FDM solve by FFT), the 16^3 TGV with
+    ``fdm.fft: true``, and the 32^2 cylinder with ``fdm: false`` and the
+    bfloat16 V-cycle under the float64 solve; fields to 1e-9, iteration
+    counts and ok flags equal.  The bfloat16 kernels equal their twins, so
+    only the float64 rounding of the V-cycle's input can part the two
+    runs: the inputs are compared and the first that differs is
+    printed."""
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+
+    def pinned(dev, tag):
+        s = NavierStokesSolver(tgv2d_config(
+            os.path.join(tmp, f"tgv2d_pinned_{tag}"), nt=10,
+            dtype="float64", poissonSolver=_solver_opts(
+                20000, rtol=0.0, pc="mg", type="GPU")), device=dev)
+        if not s.is_ref_p or s._poisson_fdm_pinned._fft_axes != (0, 1):
+            raise AssertionError("the pinned FDM solve takes no FFT")
+        return s
+
+    _cuda_vs_cpu("tgv2d 32^2 pinned fft", pinned, ("p",))
+
+    def tgv_fft(dev, tag):
+        s = NavierStokesSolver(tgv3d_config(
+            os.path.join(tmp, f"tgv16_fft_{tag}"), n=16, nt=10, dt=0.05,
+            dtype="float64", fdm={"velocity": False, "fft": True}),
+            device=dev)
+        tgv3d_initial_state(s)
+        return s
+
+    _cuda_vs_cpu("tgv 16^3 fft", tgv_fft, ("p",))
+
+    inputs = {}
+
+    def cylinder(dev, tag):
+        s = DecoupledIBPMSolver(small_config(
+            os.path.join(tmp, f"small_bf16_{tag}"), nt=10, dtype="float64",
+            fdm=False, mg={"dtype": "bfloat16"}), device=dev)
+        inputs[tag] = _vcycle_inputs(s)
+        return s
+
+    try:
+        _cuda_vs_cpu("32^2 mg bf16 (float64 solve)", cylinder, ("p", "f"))
+    finally:
+        card, cpu = inputs.get("card", []), inputs.get("cpu", [])
+        differ = [i for i, (a, b) in enumerate(zip(card, cpu))
+                  if not bool((a == b).all())]
+        print(f"32^2 mg bf16: {len(card)} / {len(cpu)} V-cycles on the card"
+              f" / the CPU, {len(differ)} with inputs that differ in "
+              "bfloat16" + "".join(
+                  f"; V-cycle {i}: {_bits_apart(card[i], cpu[i])}"
+                  for i in differ[:3]))
+
+
+def _bits_apart(a, b) -> str:
+    """Where two bfloat16 tensors (as int16 bits) differ: how many values,
+    and the largest of them against the largest of ``b``."""
+    import torch
+
+    fa, fb = (t.view(torch.bfloat16).double() for t in (a, b))
+    where = a != b
+    top = float(torch.maximum(fa[where].abs(), fb[where].abs()).max())
+    return (f"{int(where.sum())} values, the largest {top:.3e} against "
+            f"{float(fb.abs().max()):.3e}")
+
+
+def phase13_fft_bf16(tmp: str, tgv, mg_solvers) -> list:
+    """(a) the FFT TGV, (b) the bfloat16 MG cells, (c) small cases card vs
+    CPU (the module docstring); returns the launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    counts = [_phase13_fft_tgv(tmp, tgv)]
+    print(f"phase 13 (a) done at {time.perf_counter() - t0:.1f} s into the "
+          "phase")
+    counts += _phase13_bf16_cells(tmp, *mg_solvers)
+    print(f"phase 13 (b) done at {time.perf_counter() - t0:.1f} s into the "
+          "phase")
+    _phase13_small(tmp)
+    return counts
+
+
 def _hold_at_shape(solver, applies: int) -> dict:
     """K1 (the pressure), K2a (u, v, w) and K3 at the solver's 3D shape
-    against their twins bit for bit, float32, timed beside their bounds;
+    against their twins bit for bit, float32, timed beside their bounds,
+    K1 and K2a (u) also beside ``torch.sparse.mm`` on their CSR operators;
     returns their records."""
     import torch
 
@@ -2071,13 +2512,21 @@ def _hold_at_shape(solver, applies: int) -> dict:
 
     level = poisson_level0(mesh.dxp, mesh.periodic, dtype=torch.float32,
                            device=cuda, scale=solver.dt)
-    out = {"K1": _hold_k1(f"K1 {label} p", level, randn(level.shape),
-                          applies)}
+    phi = randn(level.shape)
+    out = {"K1": _hold_k1(f"K1 {label} p", level, phi, applies)}
+    _library(f"K1 {label} p", out["K1"], _k1_csr(level), phi,
+             cs.poisson_apply_separable(phi, level), applies)
     A = cs.make_cuda_momentum(mesh, bcs, solver.dt, 0.5 * solver.nu,
                               dtype=torch.float32, device=cuda)
     for c, comp in enumerate("uvw"):
-        rec = _hold_k2(f"K2a {label} {comp}", randn(mesh.shape(c)),
-                       A.vecs[comp], A.periodic, None, 1e-6, applies)
+        f = randn(mesh.shape(c))
+        rec = _hold_k2(f"K2a {label} {comp}", f, A.vecs[comp], A.periodic,
+                       None, 1e-6, applies)
+        if comp == "u":
+            _library(f"K2a {label} u", rec,
+                     _k2_csr(tuple(f.shape), A.vecs[comp], A.periodic), f,
+                     cs.zblocked_helmholtz_apply(f, A.vecs[comp],
+                                                 A.periodic), applies)
         out.setdefault("K2a", rec)
     out["K3"] = _hold_k3("K3 refined sphere", mesh, bcs,
                          {k: randn(mesh.shape(c))
@@ -2116,9 +2565,12 @@ def main() -> int:
         done(11)
         counts_windowed = phase12_windowed(tmp)
         done(12)
+        counts_fft_bf16 = phase13_fft_bf16(tmp, tgv, mg_solvers)
+        done(13)
     # each main path's launches, counted from 0 just before it ran
     runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
-            + counts_coupled + counts_moving + counts_windowed)
+            + counts_coupled + counts_moving + counts_windowed
+            + counts_fft_bf16)
     launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
     stencil = "petibm_tpu/operators/pallas_stencil.py:"

@@ -92,13 +92,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: the C entry points' suffix of each dtype; bfloat16 has entries in the
+#: multigrid kernels K1, K4/K5 and K6/K7 (the mixed-precision V-cycle)
+TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+               torch.bfloat16: "bf16"}
 
 
 def c_function(kernel: str, entry: str, dtype: torch.dtype, argtypes: list):
-    """The C entry point ``<entry>_<f32|f64>`` of ``csrc/<kernel>.cu`` with
-    its ctypes signature set (pointers and the stream as c_void_p, so none
-    is cut to 32 bits)."""
+    """The C entry point ``<entry>_<f32|f64|bf16>`` of ``csrc/<kernel>.cu``
+    with its ctypes signature set (pointers and the stream as c_void_p, so
+    none is cut to 32 bits)."""
     fn = getattr(library(kernel), f"{entry}_{TYPE_SUFFIX[dtype]}")
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.restype = ctypes.c_int
@@ -131,6 +134,12 @@ def check_vectors(name: str, like: torch.Tensor, vecs) -> None:
                              "tensors")
 
 
-def check_dtype(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in TYPE_SUFFIX:
-        raise TypeError(f"{name} takes float32 or float64, got {t.dtype}")
+def check_dtype(name: str, t: torch.Tensor, bf16: bool = False) -> None:
+    """Raise unless ``t`` is float32 or float64, or bfloat16 where the
+    kernel has bfloat16 instances (``bf16``)."""
+    if t.dtype in (torch.float32, torch.float64):
+        return
+    if bf16 and t.dtype == torch.bfloat16:
+        return
+    raise TypeError(f"{name} takes float32 or float64"
+                    f"{' or bfloat16' if bf16 else ''}, got {t.dtype}")

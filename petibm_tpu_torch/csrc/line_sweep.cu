@@ -77,6 +77,15 @@
 //   values' right sides while loading.  Its 1024-thread blocks hold it to
 //   64 registers a thread.  The flagship's 450- and 225-row levels take it.
 //
+// bfloat16 (the low-precision hierarchy of mg: {dtype: bfloat16}): the
+// same kernels with T = bf16 (bf16.cuh), every operation of the twin done
+// in float32 and rounded to bfloat16, as PyTorch does on the twin's
+// bfloat16 tensors; omega is taken in float32 (opmath_t), as PyTorch takes
+// a Python float.  The passes divide with `/` (the float32 quotient of two
+// bfloat16 values, rounded once to bfloat16).  Two-byte values move half
+// the bytes; the warp_tiles staging copies them with plain loads and
+// stores (cp.async takes 4 bytes or more).
+//
 // Measured on an H100 80GB HBM3 at 700 W, median device time a sweep
 // (chip_smoke.py phase 2; the variants by scripts/bench_torch_sweep.py):
 // the sphere's finest level in float32 takes 79.49 us on axis 2
@@ -142,7 +151,7 @@ template <typename T, int R>
 __global__ void __launch_bounds__(32 * kRowsWarps)
     sweep_warp_rows(const T* __restrict__ phi, const T* __restrict__ rhs,
                     T* __restrict__ out, Factors<T> f, int n0, int n1, int n,
-                    int steps, T omega) {
+                    int steps, opmath_t<T> omega) {
   const int lane = threadIdx.x & 31;
   const int line = blockIdx.x * kRowsWarps + (threadIdx.x >> 5);
   if (line >= n0 * n1) return;  // the whole warp: no barrier follows
@@ -214,7 +223,7 @@ __global__ void __launch_bounds__(32 * W)
     sweep_warp_tiles(const T* __restrict__ phi, const T* __restrict__ rhs,
                      T* __restrict__ out, Factors<T> f, int n, int steps,
                      int n2, int tiles, int outer, int s_outer, int s_line,
-                     int e_out, T omega) {
+                     int e_out, opmath_t<T> omega) {
   constexpr int P = W + 1;  // padded row of the rhs and neighbour tiles
   constexpr int Q = W + 3;  // padded row of the phi tile with its halo
   extern __shared__ __align__(16) unsigned char smem[];
@@ -317,7 +326,8 @@ __global__ void __launch_bounds__(32 * W)
 template <typename T>
 __global__ void __launch_bounds__(pcr::kMaxThreads)
     sweep_block(const T* __restrict__ phi, const T* __restrict__ rhs,
-                T* __restrict__ out, Factors<T> f, pcr::Lines g, T omega) {
+                T* __restrict__ out, Factors<T> f, pcr::Lines g,
+                opmath_t<T> omega) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int m = g.n * g.lt;
   T* sa = reinterpret_cast<T*>(smem);
@@ -376,7 +386,7 @@ __global__ void __launch_bounds__(pcr::kMaxThreads)
 
 template <typename T>
 int launch_block(const T* phi, const T* rhs, T* out, const Factors<T>& f,
-                 const pcr::Lines& g, int lines, T omega,
+                 const pcr::Lines& g, int lines, opmath_t<T> omega,
                  cudaStream_t stream) {
   if (lines != g.lt) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
@@ -393,7 +403,8 @@ int launch_block(const T* phi, const T* rhs, T* out, const Factors<T>& f,
 
 template <typename T, int R, int W>
 int launch_tiles(const T* phi, const T* rhs, T* out, const Factors<T>& f,
-                 const pcr::Lines& g, T omega, cudaStream_t stream) {
+                 const pcr::Lines& g, opmath_t<T> omega,
+                 cudaStream_t stream) {
   static bool allowed = false;
   if (!allowed) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -418,7 +429,7 @@ int launch_tiles(const T* phi, const T* rhs, T* out, const Factors<T>& f,
 
 template <typename T, int R>
 int launch_warp(const T* phi, const T* rhs, T* out, const Factors<T>& f,
-                const pcr::Lines& g, int path, int lines, T omega,
+                const pcr::Lines& g, int path, int lines, opmath_t<T> omega,
                 cudaStream_t stream) {
   if (path == kWarpRows) {
     if (lines != kRowsWarps) return (int)cudaErrorInvalidValue;
@@ -457,7 +468,7 @@ int launch(const T* phi, const T* rhs, T* out, const T* const* vec,
         (f.c_lo[e] == nullptr || f.c_hi_e[e] == nullptr || f.inv_w[e] == nullptr))
       return (int)cudaErrorInvalidValue;
   }
-  const T w = (T)omega;
+  const opmath_t<T> w = static_cast<opmath_t<T>>(omega);
   if (path == kBlock) return launch_block<T>(phi, rhs, out, f, g, lines, w, stream);
   const bool fits = g.n <= 32 * rows && rows <= kMaxRows &&
                     n0 * n1 * n2 < (1LL << 31) &&
@@ -489,6 +500,17 @@ extern "C" int line_sweep_f32(const float* phi, const float* rhs, float* out,
                               void* stream) {
   return launch<float>(phi, rhs, out, vec, n0, n1, n2, axis, omega, path,
                        rows, lines, (cudaStream_t)stream);
+}
+
+extern "C" int line_sweep_bf16(const unsigned short* phi,
+                               const unsigned short* rhs, unsigned short* out,
+                               const unsigned short* const* vec, long long n0,
+                               long long n1, long long n2, int axis,
+                               double omega, int path, int rows, int lines,
+                               void* stream) {
+  return launch<bf16>(as_bf16(phi), as_bf16(rhs), as_bf16(out), as_bf16(vec),
+                      n0, n1, n2, axis, omega, path, rows, lines,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int line_sweep_f64(const double* phi, const double* rhs,

@@ -7,7 +7,8 @@
 //   loads f[k+2] while it computes plane k (kAhead planes ahead), so every
 //   value of f is loaded once a block, plus a z halo of one plane each end
 //   of the chunk: (kz + 2) / kz.  With VX = 2 a row's two values come in
-//   one 8-byte (float) or 16-byte (double) load and leave in one store.
+//   one 8-byte (float), 16-byte (double) or 4-byte (bf16, bf16.cuh) load
+//   and leave in one store.
 // - The x and y neighbours come from the current plane's tile in shared
 //   memory, with a one-cell halo on each side, double buffered: one block
 //   barrier a plane.  The halo (2 TX + 2 TY cells) is loaded by the first
@@ -38,10 +39,18 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace {
 
 // planes of f a thread loads ahead of the plane it computes
 constexpr int kAhead = 1;
+
+// Two two-byte values (bf16) as one 4-byte load or store.
+template <typename T>
+struct __align__(4) Pair2 {
+  T x, y;
+};
 
 // VX consecutive values of f at p as one load (VX * sizeof(T) bytes,
 // aligned), or one value.
@@ -50,6 +59,9 @@ __device__ __forceinline__ void load_x(const T* p, T (&v)[VX]) {
   static_assert(VX == 1 || VX == 2, "one value or a pair");
   if constexpr (VX == 1) {
     v[0] = *p;
+  } else if constexpr (sizeof(T) == 2) {
+    const Pair2<T> t = *reinterpret_cast<const Pair2<T>*>(p);
+    v[0] = t.x; v[1] = t.y;
   } else if constexpr (sizeof(T) == 4) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x; v[1] = t.y;
@@ -63,6 +75,8 @@ template <typename T, int VX>
 __device__ __forceinline__ void store_x(T* p, const T (&v)[VX]) {
   if constexpr (VX == 1) {
     *p = v[0];
+  } else if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<Pair2<T>*>(p) = Pair2<T>{v[0], v[1]};
   } else if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {

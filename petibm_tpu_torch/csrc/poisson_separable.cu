@@ -37,6 +37,12 @@
 // poisson_apply_separable_cells_*; only chip_smoke.py and
 // scripts/bench_torch_stencil.py call it, to time it beside the march.
 //
+// bfloat16 (the level-0 residual of the mixed-precision V-cycle, mg:
+// {dtype: bfloat16}): the same kernels with T = bf16 (bf16.cuh), each
+// product and sum done in float32 and rounded to bfloat16 in the twin's
+// order, as PyTorch does on the twin's bfloat16 tensors; the march moves
+// two values a thread as one 4-byte load and store.
+//
 // Measured on an H100 80GB HBM3 at 700 W, median device time an apply
 // (chip_smoke.py phase 2): see PERF.md section 6, K1 row.
 
@@ -105,8 +111,8 @@ struct SeparableBody {
   using Z = Axis;
 
   static __device__ __forceinline__ Axis at(const T* c, const T* w, int n) {
-    const T lo = __ldg(c + n), hi = __ldg(c + n + 1);
-    return {lo, hi, lo + hi, __ldg(w + n)};
+    const T lo = ldg(c + n), hi = ldg(c + n + 1);
+    return {lo, hi, lo + hi, ldg(w + n)};
   }
   static __device__ __forceinline__ X x_at(const Params& p, int i) {
     return at(p.cx, p.wx, i);
@@ -197,6 +203,17 @@ extern "C" int poisson_apply_separable_f64(
                         ty, ry, vx, kz, (cudaStream_t)stream);
 }
 
+extern "C" int poisson_apply_separable_bf16(
+    const unsigned short* phi, unsigned short* out, const unsigned short* cx,
+    const unsigned short* wx, const unsigned short* cy,
+    const unsigned short* wy, const unsigned short* cz,
+    const unsigned short* wz, long long nz, long long ny, long long nx,
+    int dim, int tx, int ty, int ry, int vx, int kz, void* stream) {
+  return launch<bf16>(as_bf16(phi), as_bf16(out), as_bf16(cx), as_bf16(wx),
+                      as_bf16(cy), as_bf16(wy), as_bf16(cz), as_bf16(wz), nz,
+                      ny, nx, dim, tx, ty, ry, vx, kz, (cudaStream_t)stream);
+}
+
 extern "C" int poisson_apply_separable_resident_f32(int tx, int ty, int ry,
                                                     int vx, int* slots) {
   return resident<float, SeparableBody<float>>(tx, ty, ry, vx, slots);
@@ -205,6 +222,11 @@ extern "C" int poisson_apply_separable_resident_f32(int tx, int ty, int ry,
 extern "C" int poisson_apply_separable_resident_f64(int tx, int ty, int ry,
                                                     int vx, int* slots) {
   return resident<double, SeparableBody<double>>(tx, ty, ry, vx, slots);
+}
+
+extern "C" int poisson_apply_separable_resident_bf16(int tx, int ty, int ry,
+                                                     int vx, int* slots) {
+  return resident<bf16, SeparableBody<bf16>>(tx, ty, ry, vx, slots);
 }
 
 // One thread per cell in 2D or 3D (the first 3D design): the arguments of

@@ -52,6 +52,12 @@
 //   plan takes these paths only for arrays of fewer than 2^31 values).
 // - Block path, lines of 257 to pcr::kMaxLine = 4096 rows: a block holds
 //   whole lines in shared memory and runs the passes there (pcr.cuh).
+//
+// bfloat16 (the low-precision hierarchy of mg: {dtype: bfloat16}, whose
+// periodic levels are the TGV's): the same kernels with T = bf16
+// (bf16.cuh), every operation of the twin done in float32 and rounded to
+// bfloat16, as PyTorch does on the twin's bfloat16 tensors; the staging
+// copies two-byte values with plain loads and stores.
 
 #include "pcr.cuh"
 #include "pcr_warp.cuh"
@@ -311,6 +317,18 @@ extern "C" int tridiag_pcr_f32(const float* a, const float* b, const float* c,
                                int rows, int lines, void* stream) {
   return launch<float>(a, b, c, d, x, n0, n1, n2, axis, path, rows, lines,
                        (cudaStream_t)stream);
+}
+
+extern "C" int tridiag_pcr_bf16(const unsigned short* a,
+                                const unsigned short* b,
+                                const unsigned short* c,
+                                const unsigned short* d, unsigned short* x,
+                                long long n0, long long n1, long long n2,
+                                int axis, int path, int rows, int lines,
+                                void* stream) {
+  return launch<bf16>(as_bf16(a), as_bf16(b), as_bf16(c), as_bf16(d),
+                      as_bf16(x), n0, n1, n2, axis, path, rows, lines,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int tridiag_pcr_f64(const double* a, const double* b,

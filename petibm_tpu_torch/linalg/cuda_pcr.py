@@ -137,7 +137,7 @@ def pcr(a, b, c, d, axis: int):
         if t.shape != a.shape or t.dtype != a.dtype or t.device != a.device:
             raise ValueError("K6/K7 takes a, b, c, d of one shape, dtype "
                              "and device")
-    check_dtype("K6/K7", a)
+    check_dtype("K6/K7", a, bf16=True)
     axis3 = check_lines("K6/K7", a.shape, axis)
     if a.device.type == "cpu":
         return pcr_ref(a, b, c, d, axis)

@@ -36,8 +36,6 @@ from .._kernels import (c_function, check_dtype, check_launchable, ptr,
 from .cuda_pcr import MAX_LINE, PATHS, Plan, block_plan, check_lines, pcr_ref
 from .tridiag import shift
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
-
 #: rows a lane holds on the register paths (the kernel's instances), and
 #: the longest line those paths take (``kMaxRows``).  R = 5 and 3 fill the
 #: sphere's 160/130- and 80/65-row lines.  Longer lines take the block
@@ -80,10 +78,14 @@ def launch_plan(shape, axis: int) -> Plan:
                 if size // n >= WIDE_TILES else TILE_LINES)
 
 
-def sweep_aux(level, d: int, dtype) -> list:
+def sweep_aux(level, d: int, dtype: torch.dtype) -> list:
     """The sweep's small broadcast-shaped operands for direction ``d`` of
-    a non-periodic ``Level``, as host numpy arrays of ``dtype`` (computed
-    in float64, cast at the end; a copy of pallas_sweep.py:65-115):
+    a non-periodic ``Level``, as contiguous CPU tensors of ``dtype``
+    (float32, float64 or bfloat16): computed in host float64 from the
+    level's factors read as float64, and cast by torch at the end, which
+    rounds float64 to bfloat16 through float32 as ml_dtypes does (a copy
+    of pallas_sweep.py:65-115, whose numpy cast has bfloat16 from
+    ml_dtypes; numpy alone has none):
 
     ``[a_lo, c_hi, diag_line, w_line, inv_area, s_batch]`` and, for each
     other direction e in ascending order (descending array axes),
@@ -101,7 +103,7 @@ def sweep_aux(level, d: int, dtype) -> list:
 
     def host(vec):
         if isinstance(vec, torch.Tensor):
-            vec = vec.detach().cpu().numpy()
+            vec = vec.detach().cpu().to(torch.float64).numpy()
         return np.asarray(vec, np.float64)
 
     def bcast(vec, direction):
@@ -129,8 +131,7 @@ def sweep_aux(level, d: int, dtype) -> list:
         a_e = bcast((c_e[:-1] + c_e[1:]) / w_e, e)
         s_batch = a_e if s_batch is None else s_batch + a_e
         extras += [bcast(c_e[:-1], e), bcast(c_e[1:], e), inv_w]
-    npdt = np.dtype(_NP_DTYPES.get(dtype, dtype))
-    return [np.ascontiguousarray(a.astype(npdt)) for a in
+    return [torch.as_tensor(np.ascontiguousarray(a)).to(dtype) for a in
             [a_lo, c_hi, diag_line, w_line, inv_area, s_batch] + extras]
 
 
@@ -143,7 +144,10 @@ def _other_axes(ndim: int, line_axis: int) -> tuple:
 def fused_sweep_ref(phi, rhs, aux, line_axis: int, omega: float):
     """Plain twin of K4/K5: the algebra of the Pallas kernel body
     (``_make_sweep_kernel``, pallas_sweep.py:118-145) in its order of
-    operations; ``aux`` is :func:`sweep_aux` as tensors on phi's device."""
+    operations; ``aux`` is :func:`sweep_aux` as tensors on phi's device.
+    On bfloat16 tensors each operation rounds to bfloat16, omega entering
+    as a float32 scalar (the Pallas kernel rounds a weakly typed omega to
+    bfloat16 first: the same for the solvers' omega = 1)."""
     ndim = phi.ndim
     line_axis %= ndim
     a_lo, c_hi, diag_line, w_line, inv_area, s_batch = aux[:6]
@@ -166,7 +170,7 @@ def _check_sweep(phi, rhs, aux, line_axis: int) -> int:
             or rhs.device != phi.device:
         raise ValueError("K4/K5 takes phi and rhs of one shape, dtype and "
                          "device")
-    check_dtype("K4/K5", phi)
+    check_dtype("K4/K5", phi, bf16=True)
     axis3 = check_lines("K4/K5", phi.shape, line_axis)
     ndim = phi.ndim
     line_axis %= ndim

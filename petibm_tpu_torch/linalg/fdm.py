@@ -1,13 +1,17 @@
-"""Direct fast-diagonalization solvers (dense eigenvector transforms).
+"""Direct fast-diagonalization solvers (eigenvector and FFT transforms).
 
-Counterpart of ``petibm_tpu/linalg/fdm.py`` (fdm.py:218-596) on its dense
-eigh path.  For BN order 1 the pressure operator -D B1 G, and the BC-folded
+Counterpart of ``petibm_tpu/linalg/fdm.py`` (fdm.py:203-596), single
+device.  For BN order 1 the pressure operator -D B1 G, and the BC-folded
 momentum Helmholtz operator I/dt - c_imp*nu*L of each velocity component,
 are exact Kronecker sums of 1D operators T_d.  At setup each direction's
 generalized symmetric eigenproblem is solved in host numpy float64; a
-solve is then a dense transform per direction (``torch.matmul`` in the
-working dtype, full float32 on the card: TF32 stays off), a pointwise
-divide by the eigenvalue sum, and the back-transform.
+solve is then a transform per direction, a pointwise divide by the
+eigenvalue sum, and the back-transform.  A direction's transform is a
+dense product (``torch.matmul`` in the working dtype, full float32 on the
+card: TF32 stays off), or, with ``use_fft`` on a periodic uniformly spaced
+direction, whose eigenbasis is the Fourier basis, ``torch.fft.rfftn`` /
+``irfftn`` with the analytic symbol (JAX ``fdm.py:259-378``; cuFFT on the
+card, where JAX has XLA's FFT: no Pallas kernel on either side).
 
 ``make_fdm_solver`` wraps a direct solve in KSP stopping semantics: a
 warm-started direct pass, then refinement passes judged on the recurrence
@@ -19,8 +23,9 @@ reference's GPU backend (row and column 0 of the pressure block the
 identity): its operator, and its exact inverse from a projected solve
 (the FDM pressure solve, or the coupled IBPM's Schur solve).
 
-Not ported yet: the FFT path for periodic uniform axes (ROADMAP item 14)
-and the sharded transform core (ROADMAP item 19).
+Not ported yet: the sharded transform core (ROADMAP item 19), and the
+``precision`` knobs of the transforms (full precision of the working
+dtype here).
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ from .mg import face_coefficients
 
 
 def _apply_per_axis(mats: list, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Apply mats[d] along direction d's array axis (dim-1-d)."""
+    """Apply mats[d] along direction d's array axis (dim-1-d); ``mats[d]``
+    None skips direction d (its transform is an FFT)."""
     for d in range(dim):
         axis = dim - 1 - d
         m = mats[d]
+        if m is None:
+            continue
         if axis == x.ndim - 1:
             x = torch.matmul(x, m.T)
         elif axis == x.ndim - 2:
@@ -73,16 +81,51 @@ def line_operator(widths: np.ndarray, periodic: bool, scale: float) -> np.ndarra
     return T
 
 
-def _lam_sum(lams: list, dim: int) -> np.ndarray:
+def _uniform_width(widths: np.ndarray, rtol: float = 1e-9) -> float | None:
+    """The common cell width when the axis is uniformly spaced, else None
+    (a copy of JAX ``fdm.py:203-207``)."""
+    w = np.asarray(widths, np.float64)
+    h = float(w.mean())
+    return h if np.allclose(w, h, rtol=rtol, atol=0.0) else None
+
+
+def _fft_symbol(n: int, h: float, scale: float) -> np.ndarray:
+    """Generalized eigenvalues of the periodic uniform 1D FV Poisson factor
+    (circulant T with faces scale/h, weight W = h I) in DFT-frequency
+    order: lambda_k = 2*scale*(1 - cos(2 pi k / n)) / h^2 (a copy of JAX
+    ``fdm.py:210-216``)."""
+    k = np.arange(n)
+    return 2.0 * scale * (1.0 - np.cos(2.0 * np.pi * k / n)) / (h * h)
+
+
+def _lam_sum(lams: list, dim: int, fft_axes: tuple = ()) -> np.ndarray:
     """Kronecker sum of per-direction eigenvalues over the (z, y[, x])
-    grid."""
-    shape = [len(lams[dim - 1 - ax]) for ax in range(dim)]
-    out = np.zeros(tuple(shape))
-    for d, lam in enumerate(lams):
+    grid, summed in array-axis order as the JAX package sums it; the
+    real-to-complex rfft halves the last of ``fft_axes`` to n//2+1."""
+    lams_ax = [np.asarray(lams[dim - 1 - ax]) for ax in range(dim)]
+    if fft_axes:
+        rax = fft_axes[-1]
+        lams_ax[rax] = lams_ax[rax][:len(lams_ax[rax]) // 2 + 1]
+    out = np.zeros(tuple(len(lam) for lam in lams_ax))
+    for ax, lam in enumerate(lams_ax):
         bshape = [1] * dim
-        bshape[dim - 1 - d] = len(lam)
-        out = out + np.asarray(lam).reshape(bshape)
+        bshape[ax] = len(lam)
+        out = out + lam.reshape(bshape)
     return out
+
+
+def _fft_solve(b, fwd: list, inv: list, inv_lam, dim: int,
+               fft_axes: tuple, fft_sizes: tuple, dtype):
+    """One fast-diagonalization solve: the dense transforms first, the
+    FFTs innermost (the reverse order on the way back keeps the dense
+    products real), the divide, and the way back in ``dtype``."""
+    bhat = _apply_per_axis(fwd, b, dim)
+    if fft_axes:
+        bhat = torch.fft.rfftn(bhat, dim=fft_axes)
+    xhat = bhat * inv_lam
+    if fft_axes:
+        xhat = torch.fft.irfftn(xhat, s=fft_sizes, dim=fft_axes).to(dtype)
+    return _apply_per_axis(inv, xhat, dim)
 
 
 class FastDiagPoisson:
@@ -90,14 +133,28 @@ class FastDiagPoisson:
     Poisson operator -D B1 G; the all-Neumann constant mode is zeroed."""
 
     def __init__(self, dxp: list, periodic: list, *, dtype: torch.dtype,
-                 device, scale: float = 1.0, null_rtol: float = 1e-12):
+                 device, scale: float = 1.0, null_rtol: float = 1e-12,
+                 use_fft: bool = True):
         """``dxp``: pressure cell widths per direction (x, y[, z]);
-        ``scale``: the dt factor of B1."""
+        ``scale``: the dt factor of B1; ``use_fft``: periodic uniformly
+        spaced directions transform by rfft/irfft with the analytic
+        symbol, the others by their dense eigenvectors (JAX's default)."""
         self.dim = len(dxp)
         self.dtype = dtype
         qs, qts, lams = [], [], []
+        fft_axes, fft_scale = [], 1.0
         for d in range(self.dim):
             w = np.asarray(dxp[d], np.float64)
+            h = _uniform_width(w) if (use_fft and periodic[d]) else None
+            if h is not None:
+                qs.append(None)
+                qts.append(None)
+                lams.append(_fft_symbol(len(w), h, scale))
+                fft_axes.append(self.dim - 1 - d)
+                # Q_d = F/sqrt(h): the unnormalized fft/ifft pair absorbs
+                # F F^H = I but not the two 1/sqrt(h) weights
+                fft_scale /= h
+                continue
             T = line_operator(w, periodic[d], scale)
             # T q = lam W q via S = W^-1/2 T W^-1/2, Q = W^-1/2 V
             s = 1.0 / np.sqrt(w)
@@ -106,11 +163,14 @@ class FastDiagPoisson:
             qs.append(torch.as_tensor(Q, dtype=dtype, device=device))
             qts.append(torch.as_tensor(Q.T.copy(), dtype=dtype, device=device))
             lams.append(np.maximum(lam, 0.0))
-        lam_sum = _lam_sum(lams, self.dim)
+        self._fft_axes = tuple(sorted(fft_axes))
+        self._fft_sizes = tuple(len(dxp[self.dim - 1 - ax])
+                                for ax in self._fft_axes)
+        lam_sum = _lam_sum(lams, self.dim, self._fft_axes)
         cutoff = null_rtol * lam_sum.max()
         self.inv_lam = torch.as_tensor(
             np.where(lam_sum > cutoff,
-                     1.0 / np.where(lam_sum > 0, lam_sum, 1.0), 0.0),
+                     fft_scale / np.where(lam_sum > 0, lam_sum, 1.0), 0.0),
             dtype=dtype, device=device)
         self._Q = qs
         self._Qt = qts
@@ -121,8 +181,8 @@ class FastDiagPoisson:
         stretched grids."""
         b = b.to(self.dtype)
         b = b - torch.mean(b)
-        bhat = _apply_per_axis(self._Qt, b, self.dim)
-        return _apply_per_axis(self._Q, bhat * self.inv_lam, self.dim)
+        return _fft_solve(b, self._Qt, self._Q, self.inv_lam, self.dim,
+                          self._fft_axes, self._fft_sizes, self.dtype)
 
 
 class FastDiagHelmholtz:
@@ -133,18 +193,34 @@ class FastDiagHelmholtz:
     Q_d^-1 = V_d^T W^1/2 (forward and backward transforms differ)."""
 
     def __init__(self, lines1d: list, dt: float, cnu: float, *,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device, use_fft: bool = True):
         """``lines1d``: per direction a dict with ``dl``, ``dneg``, ``dpos``
         (n,), ``a0`` ((lo, hi) or None when periodic) and ``periodic``;
-        ``cnu`` = c_implicit * nu."""
+        ``cnu`` = c_implicit * nu; ``use_fft``: periodic uniform directions
+        (dl = dneg = dpos = h) have Q = F and Q^-1 = F^H, so rfft/irfft
+        with the symbol -(2 - 2 cos(2 pi k / n))/h^2 replace their dense
+        transforms (JAX ``fdm.py:402-489``)."""
         self.dim = len(lines1d)
         self.dtype = dtype
         qs, qinvs, lams = [], [], []
-        for ln in lines1d:
+        fft_axes = []
+        for d, ln in enumerate(lines1d):
             dl = np.asarray(ln["dl"], np.float64)
-            cn = 1.0 / (np.asarray(ln["dneg"], np.float64) * dl)
-            cp = 1.0 / (np.asarray(ln["dpos"], np.float64) * dl)
+            dneg = np.asarray(ln["dneg"], np.float64)
+            dpos = np.asarray(ln["dpos"], np.float64)
             n = len(dl)
+            if use_fft and ln["periodic"]:
+                h = _uniform_width(dl)
+                if (h is not None
+                        and np.allclose(dneg, h, rtol=1e-9, atol=0.0)
+                        and np.allclose(dpos, h, rtol=1e-9, atol=0.0)):
+                    qs.append(None)
+                    qinvs.append(None)
+                    lams.append(-_fft_symbol(n, h, 1.0))
+                    fft_axes.append(self.dim - 1 - d)
+                    continue
+            cn = 1.0 / (dneg * dl)
+            cp = 1.0 / (dpos * dl)
             T = np.zeros((n, n))
             idx = np.arange(n)
             T[idx, idx] = -(cn + cp)
@@ -169,15 +245,20 @@ class FastDiagHelmholtz:
             qinvs.append(torch.as_tensor((V * s[:, None]).T.copy(),
                                          dtype=dtype, device=device))
             lams.append(lam)
-        denom = 1.0 / dt - cnu * _lam_sum(lams, self.dim)
+        self._fft_axes = tuple(sorted(fft_axes))
+        self._fft_sizes = tuple(len(lines1d[self.dim - 1 - ax]["dl"])
+                                for ax in self._fft_axes)
+        # lam <= 0, so denom >= 1/dt > 0
+        denom = 1.0 / dt - cnu * _lam_sum(lams, self.dim, self._fft_axes)
         self.inv_lam = torch.as_tensor(1.0 / denom, dtype=dtype,
                                        device=device)
         self._Q = qs
         self._Qinv = qinvs
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        bhat = _apply_per_axis(self._Qinv, b.to(self.dtype), self.dim)
-        return _apply_per_axis(self._Q, bhat * self.inv_lam, self.dim)
+        return _fft_solve(b.to(self.dtype), self._Qinv, self._Q,
+                          self.inv_lam, self.dim, self._fft_axes,
+                          self._fft_sizes, self.dtype)
 
 
 def helmholtz_lines(mesh, bcset, c: int) -> list:

@@ -232,7 +232,7 @@ class PoissonMG:
         key = (lvl, d)
         if key not in self._sweep_aux_cache:
             self._sweep_aux_cache[key] = [
-                torch.as_tensor(a, device=self.device)
+                a.to(self.device)
                 for a in sweep_aux(self.levels[lvl], d, self.dtype)]
         return self._sweep_aux_cache[key]
 

@@ -206,7 +206,7 @@ def _check_k1(phi: torch.Tensor, level: Level) -> None:
                          f"{tuple(level.shape)}")
     if any(level.periodic):
         raise ValueError("K1 applies non-periodic grids only")
-    check_dtype("K1", phi)
+    check_dtype("K1", phi, bf16=True)
     check_vectors("K1", phi, (*level.c1d, *level.w1d))
 
 

@@ -119,7 +119,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             # compatibility shift and a gauge fix (PinnedSolve); it builds
             # the FDM solve even under fdm: false, since the outer CG on
             # the pinned system stalls (the 450^2 case diverged at 20000
-            # iterations in the JAX package)
+            # iterations in the JAX package), with the FFT default on
+            # periodic uniform axes (JAX ibpm.py:115)
             self.poisson_fdm = FastDiagPoisson(
                 self.mesh.dxp, self.mesh.periodic, dtype=self.dtype,
                 device=self.device, scale=self.dt)

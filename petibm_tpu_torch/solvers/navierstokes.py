@@ -19,10 +19,15 @@ with the JAX package's keys (``q``, ``p``, ``bc``, ``conv``, ``diff``,
      whose smoother sweeps are the CUDA kernels K4/K5 and K6/K7
      (``linalg/mg.py``), or from another Krylov solve; for BN order 1 its
      operator is the CUDA kernel K1 on non-periodic grids and K2b on 3D
-     grids with a periodic axis (``operators/cuda_stencil.py``).  The
+     grids with a periodic axis (``operators/cuda_stencil.py``).  With
+     ``mg: {dtype: bfloat16}`` the V-cycle runs on a bfloat16 hierarchy
+     (the bfloat16 instances of K4-K7, and of K1 at its level-0
+     residual) while CG stays in the solver's dtype.  The FDM solves
+     transform periodic uniform axes by FFT under ``fdm.fft: true``.  The
      pinned pressure solves its operator (row and column 0 the identity)
-     through ``linalg/fdm.py``'s ``PinnedSolve``, or by MG-CG under
-     ``fdm: false``; its operator stays the stencil closure
+     through ``linalg/fdm.py``'s ``PinnedSolve`` (FFT on periodic uniform
+     axes, as in the JAX package), or by MG-CG under ``fdm: false``; its
+     operator stays the stencil closure
   5. u = u* - B_N G dP (dP's mean removed unless pinned), p += dP; ghost
      refresh
 
@@ -47,8 +52,10 @@ The step is the reference's log stages chained (``_profile_phases``), so
 the stage profiler, ``profile_stages`` (``utils/profiling.py``; JAX
 ``navierstokes.py:667-718``), times the production step's own code.
 
-Configurations this port does not cover raise ``NotImplementedError``
-naming the ROADMAP item; nothing is substituted silently.
+Configurations this port does not cover raise ``NotImplementedError``:
+sharding (naming ROADMAP item 19) and an ``mg.dtype`` that the V-cycle's
+kernels have no instances of; nothing is substituted silently.
+``stepsPerDispatch`` is accepted and not read.
 """
 
 from __future__ import annotations
@@ -84,6 +91,9 @@ from ..utils.timers import StageTimers
 VEL_NAMES = ("u", "v", "w")
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+#: the V-cycle's dtypes (``mg.dtype``): the solver's, or bfloat16, the
+#: mixed-precision V-cycle
+_MG_DTYPES = dict(_DTYPES, bfloat16=torch.bfloat16)
 
 
 def _not_ported(what: str, item: str):
@@ -95,13 +105,11 @@ def check_supported(config: dict) -> None:
     params = config.get("parameters", {})
     if params.get("sharding") or params.get("distributed"):
         raise _not_ported("sharding", "ROADMAP item 19")
-    fdm_cfg = fdm_config(params)
-    if bool(fdm_cfg.get("fft", False)):
-        raise _not_ported("fdm.fft: true", "ROADMAP item 14")
     mg_dtype = (params.get("mg") or {}).get("dtype")
-    if mg_dtype and str(mg_dtype) != (params.get("dtype") or "float32"):
-        raise _not_ported(f"mg.dtype {mg_dtype} (a V-cycle in another "
-                          "precision than the solve)", "ROADMAP item 15b")
+    if mg_dtype and str(mg_dtype) not in _MG_DTYPES:
+        raise NotImplementedError(
+            f"mg.dtype {mg_dtype}: the V-cycle's kernels have float32, "
+            "float64 and bfloat16 instances")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -253,9 +261,8 @@ class NavierStokesSolver:
 
     def _create_solvers(self, config: dict) -> None:
         """The momentum solve, then the pressure solve (the JAX
-        _create_solvers, navierstokes.py:282-457, without the branches
-        check_supported refuses: the sharded and the mixed-precision
-        V-cycles)."""
+        _create_solvers, navierstokes.py:282-457, without the branch
+        check_supported refuses: the sharded solves)."""
         params = config.get("parameters", {})
         vopts = solver_config(config, "velocity")
         fdm_cfg = fdm_config(params)
@@ -270,7 +277,8 @@ class NavierStokesSolver:
             # precision of the working dtype
             helm = {VEL_NAMES[c]: FastDiagHelmholtz(
                 helmholtz_lines(self.mesh, self.bc, c), self.dt, cnu,
-                dtype=self.dtype, device=self.device)
+                dtype=self.dtype, device=self.device,
+                use_fft=bool(fdm_cfg.get("fft", False)))
                 for c in range(self.mesh.dim)}
 
             class _HelmDict:
@@ -318,7 +326,8 @@ class NavierStokesSolver:
             # the pinned system's exact inverse from the projected FDM
             # solve (navierstokes.py:410-441): two transform sets a solve,
             # where MG-CG on the pinned system takes ~80 V-cycles a step
-            # at 450^2; its operator stays the closure (no K1)
+            # at 450^2; its operator stays the closure (no K1).  As in the
+            # JAX package it takes the FFT default, whatever fdm.fft says
             self._poisson_pc_check(popts)
             fdm_pin = FastDiagPoisson(self.mesh.dxp, self.mesh.periodic,
                                       dtype=self.dtype, device=self.device,
@@ -327,7 +336,7 @@ class NavierStokesSolver:
             self.p_solver = make_fdm_solver(PinnedSolve(fdm_pin), negA_p,
                                             popts)
             return
-        M_p = self._make_poisson_pc(popts)
+        M_p = self._M_p = self._make_poisson_pc(popts)
         # for BN order 1, -D B1 G equals the level-0 operator: K1 on
         # non-periodic grids, K2b on 3D grids with a periodic axis; 2D
         # periodic grids keep the closure (navierstokes.py:382-408).  It
@@ -343,6 +352,13 @@ class NavierStokesSolver:
                 self._negA_p = fused
                 if getattr(self, "poisson_mg", None) is not None:
                     self.poisson_mg.set_fused_apply(fused)
+            # the low-precision V-cycle's level-0 residual: K1 in its
+            # dtype on non-periodic grids, and no K2b (JAX :404-408)
+            mg_lp = getattr(self, "poisson_mg_lp", None)
+            if mg_lp is not None:
+                fused_lp = make_cuda_poisson(mg_lp.levels[0])
+                if fused_lp is not None:
+                    mg_lp.set_fused_apply(fused_lp)
         if (getattr(self, "poisson_fdm", None) is not None
                 and self._fdm_mode == "direct"):
             self.p_solver = make_fdm_solver(self.poisson_fdm, self._negA_p,
@@ -380,8 +396,9 @@ class NavierStokesSolver:
         kw = dict(dtype=self.dtype, device=self.device, scale=self.dt)
         if (self.bn_order == 1 and not self.is_ref_p
                 and (pc == "fdm" or bool(fdm_cfg.get("enabled", True)))):
-            self.poisson_fdm = FastDiagPoisson(self.mesh.dxp,
-                                               self.mesh.periodic, **kw)
+            self.poisson_fdm = FastDiagPoisson(
+                self.mesh.dxp, self.mesh.periodic,
+                use_fft=bool(fdm_cfg.get("fft", False)), **kw)
             self.poisson_level = poisson_level0(self.mesh.dxp,
                                                 self.mesh.periodic, **kw)
             self._fdm_mode = str(fdm_cfg.get("mode", "direct"))
@@ -398,15 +415,38 @@ class NavierStokesSolver:
             return M_fdm
         mg = params.get("mg", {}) or {}
         # V(1,1) by default, as in the JAX package
-        self.poisson_mg = PoissonMG(
-            self.mesh.dxp, self.mesh.periodic,
+        knobs = dict(
             kernels=not bool(params.get("disablePallas", False)),
             pre=int(mg.get("pre", 1)), post=int(mg.get("post", 1)),
             omega=float(mg.get("omega", 1.0)),
             coarse_sweeps=int(mg.get("coarseSweeps", 10)),
-            consolidate_below=int(mg.get("consolidateBelow", 4096)), **kw)
+            consolidate_below=int(mg.get("consolidateBelow", 4096)),
+            device=self.device, scale=self.dt)
+        self.poisson_mg = PoissonMG(self.mesh.dxp, self.mesh.periodic,
+                                    dtype=self.dtype, **knobs)
         self.poisson_level = self.poisson_mg.levels[0]
-        return self.poisson_mg.preconditioner(remove_mean=not self.is_ref_p)
+        lp_dtype = _MG_DTYPES.get(str(mg.get("dtype")), self.dtype)
+        if lp_dtype == self.dtype:
+            return self.poisson_mg.preconditioner(
+                remove_mean=not self.is_ref_p)
+        # the mixed-precision V-cycle (navierstokes.py:545-568): the CG
+        # operator and solution stay in the solver's dtype, the V-cycle's
+        # coefficients and smoother arithmetic in the lower precision
+        # (K4-K7 in bfloat16; K1 at its level-0 residual, set in
+        # _create_poisson_solver), which halves the bytes it streams
+        self.poisson_mg_lp = mg_lp = PoissonMG(
+            self.mesh.dxp, self.mesh.periodic, dtype=lp_dtype, **knobs)
+        remove_mean, out_dtype = not self.is_ref_p, self.dtype
+
+        def M_lp(r):
+            # the nullspace means in the solver's dtype: a low-precision
+            # sum over the whole grid would be noise
+            if remove_mean:
+                r = r - torch.mean(r)
+            out = mg_lp.vcycle(0, r.to(lp_dtype)).to(out_dtype)
+            return out - torch.mean(out) if remove_mean else out
+
+        return M_lp
 
     # ------------------------------------------------------------------
     # step building blocks, shared with the IBM subclasses

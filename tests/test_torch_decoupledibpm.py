@@ -184,8 +184,6 @@ def test_d_cli_logs_match(tmp_path, capsys):
 
 
 UNSUPPORTED = {
-    "mg_bf16": ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
-    "fdm_fft": ({"fdm": {"fft": True}}, "ROADMAP item 14"),
     "sharding": ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
 }
 

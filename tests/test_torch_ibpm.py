@@ -351,8 +351,6 @@ def test_cli_logs_match(tmp_path, capsys):
 
 @pytest.mark.parametrize("params,item", [
     ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
-    ({"fdm": {"fft": True}}, "ROADMAP item 14"),
-    ({"mg": {"dtype": "bfloat16"}}, "ROADMAP item 15b"),
 ])
 def test_unsupported_configs_raise(tmp_path, params, item):
     cfg = config(tmp_path, "port")

@@ -14,9 +14,9 @@ plain and decoupled solvers: the port against the JAX package.
   the pinned pressure, 10 steps, to the same tolerances;
 - the periodic 2D Taylor-Green vortex (its example cut to 32^2, 10 steps)
   with the pinned FDM solve and with ``fdm: false`` (the V-cycle's
-  sweeps K6/K7), to the same tolerances: the JAX package's pinned FDM
-  transforms its periodic uniform axes by FFT, the port's are dense
-  (ROADMAP item 14);
+  sweeps K6/K7), to the same tolerances: the pinned FDM solves of both
+  packages transform the periodic uniform axes by FFT (their default,
+  whatever ``fdm.fft`` says), and the port's ``_fft_axes`` are JAX's;
 - the pinned operator and ``PinnedSolve`` on their own: the solve
   inverts the operator, on a tensor and on the ``p`` leaf of a dict.
 """
@@ -107,8 +107,11 @@ def fields(state):
 
 
 def run_jax(cfg, cls, keys):
+    """The JAX run's final state and stats, and the FFT axes of its pinned
+    FDM solve (None without one)."""
     solver = cls(cfg)
     assert solver.is_ref_p
+    pinned = getattr(solver, "_poisson_fdm_pinned", None)
     if getattr(solver, "poisson_mg", None) is not None:
         # the V-cycle as on the JAX package's chip (the Pallas sweep in
         # interpret mode), as test_torch_mgcg.py runs it
@@ -119,7 +122,8 @@ def run_jax(cfg, cls, keys):
         state, s = solver._step_fn(state)
         stats.append(host_stats(s, keys))
     solver.close()
-    return jax.device_get(state), stats
+    return (jax.device_get(state), stats,
+            None if pinned is None else pinned._fft_axes)
 
 
 def run_port(cfg, cls, keys):
@@ -147,7 +151,8 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_pinned_matches_jax(case, dtype, tmp_path, monkeypatch):
     make, jax_cls, port_cls, keys = CASES[case]
-    state, stats = run_jax(make(tmp_path, "jax", dtype), jax_cls, keys)
+    state, stats, fft_axes = run_jax(make(tmp_path, "jax", dtype), jax_cls,
+                                     keys)
     calls = count_calls(monkeypatch)
     port, port_stats = run_port(make(tmp_path, "port", dtype), port_cls,
                                 keys)
@@ -155,7 +160,9 @@ def test_pinned_matches_jax(case, dtype, tmp_path, monkeypatch):
     # K1 stays off the pinned operator and the V-cycle's level 0
     assert calls["poisson_apply_separable"] == 0
     if case.endswith("_fdm"):
-        assert port._poisson_fdm_pinned is not None
+        assert port._poisson_fdm_pinned._fft_axes == fft_axes
+        # the FFT on both periodic uniform axes of the TGV, none elsewhere
+        assert fft_axes == ((0, 1) if case.startswith("tgv2d") else ())
         assert getattr(port, "poisson_mg", None) is None
     else:
         assert port.poisson_mg._fused_apply0 is None
