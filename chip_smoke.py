@@ -8,8 +8,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
-1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``,
-   one nvcc per source, all at once, and print the registers and spills
+1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``
+   (and ``graph_cond.cu``, phase 14's IF nodes), one nvcc per source,
+   all at once, and print the registers and spills
    of the line kernels (K4/K5, K6/K7) and of K1, K2 and K3, instance by
    instance (``ptxas -v``); an instance of a z march (K1's 3D path, K2,
    K3) that spills fails the phase;
@@ -39,7 +40,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 8. run the three cells again with ``fdm: false``, the multigrid-
    preconditioned CG pressure solve (the smoother's sweeps K4/K5 on
    non-periodic levels, K6/K7 on periodic ones): the flagship (20 warm-up
-   and 100 timed steps), the sphere (20 steps) and the 256^3 TGV (10
+   and 50 timed steps), the sphere (20 steps) and the 256^3 TGV (10
    steps, the energy does not grow), each through ``run()`` with every
    launch count checked against the stats and its device busy share
    profiled over a few more steps (device ms per V-cycle beside the
@@ -50,7 +51,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 10. run the coupled IBPM through ``IBPMSolver.run()``:
    ``examples/ibpm/cylinder2dRe550`` and its pinned-pressure twin
    ``cylinder2dRe550_GPU`` (450^2 stretched, 314 points, float32) for
-   1200 steps to t = 3 each, every solve converged, Cd(t) within rms 0.06
+   1200 steps to t = 3 each in chunks of 100 steps (``stepsPerDispatch``,
+   phase 14's path), every solve converged, Cd(t) within rms 0.06
    and max 0.12 of the Koumoutsakos & Leonard (1995) curve over t in
    [0.5, 3], setup seconds (the Schur build) and ms/step printed, one
    JSON line each; Re=550 with ``fdm: false`` (CG on the coupled system,
@@ -99,7 +101,21 @@ Phases, in order (any failure raises and the script exits non-zero):
    reported); (c) in float64, card against CPU: the pinned periodic TGV2D
    at 32^2 (its FDM solve by FFT), a 16^3 TGV with ``fdm.fft: true`` and
    the 32^2 cylinder with the bfloat16 V-cycle (its V-cycle inputs
-   compared).
+   compared);
+14. ``stepsPerDispatch``: seven cells from one start each, their steps in
+   chunks of k (the step one CUDA graph, its loops capped copies of their
+   bodies under CUDA IF nodes, replayed k times, one host read a chunk)
+   beside the same steps one at a time: (a) the flagship, 200 steps, k
+   100; (b) the sphere, 50, 25; (c) the 256^3 TGV, 20, 10; (d) the
+   coupled Re=550, 200, 100; (e) the oscillating cylinder, 200, 100; (f)
+   the flagship with ``fdm: false``, 20, 10; (g) (f) with its CG loop's
+   cap forced to 4, 10, 10: it overflows, reruns and recaptures; (h) the
+   coupled Re=550 with ``fdm: false``, one chunk of 2 for its graph's
+   size.  Each holds fields and stats at tolerance 0 and the launches
+   against the stats, and prints both runs' ms/step, one chunk's device
+   busy share, the graph's nodes, capture and instantiate seconds, the
+   caps, overflows and peak memory, beside the card's name and power
+   limit; one ``{"chunked": ...}`` JSON line.
 
 Phase 2 holds K1 (450^2, the oscillating cylinder's 512^2 and the
 sphere's pressure), K2a and K2b (every
@@ -136,8 +152,10 @@ KL_RE550 = os.path.join(REPO, "examples", "data", "koumoutsakos_leonard_"
 #: the Re=550 bracket of scripts/validate_forces.py:_case_kl_cylinder: the
 #: rms and the largest deviation of Cd(t) from the K&L curve, t in [0.5, 3]
 KL_RMS, KL_MAX = 0.06, 0.12
+#: the hand kernels' sources, and the IF-node helper of the chunked step
+#: (csrc/graph_cond.cu: no TPU kernel's port)
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
-                  "line_sweep", "tridiag_pcr")
+                  "line_sweep", "tridiag_pcr", "graph_cond")
 #: the sources of a z march and the name of its kernel (csrc/march.cuh's
 #: zmarch; K3's own), none of whose instances may spill
 MARCH_SOURCES = {"poisson_separable": "zmarch", "zblocked_helmholtz": "zmarch",
@@ -410,14 +428,19 @@ def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
     return statistics.median(device), statistics.median(host)
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase0_device() -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = _smi()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print(f"matmul TF32: {torch.backends.cuda.matmul.allow_tf32}")
@@ -1003,15 +1026,10 @@ def _block_ab(label: str, launch, plan, block, arg, applies: int) -> None:
 
 
 def _reset_counts() -> None:
-    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
-    from petibm_tpu_torch.operators import cuda_stencil as cs
+    from petibm_tpu_torch import _kernels
 
-    cs.poisson_apply_separable.launches = 0
-    cs.zblocked_helmholtz_apply.launches = 0
-    cs.zblocked_helmholtz_apply.scaled_launches = 0
-    cs.convection3d_apply.launches = 0
-    cuda_sweep.fused_sweep.launches = 0
-    cuda_pcr.pcr.launches = 0
+    _kernels.add_launches({k: -n for k, n in
+                           _kernels.launch_counts().items()})
 
 
 def _counts() -> dict:
@@ -1019,17 +1037,13 @@ def _counts() -> dict:
     K2), K3, K4/K5 and K6/K7."""
     import torch
 
-    from petibm_tpu_torch.linalg import cuda_pcr, cuda_sweep
-    from petibm_tpu_torch.operators import cuda_stencil as cs
+    from petibm_tpu_torch import _kernels
 
     torch.cuda.synchronize()
-    k2 = cs.zblocked_helmholtz_apply
-    return {"K1": cs.poisson_apply_separable.launches,
-            "K2a": k2.launches - k2.scaled_launches,
-            "K2b": k2.scaled_launches,
-            "K3": cs.convection3d_apply.launches,
-            "K4/K5": cuda_sweep.fused_sweep.launches,
-            "K6/K7": cuda_pcr.pcr.launches}
+    n = _kernels.launch_counts()
+    return {"K1": n["K1"], "K2a": n["K2"] - n["K2 scaled"],
+            "K2b": n["K2 scaled"], "K3": n["K3"], "K4/K5": n["K4/K5"],
+            "K6/K7": n["K6/K7"]}
 
 
 def _check_counts(label: str, got: dict, want: dict) -> None:
@@ -1429,7 +1443,7 @@ def _timed_run(solver, warm: int, total: int) -> float:
 
 def phase8_mg(tmp: str) -> tuple:
     """The three cells with ``fdm: false`` through run(): the flagship (20
-    warm-up + 100 timed steps), the sphere (5 + 15), the 256^3 TGV (10 in
+    warm-up + 50 timed steps), the sphere (5 + 15), the 256^3 TGV (10 in
     chunks, the energy read between them); every launch count against the
     stats.  Returns the three solvers and the launches of each run."""
     import numpy as np
@@ -1443,15 +1457,15 @@ def phase8_mg(tmp: str) -> tuple:
     flag = DecoupledIBPMSolver(flagship_config(os.path.join(tmp, "mg_flag"),
                                                fdm=False), device=DEVICE)
     _reset_counts()
-    elapsed = _timed_run(flag, 20, 120)
+    elapsed = _timed_run(flag, 20, 70)
     counts.append(_counts())
-    _check_run(flag.stats_history, 120, "vpf")
+    _check_run(flag.stats_history, 70, "vpf")
     _check_counts("flagship mg", counts[-1], _mg_counts(flag))
     st = flag.state
     _check_fields({"p": st["p"], "f": st["f"]},
                   {"p": flag.mesh.shape(3), "f": (flag.bodies.n_pts, 2)})
     fx, fy = flag.bodies.avg_forces(st["f"].cpu().numpy())[0]
-    _report_mg("flagship mg", flag, elapsed, 100,
+    _report_mg("flagship mg", flag, elapsed, 50,
                f"; t = {flag.t:.4f}: Cd {2 * fx:.5f}, Cl {2 * fy:.5f}")
 
     # the sphere: 3D K4/K5, K1, BiCGStab on K2a, K3
@@ -1566,8 +1580,8 @@ def kl_compare(t, cd) -> dict:
 
 def re550_run(out: str, pinned: bool, warm: int = 100) -> tuple:
     """examples/ibpm/cylinder2dRe550 (``pinned``: _GPU) through
-    ``IBPMSolver.run()``: steps 1 to ``warm``, then on to 1200 (t = 3)
-    timed; every solve converged; Cd(t) from the forces log against K&L.
+    ``IBPMSolver.run()`` in chunks of 100 steps: steps 1 to ``warm``, then
+    on to 1200 (t = 3) timed; every solve converged; Cd(t) from the forces log against K&L.
     Returns (the open solver, its record, the launches of the run)."""
     import numpy as np
     import torch
@@ -1575,7 +1589,8 @@ def re550_run(out: str, pinned: bool, warm: int = 100) -> tuple:
     from petibm_tpu_torch.solvers.ibpm import IBPMSolver
 
     t0 = time.perf_counter()
-    solver = IBPMSolver(re550_config(out, pinned), device=DEVICE)
+    solver = IBPMSolver(re550_config(out, pinned, stepsPerDispatch=100),
+                        device=DEVICE)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     _reset_counts()
@@ -1604,6 +1619,8 @@ def re550_run(out: str, pinned: bool, warm: int = 100) -> tuple:
               "cd_final": float(cd[-1]),
               "setup_s": setup_s,
               "ms_per_step": elapsed / (1200 - warm) * 1e3,
+              "steps_per_dispatch": solver.steps_per_dispatch,
+              "chunk_overflows": solver.chunk_overflows,
               "timed_steps": [warm + 1, 1200],
               "p_iters_mean": statistics.mean(p_iters),
               "p_iters_max": max(p_iters),
@@ -2534,6 +2551,255 @@ def _hold_at_shape(solver, applies: int) -> dict:
     return out
 
 
+def _tree_diff(a, b) -> float:
+    """The largest absolute difference between two states' tensors (inf
+    where a shape or dtype differs)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    if sa != sb:
+        return math.inf
+    worst = 0.0
+    for x, y in zip(la, lb):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return math.inf
+        if x.numel():
+            d = (x.double() - y.double()).abs().max()
+            worst = max(worst, float(torch.nan_to_num(d, nan=math.inf)))
+    return worst
+
+
+def _stats_diff(a: list, b: list) -> float:
+    """The largest absolute difference between two runs' per-step stats
+    (inf where their steps or keys differ)."""
+    if len(a) != len(b) or any(x.keys() != y.keys() for x, y in zip(a, b)):
+        return math.inf
+    return max((abs(float(x[k]) - float(y[k])) for x, y in zip(a, b)
+                for k in x), default=0.0)
+
+
+def _mg_implied(solver, hist: list, level0_per_vcycle: int = 2) -> dict:
+    """``_mg_counts`` over the stats ``hist``."""
+    vcycles = sum(1 + s["p_iters"] for s in hist)
+    sweeps = solver.poisson_mg.sweeps_per_vcycle() * vcycles
+    if any(solver.mesh.periodic):
+        return {"K6/K7": sweeps, "K2b": level0_per_vcycle * vcycles}
+    return {"K4/K5": sweeps, "K1": level0_per_vcycle * vcycles}
+
+
+def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
+                cg_cap: int | None = None) -> dict:
+    """One cell of phase 14 from the solver's state: ``nsteps`` steps
+    through ``run()`` one at a time, then from the same start ``nsteps``
+    through ``run()`` in chunks of ``k`` (the graph captured first,
+    outside the timed run; ``cg_cap`` forces every CG loop's cap).  Holds
+    the fields and the per-step stats of the two runs at tolerance 0 and
+    the chunked run's launches to ``implied(stats)`` (its steps' stats,
+    and those of the replays an overflow threw away); profiles one more
+    chunk.  Returns the cell's record."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from petibm_tpu_torch.solvers.chunk import ChunkRunner
+
+    start = (pytree.tree_map(torch.clone, solver.state), solver.ite,
+             solver.t)
+    n0 = len(solver.stats_history)
+    solver.steps_per_dispatch = 1
+    solver.nt = solver.ite - solver.nstart + nsteps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = (solver.state, solver.stats_history[n0:])
+
+    solver.state, solver.ite, solver.t = start
+    solver.steps_per_dispatch = k
+    runner = solver._chunk = ChunkRunner(solver)
+    t0 = time.perf_counter()
+    runner.prepare()
+    if cg_cap is not None:
+        runner.caps = [cg_cap if site.kind == "cg" else cap
+                       for cap, site in zip(runner.caps, runner.sites)]
+        runner.capture()
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    info = dict(runner.info)
+    discarded0 = len(solver.discarded_steps)
+    overflows0 = solver.chunk_overflows
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    solver.run()
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    chunked = solver.stats_history[n0 + nsteps:]
+    field_diff = _tree_diff(single[0], solver.state)
+    stats_diff = _stats_diff(single[1], chunked)
+    want = implied(chunked + solver.discarded_steps[discarded0:])
+    overflows = solver.chunk_overflows - overflows0
+    # the graph writes each step's new state back into its buffers: one
+    # copy of the state a step (two more a chunk: in and out)
+    leaves = pytree.tree_leaves(solver.state)
+    state_mb = sum(t.numel() * t.element_size() for t in leaves) / 2 ** 20
+
+    def copy_state(_):
+        for dst, src in zip(runner.static, leaves):
+            dst.copy_(src)
+
+    copy_ms = _time_ms(copy_state, None, applies=20, batch=5)[0]
+    # one more chunk, timed alone: the captured graph's own pace, apart
+    # from the warm-up steps an overflow reran above
+    solver.nt += k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run()
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / k * 1e3
+    busy, wall_ms, device_ms = _busy_share(solver, k)
+    record = {
+        "cell": label, "steps": nsteps, "k": k,
+        "single_ms_step": single_s / nsteps * 1e3,
+        "chunked_ms_step": chunk_s / nsteps * 1e3,
+        "next_chunk_ms_step": steady_ms,
+        "chunked_profile": {"wall_ms_step": wall_ms,
+                            "device_ms_step": device_ms, "busy": busy},
+        "max_abs_diff_fields": field_diff, "max_abs_diff_stats": stats_diff,
+        "prepare_s": prepare_s, "warmup_s": info.get("warmup_s"),
+        "capture_s": info.get("capture_s"),
+        "instantiate_s": info.get("instantiate_s"),
+        "nodes": info.get("nodes"), "top_nodes": info.get("top_nodes"),
+        "capture_peak_mb": info.get("peak_bytes", 0) / 2 ** 20,
+        "capture_held_mb": info.get("held_bytes", 0) / 2 ** 20,
+        "run_peak_mb": peak / 2 ** 20, "state_mb": state_mb,
+        "state_copy_ms": copy_ms,
+        "caps": info.get("caps"), "caps_after": list(runner.caps),
+        "overflows_after": solver.chunk_overflows - overflows0 - overflows,
+        "sites": [site.kind for site in runner.sites],
+        "overflows": overflows, "launches": launches}
+    print(f"phase 14 {label}: {nsteps} steps, k {k}: max abs diff fields "
+          f"{field_diff:g}, stats {stats_diff:g} (tolerance 0); "
+          f"{record['single_ms_step']:.3f} ms/step single, "
+          f"{record['chunked_ms_step']:.3f} chunked, one more chunk "
+          f"{steady_ms:.3f} (synchronised); one chunk profiled: {wall_ms:.3f} ms/step wall, {device_ms:.3f} "
+          f"device, busy share {busy:.4f}; graph {info.get('nodes')} nodes "
+          f"({info.get('top_nodes')} top level), warm-up "
+          f"{info.get('warmup_s', 0):.2f} s, capture "
+          f"{info.get('capture_s', 0):.2f} s, instantiate "
+          f"{info.get('instantiate_s', 0):.2f} s; caps {record['caps']} "
+          f"-> {record['caps_after']} of sites {record['sites']}; "
+          f"overflows {overflows}; memory: capture peak "
+          f"{record['capture_peak_mb']:.1f} MB, held "
+          f"{record['capture_held_mb']:.1f} MB, run peak "
+          f"{record['run_peak_mb']:.1f} MB; the state {state_mb:.1f} MB, "
+          f"one copy of it {copy_ms:.4f} ms device")
+    _check_counts(f"phase 14 {label}", launches, want)
+    if field_diff != 0.0 or stats_diff != 0.0:
+        raise AssertionError(f"phase 14 {label}: chunked differs from the "
+                             f"single steps ({field_diff}, {stats_diff})")
+    return record
+
+
+def phase14_chunked(tmp: str, card: str) -> list:
+    """``stepsPerDispatch``: each cell from one start, k steps a chunk
+    (one CUDA graph of the step replayed k times, one host read), beside
+    the single steps of the same steps (``_chunk_cell``): (a) the
+    flagship, 200 steps, k 100; (b) the sphere, 50, 25; (c) the 256^3 TGV
+    (FDM pressure), 20, 10; (d) the coupled Re=550, 200, 100; (e) the
+    oscillating cylinder, 200, 100 (its force solve's fallbacks equal);
+    (f) the flagship MG-CG, 20, 10; (g) (f) again with the CG loop's cap
+    forced to 4: it overflows, reruns and recaptures and still equals
+    the single steps; then the coupled Re=550 with ``fdm: false``, one
+    k = 2 chunk for its node count and capture time.  Returns the
+    launches of each chunked run."""
+    import torch
+
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+    from petibm_tpu_torch.solvers.ibpm import IBPMSolver
+    from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
+    from petibm_tpu_torch.solvers.rigidkinematics import RigidKinematicsSolver
+
+    t_phase = time.perf_counter()
+    records = []
+
+    def cell(label, solver, nsteps, k, implied, **kw):
+        records.append(_chunk_cell(label, solver, nsteps, k, implied, **kw))
+        print(f"phase 14 {label} done at "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase "
+              f"({card})")
+
+    def k1_fdm(hist):
+        return {"K1": sum(2 + s["p_iters"] for s in hist)}
+
+    flag = DecoupledIBPMSolver(flagship_config(
+        os.path.join(tmp, "c_flag"), nt=0), device=DEVICE)
+    cell("(a) flagship", flag, 200, 100, k1_fdm)
+    flag.close()
+
+    sph = DecoupledIBPMSolver(sphere_config(os.path.join(tmp, "c_sph"),
+                                            nt=0), device=DEVICE)
+    cell("(b) sphere", sph, 50, 25, lambda hist: {
+        "K1": sum(2 + s["p_iters"] for s in hist),
+        "K2a": sum(3 * (2 + s["v_iters"]) for s in hist), "K3": len(hist)})
+    sph.close()
+
+    tgv = NavierStokesSolver(tgv3d_config(os.path.join(tmp, "c_tgv"), nt=0),
+                             device=DEVICE)
+    tgv3d_initial_state(tgv)
+    cell("(c) tgv256", tgv, 20, 10, lambda hist: {
+        "K2a": sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
+        "K2b": sum(2 + s["p_iters"] for s in hist), "K3": len(hist)})
+    tgv.close()
+    del tgv
+    torch.cuda.empty_cache()
+
+    re550 = IBPMSolver(re550_config(os.path.join(tmp, "c_re550"), nt=0),
+                       device=DEVICE)
+    cell("(d) re550", re550, 200, 100, lambda hist: {})
+    re550.close()
+
+    osc = RigidKinematicsSolver(oscillating_config(
+        os.path.join(tmp, "c_osc"), nt=0), device=DEVICE)
+    cell("(e) oscillating", osc, 200, 100, k1_fdm)
+    hist = osc.stats_history
+    fallbacks = [sum(int(s["fallback"]) for s in part)
+                 for part in (hist[:200], hist[200:400])]
+    print(f"phase 14 (e) oscillating: force-solve fallbacks single "
+          f"{fallbacks[0]}, chunked {fallbacks[1]}")
+    if fallbacks[0] != fallbacks[1]:
+        raise AssertionError("phase 14 (e): the fallbacks differ")
+    records[-1]["fallbacks"] = fallbacks
+    osc.close()
+
+    mg = DecoupledIBPMSolver(flagship_config(
+        os.path.join(tmp, "c_mg"), nt=0, fdm=False), device=DEVICE)
+
+    def mg_implied(hist):
+        return _mg_implied(mg, hist)
+
+    cell("(f) flagship mg", mg, 20, 10, mg_implied)
+    # (g) from (f)'s end, the CG cap forced to 4
+    cell("(g) flagship mg, CG cap 4", mg, 10, 10, mg_implied, cg_cap=4)
+    if records[-1]["overflows"] != 1:
+        raise AssertionError("phase 14 (g): the forced cap did not overflow "
+                             "once")
+    mg.close()
+
+    # the coupled fdm: false step: one k = 2 chunk for its graph's size
+    cmg = IBPMSolver(re550_config(os.path.join(tmp, "c_re550_mg"), nt=0,
+                                  fdm=False), device=DEVICE)
+    cell("(h) re550 mg", cmg, 2, 2, lambda hist: _mg_implied(cmg, hist, 1))
+    cmg.close()
+    print(json.dumps({"chunked": {"device": card, "cells": [
+        {k: v for k, v in r.items() if k != "launches"} for r in records]}}))
+    return [r["launches"] for r in records]
+
+
 def main() -> int:
     import tempfile
 
@@ -2567,10 +2833,12 @@ def main() -> int:
         done(12)
         counts_fft_bf16 = phase13_fft_bf16(tmp, tgv, mg_solvers)
         done(13)
+        counts_chunked = phase14_chunked(tmp, _smi())
+        done(14)
     # each main path's launches, counted from 0 just before it ran
     runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
             + counts_coupled + counts_moving + counts_windowed
-            + counts_fft_bf16)
+            + counts_fft_bf16 + counts_chunked)
     launches = {key: sum(run[key] for run in runs) for key in counts_2d}
     source = "petibm_tpu_torch/csrc/"
     stencil = "petibm_tpu/operators/pallas_stencil.py:"

@@ -143,3 +143,31 @@ def check_dtype(name: str, t: torch.Tensor, bf16: bool = False) -> None:
         return
     raise TypeError(f"{name} takes float32 or float64"
                     f"{' or bfloat16' if bf16 else ''}, got {t.dtype}")
+
+
+def _counters() -> dict:
+    """Each kernel's launch counter: (module, wrapper, attribute); K2's
+    scaled launches (K2b) are counted again apart from all of K2's."""
+    from .linalg import cuda_pcr, cuda_sweep
+    from .operators import cuda_stencil as cs
+
+    return {"K1": (cs, "poisson_apply_separable", "launches"),
+            "K2": (cs, "zblocked_helmholtz_apply", "launches"),
+            "K2 scaled": (cs, "zblocked_helmholtz_apply", "scaled_launches"),
+            "K3": (cs, "convection3d_apply", "launches"),
+            "K4/K5": (cuda_sweep, "fused_sweep", "launches"),
+            "K6/K7": (cuda_pcr, "pcr", "launches")}
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by kernel."""
+    return {name: getattr(getattr(mod, fn), attr)
+            for name, (mod, fn, attr) in _counters().items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by kernel, as ``launch_counts``) to the wrappers'
+    counters: the launches a CUDA graph's replays made."""
+    for name, (mod, fn, attr) in _counters().items():
+        wrapper = getattr(mod, fn)
+        setattr(wrapper, attr, getattr(wrapper, attr) + counts.get(name, 0))

@@ -61,6 +61,15 @@ def maybe_profile(solver, args) -> None:
             print(f"  {name:>{width}s}: {ms:8.3f} ms")
 
 
+def report_chunks(solver) -> None:
+    """Under stepsPerDispatch > 1, the chunks rerun because a loop
+    overflowed its cap (solvers/chunk.py)."""
+    if solver.steps_per_dispatch > 1:
+        print(f"chunks of {solver.steps_per_dispatch} steps rerun one step "
+              f"at a time after a loop overflowed its cap: "
+              f"{solver.chunk_overflows}")
+
+
 def config_from_args(args) -> dict:
     return load_config(
         directory=args.directory, config=args.config, mesh=args.mesh,

@@ -10,7 +10,8 @@ from __future__ import annotations
 import sys
 
 from ..solvers.navierstokes import NavierStokesSolver
-from .common import config_from_args, maybe_profile, parse_args
+from .common import (config_from_args, maybe_profile, parse_args,
+                     report_chunks)
 
 
 def main(argv=None) -> int:
@@ -23,6 +24,7 @@ def main(argv=None) -> int:
     solver.run(progress=True)
     maybe_profile(solver, args)
     solver.close()
+    report_chunks(solver)
     print(solver.timers.report())
     return 0
 

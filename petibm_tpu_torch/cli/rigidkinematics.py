@@ -12,7 +12,8 @@ from __future__ import annotations
 import sys
 
 from ..solvers.rigidkinematics import RigidKinematicsSolver
-from .common import config_from_args, maybe_profile, parse_args
+from .common import (config_from_args, maybe_profile, parse_args,
+                     report_chunks)
 
 
 def main(argv=None) -> int:
@@ -26,6 +27,7 @@ def main(argv=None) -> int:
     solver.run(progress=True)
     maybe_profile(solver, args)
     solver.close()
+    report_chunks(solver)
     print(f"force solves that fell back to the dense solve: "
           f"{solver.fallbacks}")
     print(solver.timers.report())

@@ -15,8 +15,8 @@ card, where JAX has XLA's FFT: no Pallas kernel on either side).
 
 ``make_fdm_solver`` wraps a direct solve in KSP stopping semantics: a
 warm-started direct pass, then refinement passes judged on the recurrence
-residual with a stagnation exit.  The loop reads the residual norm on the
-host once per pass.
+residual with a stagnation exit.  The passes are one loop body on the
+current driver of ``loops.py``: its predicate is formed on the device.
 
 ``pinned_operator`` and ``PinnedSolve`` give the pinned pressure of the
 reference's GPU backend (row and column 0 of the pressure block the
@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..types import Field
-from .krylov import SolveResult, _norm, host_scalars, tmap
+from . import loops
+from .krylov import SolveResult, _norm, counter, tadd_, tmap, tsub_
 from .mg import face_coefficients
 
 
@@ -279,9 +280,14 @@ def helmholtz_lines(mesh, bcset, c: int) -> list:
 
 
 def set_first(flat: torch.Tensor, value) -> torch.Tensor:
-    """A copy of the 1D ``flat`` with entry 0 set to ``value``."""
+    """A copy of the 1D ``flat`` with entry 0 set to ``value`` (a number,
+    filled on the device: assigning it would copy it from the host, which
+    a CUDA graph's capture refuses; or a 0-d tensor)."""
     out = flat.clone()
-    out[0] = value
+    if isinstance(value, torch.Tensor):
+        out[0] = value
+    else:
+        out[0].fill_(value)
     return out
 
 
@@ -356,18 +362,28 @@ def make_fdm_solver(fdm, A, opts: dict):
         dx = fdm.solve(r)
         x = tmap(lambda xi, di: xi + di, x0, dx)
         r = tmap(lambda ri, adi: ri - adi, r, A(dx, *args))
-        # one host read for both; the loop compares in the working dtype
-        # (numpy scalars of it), as the JAX while_loop does
-        tol, rn = host_scalars(torch.clamp(rtol * _norm(b), min=atol),
-                               _norm(r))
-        np_dtype = type(rn)
-        prev, it = np_dtype(np.inf), 0
-        while rn > tol and rn < np_dtype(0.9) * prev and it < maxiter:
+        # the predicate compares in the working dtype on the device, as
+        # the JAX while_loop does
+        tol = torch.clamp(rtol * _norm(b), min=atol)
+        rn = _norm(r)
+        prev = torch.full_like(rn, float("inf"))
+        it = counter(rn)
+
+        def more():
+            return (rn > tol) & (rn < prev * 0.9) & (it < maxiter)
+
+        pred = more()
+
+        def body():
             dx = fdm.solve(r)
-            x = tmap(lambda xi, di: xi + di, x, dx)
-            r = tmap(lambda ri, adi: ri - adi, r, A(dx, *args))
-            prev, rn, it = rn, host_scalars(_norm(r))[0], it + 1
-        return SolveResult(x=x, iters=it, residual=float(rn),
-                           converged=bool(rn <= tol))
+            tadd_(x, dx)
+            tsub_(r, A(dx, *args))
+            prev.copy_(rn)
+            rn.copy_(_norm(r))
+            it.add_(1)
+            pred.copy_(more())
+
+        loops.loop("refine", body, pred, it, maxiter)
+        return SolveResult(x=x, iters=it, residual=rn, converged=rn <= tol)
 
     return solve

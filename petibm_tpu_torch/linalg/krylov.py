@@ -4,10 +4,13 @@ tensors.
 Counterpart of ``petibm_tpu/linalg/krylov.py`` (reference: PETSc KSP,
 src/linsolver/linsolverksp.cpp:48-107).  The stopping rule is KSP's
 ``||r|| <= max(atol, rtol*||b||)``.  The JAX package runs each method in a
-``lax.while_loop``; here the loop runs on the host and reads the carried
-squared residual once per iteration, comparing it in the working dtype, so
-iteration counts, residuals and ok flags follow the same rules.  Scalars
-(alpha, beta, omega, ...) stay 0-dim tensors on the device.
+``lax.while_loop``; here each method is one loop body that updates its
+carries in place and recomputes its predicate on the device, compared in
+the working dtype, run by the current driver of ``loops.py`` (the host
+driver reads the predicate once per iteration; the guarded driver of a
+chunk reads nothing), so iteration counts, residuals and ok flags follow
+the same rules.  Scalars (alpha, beta, omega, ...) and the stats stay
+0-dim tensors on the device.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ from __future__ import annotations
 import dataclasses
 from functools import partial
 
-import numpy as np
 import torch
+
+from . import loops
 
 
 class SolverDivergedError(RuntimeError):
@@ -47,59 +51,89 @@ def _norm(x) -> torch.Tensor:
     return torch.sqrt(_dot(x, x))
 
 
-def host_scalars(*values: torch.Tensor) -> list:
-    """0-dim tensors of one dtype -> numpy scalars of that dtype, in one
-    host read (the JAX loops compare in the working dtype)."""
-    np_dtype = {torch.float32: np.float32,
-                torch.float64: np.float64}[values[0].dtype]
-    return [np_dtype(v) for v in torch.stack(values).tolist()]
-
-
 @dataclasses.dataclass
 class SolveResult:
-    """A solve's solution and its stats, the stats as host values (the
-    loops read the residual on the host anyway)."""
+    """A solve's solution and its stats, the stats 0-d tensors on the
+    solution's device (``iters`` int64, ``residual`` in the working dtype,
+    ``converged`` bool); host readers convert them at the flush, as the
+    JAX package reads its stats.  ``fallback``: where a moving body's
+    force solve took its dense branch (a 0-d bool), else None."""
 
     x: object
-    iters: int
-    residual: float
-    converged: bool
+    iters: torch.Tensor
+    residual: torch.Tensor
+    converged: torch.Tensor
+    fallback: torch.Tensor | None = None
 
 
 def _identity(x):
     return x
 
 
+def tclone(tree):
+    """A copy of a tensor or dict of tensors: a carry the loop updates in
+    place, leaving its source as it was."""
+    return tmap(torch.clone, tree)
+
+
+def tadd_(x, y, scale=None) -> None:
+    """x += y (x += scale * y), leafwise in place; rounds as ``x + y``
+    (``x + scale * y``)."""
+    for a, b in zip(_leaves(x), _leaves(y)):
+        a.add_(b if scale is None else scale * b)
+
+
+def tsub_(x, y, scale=None) -> None:
+    """x -= y (x -= scale * y), leafwise in place."""
+    for a, b in zip(_leaves(x), _leaves(y)):
+        a.sub_(b if scale is None else scale * b)
+
+
+def tcopy_(x, y) -> None:
+    for a, b in zip(_leaves(x), _leaves(y)):
+        a.copy_(b)
+
+
+def counter(like: torch.Tensor) -> torch.Tensor:
+    """A loop's iteration counter: a 0-d int64 zero on ``like``'s device."""
+    return torch.zeros((), dtype=torch.int64, device=like.device)
+
+
 def cg(A, b, x0, M=None, atol=1e-6, rtol=0.0, maxiter=10000) -> SolveResult:
     """Preconditioned conjugate gradient (KSPCG semantics); ||r||^2 is
-    formed in the body beside r.z, as in the JAX package."""
+    formed in the body beside r.z, as in the JAX package.  The loop runs
+    on the current driver (``loops.py``) while ``rr > tol^2`` and ``it <
+    maxiter``, compared in the working dtype on the device."""
     M = M or _identity
-    x = x0
+    x = tclone(x0)
     r = tmap(lambda bi, ax: bi - ax, b, A(x0))
-    z = M(r)
-    p = z
-    rz = _dot(r, z)
+    p = tclone(M(r))
+    rz = _dot(r, p)
     rr = _dot(r, r)
     tol = torch.clamp(rtol * _norm(b), min=atol)
     tol2 = tol * tol
-    rr_h, tol2_h = host_scalars(rr, tol2)
-    it = 0
-    while rr_h > tol2_h and it < maxiter:
+    it = counter(rr)
+    pred = (rr > tol2) & (it < maxiter)
+
+    def body():
         ap = A(p)
         alpha = rz / _dot(p, ap)
-        x = tmap(lambda xi, pi: xi + alpha * pi, x, p)
-        r = tmap(lambda ri, api: ri - alpha * api, r, ap)
+        tadd_(x, p, alpha)
+        tsub_(r, ap, alpha)
         z = M(r)
         rz_new = _dot(r, z)
-        rr = _dot(r, r)
+        rr.copy_(_dot(r, r))
         beta = rz_new / rz
-        p = tmap(lambda zi, pi: zi + beta * pi, z, p)
-        rz = rz_new
-        it += 1
-        rr_h = host_scalars(rr)[0]
-    res, tol_h = host_scalars(torch.sqrt(rr), tol)
-    return SolveResult(x=x, iters=it, residual=float(res),
-                       converged=bool(res <= tol_h))
+        # z + beta p, bit for bit
+        for pi, zi in zip(_leaves(p), _leaves(z)):
+            pi.mul_(beta).add_(zi)
+        rz.copy_(rz_new)
+        it.add_(1)
+        pred.copy_((rr > tol2) & (it < maxiter))
+
+    loops.loop("cg", body, pred, it, maxiter)
+    res = torch.sqrt(rr)
+    return SolveResult(x=x, iters=it, residual=res, converged=res <= tol)
 
 
 def bicgstab(A, b, x0, M=None, atol=1e-6, rtol=0.0,
@@ -108,9 +142,9 @@ def bicgstab(A, b, x0, M=None, atol=1e-6, rtol=0.0,
     uses the recurrence ||r||^2 = s.s - 2 omega t.s + omega^2 t.t, as in
     the JAX package; the final residual is one exact norm."""
     M = M or _identity
-    x = x0
+    x = tclone(x0)
     r = tmap(lambda bi, ax: bi - ax, b, A(x0))
-    r0 = r
+    r0 = tclone(r)
     bnorm = _norm(b)
     tol = torch.clamp(rtol * bnorm, min=atol)
     tol2 = tol * tol
@@ -118,36 +152,42 @@ def bicgstab(A, b, x0, M=None, atol=1e-6, rtol=0.0,
     zero = torch.zeros((), dtype=bnorm.dtype, device=bnorm.device)
     p = tmap(torch.zeros_like, x0)
     v = tmap(torch.zeros_like, x0)
-    rho = alpha = omega = one
+    rho, alpha, omega = one.clone(), one.clone(), one.clone()
     rr = _dot(r, r)
-    rr_h, tol2_h = host_scalars(rr, tol2)
-    it = 0
-    while rr_h > tol2_h and it < maxiter:
+    it = counter(rr)
+    pred = (rr > tol2) & (it < maxiter)
+
+    def body():
         rho_new = _dot(r0, r)
         beta = (rho_new / rho) * (alpha / omega)
-        p = tmap(lambda ri, pi, vi: ri + beta * (pi - omega * vi), r, p, v)
+        tcopy_(p, tmap(lambda ri, pi, vi: ri + beta * (pi - omega * vi),
+                       r, p, v))
         phat = M(p)
-        v = A(phat)
-        alpha = rho_new / _dot(r0, v)
+        tcopy_(v, A(phat))
+        alpha.copy_(rho_new / _dot(r0, v))
         s = tmap(lambda ri, vi: ri - alpha * vi, r, v)
         shat = M(s)
         t = A(shat)
         tt = _dot(t, t)
         ts = _dot(t, s)
         ss = _dot(s, s)
-        omega = torch.where(tt > 0, ts / torch.where(tt > 0, tt, one), one)
-        x = tmap(lambda xi, ph, sh: xi + alpha * ph + omega * sh,
-                 x, phat, shat)
-        r = tmap(lambda si, ti: si - omega * ti, s, t)
-        rr = torch.maximum(ss - 2.0 * omega * ts + omega * omega * tt, zero)
-        rho = rho_new
-        it += 1
-        rr_h = host_scalars(rr)[0]
-    res, tol_h = host_scalars(_norm(r), tol)
+        omega.copy_(torch.where(tt > 0, ts / torch.where(tt > 0, tt, one),
+                                one))
+        tadd_(x, phat, alpha)
+        tadd_(x, shat, omega)
+        tcopy_(r, tmap(lambda si, ti: si - omega * ti, s, t))
+        rr.copy_(torch.maximum(ss - 2.0 * omega * ts + omega * omega * tt,
+                               zero))
+        rho.copy_(rho_new)
+        it.add_(1)
+        pred.copy_((rr > tol2) & (it < maxiter))
+
+    loops.loop("bicgstab", body, pred, it, maxiter)
+    res = _norm(r)
     # the recurrence rr can disagree with the exact norm by cancellation
     # right at the tolerance boundary; either passing counts as converged
-    ok = bool(res <= tol_h) or bool(rr_h <= tol2_h)
-    return SolveResult(x=x, iters=it, residual=float(res), converged=ok)
+    ok = (res <= tol) | (rr <= tol2)
+    return SolveResult(x=x, iters=it, residual=res, converged=ok)
 
 
 _METHODS = {"cg": cg, "bicgstab": bicgstab}

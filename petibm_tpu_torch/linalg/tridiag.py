@@ -43,8 +43,9 @@ def tridiag_solve_pcr(a, b, c, d):
         return d / b
     a = a.clone()
     c = c.clone()
-    a[..., 0] = 0.0
-    c[..., n - 1] = 0.0
+    # filled on the device: an assigned number is copied from the host
+    a[..., 0].fill_(0.0)
+    c[..., n - 1].fill_(0.0)
     k = 1
     for _ in range(math.ceil(math.log2(n))):
         alpha = -a / shift(b, k, fill=1.0)

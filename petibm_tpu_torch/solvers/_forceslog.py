@@ -19,13 +19,14 @@ class ForcesLogMixin:
 
     _forces_log = None
 
-    def _record_stats(self, ite: int, stats: dict) -> None:
-        super()._record_stats(ite, stats)
+    def _record_stats(self, ite0: int, stats: dict, count: int) -> None:
+        super()._record_stats(ite0, stats, count)
         if self._forces_log is None:
             self._forces_log = open(os.path.join(
                 self.output_dir, f"forces-{self.nstart}.txt"), "w")
             self._forces_buffer = []
-        self._forces_buffer.append((self.t, stats["f"]))
+        t0 = self.t - (count - 1) * self.dt  # t of the chunk's first step
+        self._forces_buffer.append((t0, stats["f"], count))
 
     def write(self) -> None:
         super().write()
@@ -39,14 +40,19 @@ class ForcesLogMixin:
         if not getattr(self, "_forces_buffer", None):
             return
         with self.timers.stage("integrateForces"):
-            times = [t for t, _ in self._forces_buffer]
-            forces = torch.stack([f for _, f in self._forces_buffer]).cpu()
-        self._forces_buffer = []
-        for t, f in zip(times, forces.numpy()):
-            cols = [f"{t:10.8e}"]
-            for body_force in self.bodies.avg_forces(f):
-                cols.extend(f"{v:10.8e}" for v in body_force)
-            self._forces_log.write("\t".join(cols) + "\n")
+            single = [f for _, f, count in self._forces_buffer if count == 1]
+            single = iter(torch.stack(single).cpu().numpy() if single
+                          else [])
+        items, self._forces_buffer = self._forces_buffer, []
+        for t0, fs, count in items:
+            for j in range(count):
+                # JAX _forceslog.py: the chunk's times from its first
+                t = t0 + j * self.dt
+                f = next(single) if count == 1 else fs[j]
+                cols = [f"{t:10.8e}"]
+                for body_force in self.bodies.avg_forces(f):
+                    cols.extend(f"{v:10.8e}" for v in body_force)
+                self._forces_log.write("\t".join(cols) + "\n")
         self._forces_log.flush()
 
     def close(self) -> None:

@@ -33,8 +33,21 @@ with the JAX package's keys (``q``, ``p``, ``bc``, ``conv``, ``diff``,
 
 ``parameters.disablePallas`` turns every hand kernel off (the stencil
 closures run instead), as it turns off the Pallas kernels of the JAX
-package.  Every solve reads its residual on the host once per iteration,
-so a step is synchronous; the solver stats are host values.
+package.  Every solve is one loop body on the current driver of
+``linalg/loops.py``; a single step (``advance``) takes the host driver,
+which reads each loop's predicate once per iteration, as JAX's jitted
+single step runs its while_loops to the end.  The stats stay 0-d device
+tensors until the flush (``stats_history`` converts them in one read).
+
+``stepsPerDispatch: k`` > 1 runs k steps a host round trip
+(``advance_chunk``; ``solvers/chunk.py``): on the card the step is
+captured once as a CUDA graph whose loops are capped unrolls of guarded
+bodies (CUDA IF nodes) and replayed k times, with one host read at the
+chunk's end; on the CPU the same guarded step runs k times.  ``run()``
+cuts chunks at host events (save, restart, probe, the end) as the JAX
+package does (``_steps_to_host_event``, navierstokes.py:746-755,
+934-952).  A loop that overflows its cap is rerun through the host
+driver and recaptured (``chunk_overflows``).
 
 Output and restarts (JAX ``navierstokes.py:770-858``, through the copied
 ``io/hdf5.py``): ``grid.h5`` at init, the step-0 snapshot or the restart
@@ -53,9 +66,10 @@ the stage profiler, ``profile_stages`` (``utils/profiling.py``; JAX
 ``navierstokes.py:667-718``), times the production step's own code.
 
 Configurations this port does not cover raise ``NotImplementedError``:
-sharding (naming ROADMAP item 19) and an ``mg.dtype`` that the V-cycle's
-kernels have no instances of; nothing is substituted silently.
-``stepsPerDispatch`` is accepted and not read.
+sharding (naming ROADMAP item 19), an ``mg.dtype`` that the V-cycle's
+kernels have no instances of, and a moving body on the windowed delta
+engine under ``stepsPerDispatch`` > 1 (ROADMAP item 20c); nothing is
+substituted silently.
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ from __future__ import annotations
 import os
 import sys
 
+import numpy as np
 import torch
 
 from .. import io as pio
@@ -87,6 +102,7 @@ from ..timeintegration import create_time_integration
 from ..types import Field
 from ..utils.profiling import chain_phases
 from ..utils.timers import StageTimers
+from .chunk import ChunkRunner, StatsLayout, scalar_stats
 
 VEL_NAMES = ("u", "v", "w")
 
@@ -153,6 +169,17 @@ class NavierStokesSolver:
         self.nsave = int(params.get("nsave", self.nt))
         self.nrestart = int(params.get("nrestart", self.nt))
         self.nu = float(config["flow"]["nu"])
+        #: steps a chunk advances (JAX ``navierstokes.py:188-204``)
+        self.steps_per_dispatch = max(1, int(params.get("stepsPerDispatch",
+                                                        1)))
+        self._chunk = None
+        #: chunks whose loops overflowed their caps (rerun and recaptured)
+        self.chunk_overflows = 0
+        #: host stats of the steps run and thrown away: a chunk's warm-up
+        #: and the replays of a chunk that overflowed
+        self.discarded_steps: list[dict] = []
+        #: the launches the chunks' replays made, by kernel
+        self.chunk_launches: dict = {}
         dtype_name = params.get("dtype") or "float32"
         if dtype_name not in _DTYPES:
             raise ValueError(f"parameters.dtype must be float32 or float64, "
@@ -203,9 +230,13 @@ class NavierStokesSolver:
             self.output_dir, f"iterations-{self.ite}.txt")
         self._iter_log = open(self.iter_log_path, "w")
         self._io_done = False
-        #: every step's solver stats (host values, without tensors); the
-        #: iterations log holds the first ``_n_logged``
-        self.stats_history: list[dict] = []
+        #: (first step, stats, count) not yet read: a step's device stats
+        #: (count 1) or a chunk's host stats stacked (count k)
+        self._stats_buffer: list = []
+        self._stats_layout = None
+        #: every read step's solver stats (host scalars); the iterations
+        #: log holds the first ``_n_logged``
+        self._stats_host: list[dict] = []
         self._n_logged = 0
         # reference parity: KSP aborts when a solve diverges
         # (linsolverksp.cpp:96-104); "warn" prints, "ignore" continues
@@ -580,12 +611,74 @@ class NavierStokesSolver:
         self.ite += 1
         with self.timers.stage("step"):
             self.state, stats = self._step_fn(self.state)
-        self._record_stats(self.ite, stats)
+        self._record_stats(self.ite, stats, 1)
 
-    def _record_stats(self, ite: int, stats: dict) -> None:
-        self.stats_history.append(
-            dict({k: v for k, v in stats.items()
-                  if not isinstance(v, torch.Tensor)}, ite=ite))
+    def advance_chunk(self) -> None:
+        """Advance ``steps_per_dispatch`` steps in one host round trip
+        (JAX ``navierstokes.py:729-738``; ``solvers/chunk.py``)."""
+        k = self.steps_per_dispatch
+        if self._chunk is None:
+            self._chunk = ChunkRunner(self)
+            self._chunk.prepare()
+        with self.timers.stage("step"):
+            stats = self._chunk.run()
+        if stats is None:
+            # a loop overflowed its cap: the k steps through the host
+            # driver, then the step captured again with the caps doubled
+            self.chunk_overflows += 1
+            for _ in range(k):
+                self.advance()
+            self._chunk.capture()
+            return
+        self.t += k * self.dt
+        self.ite += k
+        self._record_stats(self.ite - k + 1, {
+            key: np.stack([s[key] for s in stats]) for key in stats[0]}, k)
+
+    def _record_stats(self, ite0: int, stats: dict, count: int) -> None:
+        """Queue per-step solver stats (device tensors of one step, or a
+        chunk's host values stacked along axis 0) for the flush."""
+        self._stats_buffer.append((ite0, stats, count))
+
+    def _steps_to_host_event(self) -> int:
+        """Steps until the host next needs state (save / restart / probe
+        monitor / end of run): the window advance_chunk may fill (JAX
+        ``navierstokes.py:746-755``)."""
+        nexts = [self.nstart + self.nt - self.ite]
+        intervals = [self.nsave, self.nrestart]
+        intervals += [p.n_monitor for p in getattr(self, "probes", [])]
+        for interval in intervals:
+            if interval > 0:
+                nexts.append(interval - self.ite % interval)
+        return min(nexts)
+
+    def _read_stats(self) -> None:
+        """Read the queued stats to the host: one read for every queued
+        single step's device stats."""
+        items, self._stats_buffer = self._stats_buffer, []
+        single = [scalar_stats(s) for _, s, count in items if count == 1]
+        if single:
+            if self._stats_layout is None:
+                self._stats_layout = StatsLayout(single[0])
+            layout = self._stats_layout
+            rows = iter(torch.stack([layout.pack(s) for s in single])
+                        .cpu().numpy())
+        for ite0, s, count in items:
+            if count == 1:
+                self._stats_host.append(dict(layout.unpack(next(rows)),
+                                             ite=ite0))
+                continue
+            for j in range(count):
+                self._stats_host.append(dict(
+                    {k: v[j].item() for k, v in s.items() if v.ndim == 1},
+                    ite=ite0 + j))
+
+    @property
+    def stats_history(self) -> list[dict]:
+        """Every step's solver stats as host values (read here where they
+        are still on the device); the iterations log's rows."""
+        self._read_stats()
+        return self._stats_host
 
     def finished(self) -> bool:
         return self.ite >= self.nstart + self.nt
@@ -702,6 +795,9 @@ class NavierStokesSolver:
     _SOLVER_NAMES = {"v": "velocity", "p": "poisson", "f": "forces"}
 
     def _flush_iter_log(self) -> None:
+        """Write the stats read since the last flush; a divergence among
+        them raises here and names its step (JAX
+        ``navierstokes.py:875-906``)."""
         items = self.stats_history[self._n_logged:]
         if not items:
             return
@@ -767,7 +863,14 @@ class NavierStokesSolver:
             self._io_done = True
         try:
             while not self.finished():
-                self.advance()
+                # chunks wherever no host event falls inside one (JAX
+                # navierstokes.py:934-952)
+                if (self.steps_per_dispatch > 1
+                        and self._steps_to_host_event()
+                        >= self.steps_per_dispatch):
+                    self.advance_chunk()
+                else:
+                    self.advance()
                 self.write()
                 if progress and (self.ite % self.nsave == 0
                                  or self.finished()):

@@ -40,19 +40,24 @@ import torch
 from ..ibm.body import write_lagrangian_points
 from ..ibm.interp import dense_ebnh_blocks
 from ..linalg.fdm import make_fdm_solver
-from ..linalg.krylov import SolveResult, _norm, host_scalars
+from ..linalg import loops
+from ..linalg.krylov import _norm
 from .decoupledibpm import DecoupledIBPMSolver, blocks_apply
 
 
 class RigidKinematicsSolver(DecoupledIBPMSolver):
     def _extra_init(self, config: dict) -> None:
         super()._extra_init(config)
+        if self.delta.windowed and self.steps_per_dispatch > 1:
+            # each step reads its window box to the host, and the box
+            # sets tensor shapes: no graph holds that step
+            raise NotImplementedError(
+                "a moving body on the windowed delta engine under "
+                "stepsPerDispatch > 1 is not ported yet (ROADMAP item 20c)")
         self.coords0 = self._tensor(self.bodies.all_coords())
         self.state["t"] = self._tensor(self.t)
         self._kinematics = [node.get("kinematics")
                             for node in config.get("bodies", [])]
-        #: steps whose force solve fell back to the dense direct solve
-        self.fallbacks = 0
 
     def _refuse_kinematics(self, config: dict) -> None:
         """Moving bodies are this solver's to run."""
@@ -63,33 +68,51 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
         E B_N H of the step's windows, and where it exits above tolerance
         the direct solve of the step's dense blocks, reported as JAX's
         ``_result`` (:98-114): iters 0, the full matrix-free residual,
-        convergence judged on the blocks' residual."""
+        convergence judged on the blocks' residual.  The choice is JAX's
+        ``lax.cond``: the dense branch is a ``loops.cond`` on the
+        refinement's ``~converged`` that writes into the refinement's
+        result, so it runs on the device inside a chunk's graph; its
+        solve is ``solve_ex`` (no host check of the factorisation)."""
         _, inverse = self._dense_force_blocks()
         ebnh, dim, dt = self._ebnh, self.mesh.dim, self.dt
         atol = float(fopts.get("atol", 1e-6))
         rtol = float(fopts.get("rtol", 0.0))
         refine = make_fdm_solver(inverse, ebnh, fopts)
 
-        def dense_solve(rhsf, win):
-            mats = dense_ebnh_blocks(win, dim, dt)
-            df = torch.stack([torch.linalg.solve(mats[c], rhsf[:, c])
-                              for c in range(dim)], dim=1)
-            res, rn, tol = host_scalars(
-                _norm(rhsf - ebnh(df, win)),
-                _norm(rhsf - blocks_apply(mats, df)),
-                torch.clamp(rtol * _norm(rhsf), min=atol))
-            return SolveResult(x=df, iters=0, residual=float(res),
-                               converged=bool(rn <= tol))
-
         def solve_forces(rhsf, win, x0=None):
             res = refine(rhsf, torch.zeros_like(rhsf) if x0 is None else x0,
                          win)
-            if res.converged:
-                return res
-            self.fallbacks += 1
-            return dense_solve(rhsf, win)
+            fallback = ~res.converged
+
+            def dense_solve():
+                mats = dense_ebnh_blocks(win, dim, dt)
+                df = torch.stack([torch.linalg.solve_ex(mats[c],
+                                                        rhsf[:, c])[0]
+                                  for c in range(dim)], dim=1)
+                tol = torch.clamp(rtol * _norm(rhsf), min=atol)
+                res.x.copy_(df)
+                res.iters.zero_()
+                res.residual.copy_(_norm(rhsf - ebnh(df, win)))
+                res.converged.copy_(
+                    _norm(rhsf - blocks_apply(mats, df)) <= tol)
+
+            loops.cond(fallback, dense_solve)
+            res.fallback = fallback
+            return res
 
         self._solve_forces = solve_forces
+
+    @property
+    def fallbacks(self) -> int:
+        """Steps whose force solve fell back to the dense direct solve
+        (each step's ``fallback`` stat, read at the flush)."""
+        return sum(int(s.get("fallback", False)) for s in self.stats_history)
+
+    def _step_stats(self, ctx: dict) -> dict:
+        stats = super()._step_stats(ctx)
+        if ctx["fsol"].fallback is not None:
+            stats["fallback"] = ctx["fsol"].fallback
+        return stats
 
     # -- user extension points (reference: rigidkinematics.h virtuals) ----
     def set_coordinates(self, t):

@@ -97,8 +97,9 @@ def main() -> int:
     def solve(label, M):
         res = cg(lambda x: m32.apply_op(0, x), b, torch.zeros_like(b), M=M,
                  atol=1e-6 * float(b.norm()), maxiter=args.maxiter)
-        print(f"{label}: CG converged {res.converged} in {res.iters} "
-              f"iterations, residual {res.residual:.3e}")
+        print(f"{label}: CG converged {bool(res.converged)} in "
+              f"{int(res.iters)} iterations, residual "
+              f"{float(res.residual):.3e}")
 
     ref = m32.preconditioner()(b)
     solve("float32 V-cycle", m32.preconditioner())
