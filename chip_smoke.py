@@ -111,11 +111,23 @@ Phases, in order (any failure raises and the script exits non-zero):
    the flagship with ``fdm: false``, 20, 10; (g) (f) with its CG loop's
    cap forced to 4, 10, 10: it overflows, reruns and recaptures; (h) the
    coupled Re=550 with ``fdm: false``, one chunk of 2 for its graph's
-   size.  Each holds fields and stats at tolerance 0 and the launches
-   against the stats, and prints both runs' ms/step, one chunk's device
-   busy share, the graph's nodes, capture and instantiate seconds, the
-   caps, overflows and peak memory, beside the card's name and power
-   limit; one ``{"chunked": ...}`` JSON line.
+   size.  Each holds fields and stats at tolerance 0 and prints both
+   runs' ms/step, the graph's nodes, capture and instantiate seconds,
+   the caps, overflows and peak memory, beside the card's name and power
+   limit; then profiles up to 10 single steps and one chunk (the
+   device ms a step of each, the busy share, the IF nodes'
+   ``set_conditional`` kernels) and runs one chunk captured with the
+   launch counters on the card (``_kernels.count_on_device``): its
+   launches held against the stats, the wrappers' host counters 0 over
+   it (a replay does not enter them); one ``{"chunked": ...}`` JSON
+   line.
+
+A kernel wrapper counts a launch where it launches its kernel: on the
+host outside a CUDA graph's capture, and on the card too while
+``count_on_device`` is on, which a graph captures beside the kernel
+(``_kernels.count_launch``).  The ``launches`` of the per-kernel JSON
+record sum the host counts over every main path and the card's counts
+over phase 14's counted chunks.
 
 Phase 2 holds K1 (450^2, the oscillating cylinder's 512^2 and the
 sphere's pressure), K2a and K2b (every
@@ -1028,22 +1040,25 @@ def _block_ab(label: str, launch, plan, block, arg, applies: int) -> None:
 def _reset_counts() -> None:
     from petibm_tpu_torch import _kernels
 
-    _kernels.add_launches({k: -n for k, n in
-                           _kernels.launch_counts().items()})
+    _kernels.reset_launch_counts()
+
+
+def _by_kernel(n: dict) -> dict:
+    """The wrappers' counters as K1, K2a (unscaled K2), K2b (scaled K2),
+    K3, K4/K5 and K6/K7."""
+    return {"K1": n["K1"], "K2a": n["K2"] - n["K2 scaled"],
+            "K2b": n["K2 scaled"], "K3": n["K3"], "K4/K5": n["K4/K5"],
+            "K6/K7": n["K6/K7"]}
 
 
 def _counts() -> dict:
-    """Launches since the last reset: K1, K2a (unscaled K2), K2b (scaled
-    K2), K3, K4/K5 and K6/K7."""
+    """Launches since the last reset (``_by_kernel``)."""
     import torch
 
     from petibm_tpu_torch import _kernels
 
     torch.cuda.synchronize()
-    n = _kernels.launch_counts()
-    return {"K1": n["K1"], "K2a": n["K2"] - n["K2 scaled"],
-            "K2b": n["K2 scaled"], "K3": n["K3"], "K4/K5": n["K4/K5"],
-            "K6/K7": n["K6/K7"]}
+    return _by_kernel(_kernels.launch_counts())
 
 
 def _check_counts(label: str, got: dict, want: dict) -> None:
@@ -1359,13 +1374,14 @@ def phase7_ab3d(tmp: str, sphere, tgv) -> None:
     _cuda_vs_cpu("tgv 16^3", small, ("p",))
 
 
-def _busy_share(solver, steps: int = 5) -> tuple:
-    """Device busy share over ``steps`` more steps, with the wall and
-    device ms per step (torch.profiler; only the device-side events count:
-    the operators that launch them carry the same time again).  The
-    profiler's raw events are summed: ``key_averages()`` takes about a
-    millisecond an event to build, a minute for one step of a Krylov
-    force solve."""
+def _profile(solver, steps: int) -> dict:
+    """``steps`` more steps through ``run()`` under torch.profiler: the
+    wall and device ms a step and the busy share (only the device-side
+    events count: the operators that launch them carry the same time
+    again), the kernels a step and the device ms a step of the IF nodes'
+    ``set_conditional`` kernels.  The profiler's raw events are read:
+    ``key_averages()`` takes about a millisecond an event to build, a
+    minute for one step of a Krylov force solve."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1378,9 +1394,29 @@ def _busy_share(solver, steps: int = 5) -> tuple:
         solver.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA) / 1e3
-    return busy_us / wall_us, wall_us / steps / 1e3, busy_us / steps / 1e3
+    busy_ns = cond_ns = kernels = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        busy_ns += e.duration_ns()
+        if name.startswith(("Memcpy", "Memset")):
+            continue
+        kernels += 1
+        if "set_conditional" in name:
+            cond_ns += e.duration_ns()
+    return {"busy": busy_ns / 1e3 / wall_us,
+            "wall_ms_step": wall_us / steps / 1e3,
+            "device_ms_step": busy_ns / steps / 1e6,
+            "set_conditional_ms_step": cond_ns / steps / 1e6,
+            "kernels_step": kernels / steps}
+
+
+def _busy_share(solver, steps: int = 5) -> tuple:
+    """Device busy share over ``steps`` more steps, with the wall and
+    device ms per step (``_profile``)."""
+    p = _profile(solver, steps)
+    return p["busy"], p["wall_ms_step"], p["device_ms_step"]
 
 
 def _mg_counts(solver, level0_per_vcycle: int = 2) -> dict:
@@ -1652,6 +1688,8 @@ def phase10_coupled(tmp: str) -> list:
         solver, record, launches = re550_run(os.path.join(tmp, label),
                                              pinned)
         counts.append(launches)
+        # the wrappers count the launches outside the graph (the chunks'
+        # warm-up step); phase 14 (d) counts a chunk's kernel events
         _check_counts(label, launches, {})
         busy, wall_ms, device_ms = _busy_share(solver)
         solver.close()
@@ -2589,20 +2627,76 @@ def _mg_implied(solver, hist: list, level0_per_vcycle: int = 2) -> dict:
     return {"K4/K5": sweeps, "K1": level0_per_vcycle * vcycles}
 
 
+def _check_chunk_fits(label: str, solver) -> None:
+    """Raise unless the solver's next ``steps_per_dispatch`` steps are one
+    chunk (``run()`` runs single steps up to a host event inside them)."""
+    k = solver.steps_per_dispatch
+    solver.nt += k
+    fits = solver._steps_to_host_event() >= k
+    solver.nt -= k
+    if not fits:
+        raise AssertionError(f"{label}: a host event falls inside the "
+                             "next chunk")
+
+
+def _counted_chunk(label: str, solver, implied) -> dict:
+    """One chunk of ``solver`` with its launches counted on the device:
+    the step captured again with each wrapper's device counter beside
+    its kernel (``_kernels.count_on_device``), a chunk run (another while
+    one overflows: an overflow's replays are thrown away), its counts
+    held to ``implied`` of its stats and the wrappers' host counts to 0
+    (a replay enters no wrapper).  The counting graph is dropped with
+    the counters: a later chunk of the solver prepares anew.  Returns the
+    counts."""
+    from petibm_tpu_torch import _kernels
+
+    runner, k = solver._chunk, solver.steps_per_dispatch
+    for _ in range(4):
+        _check_chunk_fits(label, solver)
+        _kernels.count_on_device(DEVICE)
+        runner.capture()
+        _reset_counts()
+        before = solver.chunk_overflows
+        solver.nt += k
+        solver.run()
+        counts = _by_kernel(_kernels.device_launch_counts())
+        host = _counts()
+        if solver.chunk_overflows == before:
+            break
+    else:
+        raise AssertionError(f"{label}: four counted chunks overflowed")
+    solver._chunk = None
+    _kernels.count_on_device(None)
+    _check_counts(f"{label} chunk on the device (wrappers)", host, {})
+    _check_counts(f"{label} chunk on the device",
+                  counts, implied(solver.stats_history[-k:]))
+    return counts
+
+
 def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
                 cg_cap: int | None = None) -> dict:
     """One cell of phase 14 from the solver's state: ``nsteps`` steps
     through ``run()`` one at a time, then from the same start ``nsteps``
     through ``run()`` in chunks of ``k`` (the graph captured first,
     outside the timed run; ``cg_cap`` forces every CG loop's cap).  Holds
-    the fields and the per-step stats of the two runs at tolerance 0 and
-    the chunked run's launches to ``implied(stats)`` (its steps' stats,
-    and those of the replays an overflow threw away); profiles one more
-    chunk.  Returns the cell's record."""
+    the fields and the per-step stats of the two runs at tolerance 0.
+    The wrappers count only launches made outside a graph: over each
+    chunk, those of the steps an overflow reran through the host driver,
+    held to ``implied(stats)`` of those steps.  Then times one more chunk
+    (another while one overflows), profiles k single steps (their
+    launches held to the stats) and one chunk (``_profile``), and counts
+    one chunk's launches on the device (``_counted_chunk``).  Returns the
+    cell's record."""
     import torch
     from torch.utils import _pytree as pytree
 
     from petibm_tpu_torch.solvers.chunk import ChunkRunner
+
+    zero = {key: 0 for key in _counts()}
+
+    def add(total: dict, counts: dict) -> None:
+        for key in total:
+            total[key] += counts[key]
 
     start = (pytree.tree_map(torch.clone, solver.state), solver.ite,
              solver.t)
@@ -2628,20 +2722,30 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     info = dict(runner.info)
-    discarded0 = len(solver.discarded_steps)
     overflows0 = solver.chunk_overflows
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    solver.run()
-    torch.cuda.synchronize()
-    chunk_s = time.perf_counter() - t0
-    launches = _counts()
+    launches = dict(zero)
+    chunk_s = 0.0
+    for _ in range(nsteps // k):
+        before = solver.chunk_overflows
+        _reset_counts()
+        solver.nt = solver.ite - solver.nstart + k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run()
+        torch.cuda.synchronize()
+        chunk_s += time.perf_counter() - t0
+        eager = _counts()
+        add(launches, eager)
+        rerun = (solver.stats_history[-k:]
+                 if solver.chunk_overflows > before else [])
+        _check_counts(f"phase 14 {label} chunk steps {solver.ite - k + 1}-"
+                      f"{solver.ite} outside a graph (overflow reruns)",
+                      eager, implied(rerun))
     peak = torch.cuda.max_memory_allocated()
     chunked = solver.stats_history[n0 + nsteps:]
     field_diff = _tree_diff(single[0], solver.state)
     stats_diff = _stats_diff(single[1], chunked)
-    want = implied(chunked + solver.discarded_steps[discarded0:])
     overflows = solver.chunk_overflows - overflows0
     # the graph writes each step's new state back into its buffers: one
     # copy of the state a step (two more a chunk: in and out)
@@ -2654,21 +2758,41 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
 
     copy_ms = _time_ms(copy_state, None, applies=20, batch=5)[0]
     # one more chunk, timed alone: the captured graph's own pace, apart
-    # from the warm-up steps an overflow reran above
-    solver.nt += k
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    solver.run()
-    torch.cuda.synchronize()
-    steady_ms = (time.perf_counter() - t0) / k * 1e3
-    busy, wall_ms, device_ms = _busy_share(solver, k)
+    # from the steps an overflow reran (another chunk while one overflows)
+    for _ in range(4):
+        before = solver.chunk_overflows
+        solver.nt += k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run()
+        torch.cuda.synchronize()
+        steady_ms = (time.perf_counter() - t0) / k * 1e3
+        if solver.chunk_overflows == before:
+            break
+    else:
+        raise AssertionError(f"phase 14 {label}: four chunks overflowed")
+
+    # one chunk and up to 10 single steps profiled, in one call: the
+    # device time of the graph beside the eager step's (the single steps
+    # last: a chunk is cut at a host event their count would misalign)
+    _check_chunk_fits(f"phase 14 {label}", solver)
+    prof_chunk = _profile(solver, k)
+    counted = _counted_chunk(f"phase 14 {label}", solver, implied)
+    add(launches, counted)
+    solver.steps_per_dispatch = 1
+    _reset_counts()
+    n_single = min(k, 10)
+    prof_single = _profile(solver, n_single)
+    counts = _counts()
+    _check_counts(f"phase 14 {label} {n_single} single steps", counts,
+                  implied(solver.stats_history[-n_single:]))
+    add(launches, counts)
     record = {
         "cell": label, "steps": nsteps, "k": k,
         "single_ms_step": single_s / nsteps * 1e3,
         "chunked_ms_step": chunk_s / nsteps * 1e3,
         "next_chunk_ms_step": steady_ms,
-        "chunked_profile": {"wall_ms_step": wall_ms,
-                            "device_ms_step": device_ms, "busy": busy},
+        "single_profile": prof_single, "chunked_profile": prof_chunk,
         "max_abs_diff_fields": field_diff, "max_abs_diff_stats": stats_diff,
         "prepare_s": prepare_s, "warmup_s": info.get("warmup_s"),
         "capture_s": info.get("capture_s"),
@@ -2681,13 +2805,13 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
         "caps": info.get("caps"), "caps_after": list(runner.caps),
         "overflows_after": solver.chunk_overflows - overflows0 - overflows,
         "sites": [site.kind for site in runner.sites],
-        "overflows": overflows, "launches": launches}
+        "overflows": overflows, "counted_chunk_launches": counted,
+        "launches": launches}
     print(f"phase 14 {label}: {nsteps} steps, k {k}: max abs diff fields "
           f"{field_diff:g}, stats {stats_diff:g} (tolerance 0); "
           f"{record['single_ms_step']:.3f} ms/step single, "
           f"{record['chunked_ms_step']:.3f} chunked, one more chunk "
-          f"{steady_ms:.3f} (synchronised); one chunk profiled: {wall_ms:.3f} ms/step wall, {device_ms:.3f} "
-          f"device, busy share {busy:.4f}; graph {info.get('nodes')} nodes "
+          f"{steady_ms:.3f} (synchronised); graph {info.get('nodes')} nodes "
           f"({info.get('top_nodes')} top level), warm-up "
           f"{info.get('warmup_s', 0):.2f} s, capture "
           f"{info.get('capture_s', 0):.2f} s, instantiate "
@@ -2698,7 +2822,14 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
           f"{record['capture_held_mb']:.1f} MB, run peak "
           f"{record['run_peak_mb']:.1f} MB; the state {state_mb:.1f} MB, "
           f"one copy of it {copy_ms:.4f} ms device")
-    _check_counts(f"phase 14 {label}", launches, want)
+    for name, p in ((f"{n_single} single steps", prof_single),
+                    (f"a chunk of {k}", prof_chunk)):
+        print(f"phase 14 {label} profile of {name}: "
+              f"{p['wall_ms_step']:.3f} ms/step wall, "
+              f"{p['device_ms_step']:.4f} device, busy share "
+              f"{p['busy']:.4f}; {p['kernels_step']:.1f} kernels a step, "
+              f"set_conditional {p['set_conditional_ms_step']:.4f} ms/step "
+              "device")
     if field_diff != 0.0 or stats_diff != 0.0:
         raise AssertionError(f"phase 14 {label}: chunked differs from the "
                              f"single steps ({field_diff}, {stats_diff})")
@@ -2715,8 +2846,9 @@ def phase14_chunked(tmp: str, card: str) -> list:
     (f) the flagship MG-CG, 20, 10; (g) (f) again with the CG loop's cap
     forced to 4: it overflows, reruns and recaptures and still equals
     the single steps; then the coupled Re=550 with ``fdm: false``, one
-    k = 2 chunk for its node count and capture time.  Returns the
-    launches of each chunked run."""
+    k = 2 chunk for its node count and capture time.  Returns each
+    cell's launches: the wrappers' counts outside the graph and the
+    profiled chunk's kernel events."""
     import torch
 
     from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver

@@ -165,9 +165,49 @@ def launch_counts() -> dict:
             for name, (mod, fn, attr) in _counters().items()}
 
 
-def add_launches(counts: dict) -> None:
-    """Add ``counts`` (by kernel, as ``launch_counts``) to the wrappers'
-    counters: the launches a CUDA graph's replays made."""
-    for name, (mod, fn, attr) in _counters().items():
-        wrapper = getattr(mod, fn)
-        setattr(wrapper, attr, getattr(wrapper, attr) + counts.get(name, 0))
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch count to 0."""
+    for mod, fn, attr in _counters().values():
+        setattr(getattr(mod, fn), attr, 0)
+
+
+#: the launch counters on the card while ``count_on_device`` is on: an
+#: int64 tensor, one entry a counter of ``_counters()``, and its index
+_ON_DEVICE: dict = {}
+
+
+def count_on_device(device=None) -> None:
+    """Count launches on ``device`` too, from 0 (None: stop).  A wrapper
+    then adds one to its counter's entry of a device tensor on the stream
+    it launched on, which a CUDA graph's capture records beside the
+    kernel: a replay counts the launches it makes, in an IF node's body
+    only where the body runs.  A graph captured while this is on writes
+    into the tensor; capture it again once this is off."""
+    _ON_DEVICE.clear()
+    if device is None:
+        return
+    counters = _counters()
+    _ON_DEVICE["index"] = {(id(getattr(mod, fn)), attr): i
+                           for i, (mod, fn, attr)
+                           in enumerate(counters.values())}
+    _ON_DEVICE["names"] = list(counters)
+    _ON_DEVICE["counts"] = torch.zeros(len(counters), dtype=torch.int64,
+                                       device=device)
+
+
+def device_launch_counts() -> dict:
+    """The device counters of ``count_on_device``, by kernel (one read)."""
+    counts = _ON_DEVICE["counts"].tolist()
+    return dict(zip(_ON_DEVICE["names"], counts))
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """One more launch in ``wrapper.<attr>``, where the wrapper launched
+    its kernel, and on the device while ``count_on_device`` is on.  Under
+    a stream capture the launch is recorded into a CUDA graph and runs
+    nothing, so the host counts none; the graph's replays do not enter
+    the wrapper."""
+    if _ON_DEVICE:
+        _ON_DEVICE["counts"][_ON_DEVICE["index"][id(wrapper), attr]].add_(1)
+    if not torch.cuda.is_current_stream_capturing():
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

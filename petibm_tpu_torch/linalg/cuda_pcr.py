@@ -22,8 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from .._kernels import (c_function, check_dtype, check_launchable, ptr,
-                        stream)
+from .._kernels import (c_function, check_dtype, check_launchable,
+                        count_launch, ptr, stream)
 from .tridiag import tridiag_solve_pcr
 
 #: the longest line the kernel takes (``pcr::kMaxLine`` in csrc/pcr.cuh)
@@ -145,7 +145,7 @@ def pcr(a, b, c, d, axis: int):
         check_launchable("K6/K7", t)
     shape = (1,) * (3 - a.ndim) + tuple(a.shape)
     x = launch(a, b, c, d, axis3, launch_plan(shape, axis3))
-    pcr.launches += 1
+    count_launch(pcr)
     return x
 
 

@@ -31,8 +31,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .._kernels import (c_function, check_dtype, check_launchable, ptr,
-                        stream)
+from .._kernels import (c_function, check_dtype, check_launchable,
+                        count_launch, ptr, stream)
 from .cuda_pcr import MAX_LINE, PATHS, Plan, block_plan, check_lines, pcr_ref
 from .tridiag import shift
 
@@ -231,7 +231,7 @@ def fused_sweep(phi, rhs, aux, line_axis: int, omega: float):
     shape = (1,) * (3 - phi.ndim) + tuple(phi.shape)
     out = launch(phi, rhs, aux, line_axis, omega,
                  launch_plan(shape, axis3))
-    fused_sweep.launches += 1
+    count_launch(fused_sweep)
     return out
 
 

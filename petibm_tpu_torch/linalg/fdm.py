@@ -280,14 +280,11 @@ def helmholtz_lines(mesh, bcset, c: int) -> list:
 
 
 def set_first(flat: torch.Tensor, value) -> torch.Tensor:
-    """A copy of the 1D ``flat`` with entry 0 set to ``value`` (a number,
-    filled on the device: assigning it would copy it from the host, which
-    a CUDA graph's capture refuses; or a 0-d tensor)."""
+    """A copy of the 1D ``flat`` with entry 0 set to ``value`` (a number or
+    a 0-d tensor, filled on the device: assigning a number would copy it
+    from the host, which a CUDA graph's capture refuses)."""
     out = flat.clone()
-    if isinstance(value, torch.Tensor):
-        out[0] = value
-    else:
-        out[0].fill_(value)
+    out[0].fill_(value)
     return out
 
 
@@ -383,7 +380,7 @@ def make_fdm_solver(fdm, A, opts: dict):
             it.add_(1)
             pred.copy_(more())
 
-        loops.loop("refine", body, pred, it, maxiter)
+        loops.loop("refine", body, pred, maxiter)
         return SolveResult(x=x, iters=it, residual=rn, converged=rn <= tol)
 
     return solve

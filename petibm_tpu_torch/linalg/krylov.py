@@ -131,7 +131,7 @@ def cg(A, b, x0, M=None, atol=1e-6, rtol=0.0, maxiter=10000) -> SolveResult:
         it.add_(1)
         pred.copy_((rr > tol2) & (it < maxiter))
 
-    loops.loop("cg", body, pred, it, maxiter)
+    loops.loop("cg", body, pred, maxiter)
     res = torch.sqrt(rr)
     return SolveResult(x=x, iters=it, residual=res, converged=res <= tol)
 
@@ -182,7 +182,7 @@ def bicgstab(A, b, x0, M=None, atol=1e-6, rtol=0.0,
         it.add_(1)
         pred.copy_((rr > tol2) & (it < maxiter))
 
-    loops.loop("bicgstab", body, pred, it, maxiter)
+    loops.loop("bicgstab", body, pred, maxiter)
     res = _norm(r)
     # the recurrence rr can disagree with the exact norm by cancellation
     # right at the tolerance boundary; either passing counts as converged

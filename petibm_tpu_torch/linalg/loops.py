@@ -34,26 +34,19 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-import torch
-
-from .. import _kernels
-
 
 @dataclasses.dataclass
 class Site:
     """One loop or branch of a step, as a driver ran it: ``cap`` copies of
-    its body (1 for a branch); ``ran`` (a device int) counts the bodies
-    that ran; ``overflow`` (a device bool, loops only) is the predicate
-    after the last copy; ``body_launches`` the kernel launches one body
-    makes and ``body_nodes`` the graph nodes one copy adds (capture
-    only); ``iterations`` the host count (``HostDriver``'s)."""
+    its body (1 for a branch); ``overflow`` (a device bool, loops only) is
+    the predicate after the last copy; ``body_nodes`` the graph nodes one
+    copy adds (capture only); ``iterations`` the host count
+    (``HostDriver``'s)."""
 
     kind: str
     cap: int = 1
     maxiter: int = 1
-    ran: object = None
     overflow: object = None
-    body_launches: dict = dataclasses.field(default_factory=dict)
     body_nodes: int = 0
     iterations: int = 0
 
@@ -66,7 +59,7 @@ class HostDriver:
     def __init__(self, record: bool = False):
         self.sites: list[Site] | None = [] if record else None
 
-    def loop(self, kind: str, body, pred, it, maxiter: int) -> None:
+    def loop(self, kind: str, body, pred, maxiter: int) -> None:
         n = 0
         while bool(pred):
             body()
@@ -90,8 +83,8 @@ class GuardedDriver:
     """Runs ``caps[i]`` guarded copies of the body of site i; ``guard(pred)``
     returns a context manager that runs its block only where ``pred`` is
     true, or None to skip the block (the CPU twin decides on the host).
-    The first copy of each body counts its kernel launches, and its graph
-    nodes with ``nodes()`` where given (capture)."""
+    The first copy of each body counts its graph nodes with ``nodes()``
+    where given (capture)."""
 
     def __init__(self, caps: list[int], guard, nodes=None):
         self.caps = list(caps)
@@ -108,7 +101,6 @@ class GuardedDriver:
             raise RuntimeError("a loop inside a guarded body: the guarded "
                                "driver does not nest sites")
         self._inside = True
-        before = _kernels.launch_counts() if first else None
         try:
             with ctx:
                 body()
@@ -116,9 +108,6 @@ class GuardedDriver:
                     site.body_nodes = self.nodes()
         finally:
             self._inside = False
-        if first:
-            after = _kernels.launch_counts()
-            site.body_launches = {k: after[k] - before[k] for k in after}
 
     def _site(self, kind: str) -> Site:
         i = len(self.sites)
@@ -129,19 +118,15 @@ class GuardedDriver:
         self.sites.append(site)
         return site
 
-    def loop(self, kind: str, body, pred, it, maxiter: int) -> None:
+    def loop(self, kind: str, body, pred, maxiter: int) -> None:
         site = self._site(kind)
         site.maxiter = maxiter
-        start = it.clone()
         for j in range(site.cap):
             self._guarded(site, pred, body, j == 0)
-        site.ran = it - start
         site.overflow = pred.clone()
 
     def cond(self, pred, body) -> None:
-        site = self._site("cond")
-        self._guarded(site, pred, body, True)
-        site.ran = pred.to(torch.int64)
+        self._guarded(self._site("cond"), pred, body, True)
 
 
 _DRIVER = [HostDriver()]
@@ -161,11 +146,11 @@ def use(driver):
         _DRIVER.pop()
 
 
-def loop(kind: str, body, pred, it, maxiter: int) -> None:
-    """Run ``body`` while ``pred`` holds, on the current driver; ``it`` is
-    the loop's device counter, which ``body`` advances, and ``pred``
-    fails once it reaches ``maxiter``."""
-    current().loop(kind, body, pred, it, maxiter)
+def loop(kind: str, body, pred, maxiter: int) -> None:
+    """Run ``body`` while ``pred`` holds, on the current driver; ``body``
+    advances the loop's device counter, and ``pred`` fails once that
+    reaches ``maxiter``."""
+    current().loop(kind, body, pred, maxiter)
 
 
 def cond(pred, body) -> None:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .._kernels import (c_function, check_dtype, check_launchable,
-                        check_vectors, ptr, stream)
+                        check_vectors, count_launch, ptr, stream)
 from ..linalg.mg import Level
 from ..linalg.tridiag import shift
 from ..types import Field
@@ -279,7 +279,7 @@ def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
     check_launchable("K1", phi)
     out = separable_launch(phi, level, separable_plan_on_card(phi)
                            if phi.ndim == 3 else None)
-    poisson_apply_separable.launches += 1
+    count_launch(poisson_apply_separable)
     return out
 
 
@@ -418,9 +418,9 @@ def zblocked_helmholtz_apply(f: torch.Tensor, vecs: dict, periodic,
     check_launchable("K2", f)
     out = launch(f, vecs, periodic, scale,
                  plan_on_card(f, scale is not None))
-    zblocked_helmholtz_apply.launches += 1
+    count_launch(zblocked_helmholtz_apply)
     if scale is not None:
-        zblocked_helmholtz_apply.scaled_launches += 1
+        count_launch(zblocked_helmholtz_apply, "scaled_launches")
     return out
 
 
@@ -714,7 +714,7 @@ def convection3d_apply(ext, inv_dl) -> tuple:
     for e in ext:
         check_launchable("K3", e)
     out = convection_launch(ext, inv_dl, convection_plan_on_card(ext))
-    convection3d_apply.launches += 1
+    count_launch(convection3d_apply)
     return out
 
 

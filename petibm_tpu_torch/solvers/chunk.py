@@ -13,11 +13,9 @@ Counterpart of the JAX package's ``jax.lax.scan`` over its jitted step
 3. capture: on the card, one step as a CUDA graph under the guarded
    driver, which reads the state from static buffers, writes the new
    state back into them (the step's outputs copied in place: one copy of
-   the state a step), and writes the step's stats, each site's bodies
-   run and each loop's overflow flag into row ``j`` of a (k, columns)
-   float64 buffer, ``j`` a device counter.  On the CPU the same step
-   runs once with every body run (as a capture records every body), to
-   count the launches, and each chunk step then runs the guarded driver
+   the state a step), and writes the step's stats and each loop's
+   overflow flag into row ``j`` of a (k, columns) float64 buffer, ``j`` a
+   device counter.  On the CPU each chunk step runs the guarded driver
    with ``if bool(pred):`` as its guard: the graph's plain twin.
 
 A chunk copies the state into the static buffers, replays the graph k
@@ -28,11 +26,10 @@ start), the k steps run through the host driver, the caps of the loops
 that overflowed double and the step is captured again
 (``chunk_overflows``).
 
-Launch counts: the capture records each wrapper's launches outside the
-guards and the launches of one body of each site; after each chunk's
-read, the wrappers' counters gain the first times k plus each body's
-times the bodies the rows say ran (``chunk_launches`` sums them on
-either device).
+A capture launches nothing, so the kernel wrappers' host counters count
+no launch there (``_kernels.count_launch``), and a replay does not enter
+the wrappers: a graph captured while ``_kernels.count_on_device`` is on
+counts its replays' launches on the card.
 """
 
 from __future__ import annotations
@@ -44,7 +41,6 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import _kernels
 from ..linalg import loops
 from ..utils import graphs
 
@@ -98,12 +94,6 @@ def scalar_stats(stats: dict) -> dict:
     return {k: v for k, v in stats.items() if v.dim() == 0}
 
 
-def to_host(stats: dict) -> dict:
-    """Device stats as host values, in one read."""
-    layout = StatsLayout(stats)
-    return layout.unpack(layout.pack(stats).cpu().numpy())
-
-
 def _write_back(static: list, new: list) -> None:
     """Copy the step's new state into the static buffers; an output that
     shares memory with another buffer is copied out first, so no copy
@@ -126,6 +116,7 @@ class ChunkRunner:
         self.cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
         self.caps: list[int] = []
+        #: the step's loops and branches, as its warm-up ran them
         self.sites: list[loops.Site] = []
         self.graph = None
         #: the capture's numbers: seconds, nodes, memory, caps
@@ -150,15 +141,15 @@ class ChunkRunner:
         driver = loops.HostDriver(record=True)
         with self._side(), loops.use(driver):
             _, stats = self.solver._step_fn(state)
-        self.solver.discarded_steps.append(to_host(scalar_stats(stats)))
+        self.sites = driver.sites
         self.caps = [1 if s.kind == "cond"
                      else min(s.maxiter, max(MIN_CAP, 2 * s.iterations))
-                     for s in driver.sites]
+                     for s in self.sites]
         # the rows outlive a replay: allocated before any capture (a
         # graph reuses the memory of what it freed before an allocation)
         self.layout = StatsLayout(stats)
         self.rows = torch.empty(
-            (self.k, self.layout.width + 2 * len(driver.sites)),
+            (self.k, self.layout.width + len(self.sites)),
             dtype=torch.float64, device=self.device)
         self.info["warmup_s"] = time.perf_counter() - t0
         self.capture()
@@ -174,11 +165,9 @@ class ChunkRunner:
             raise RuntimeError("the step changed the state's structure")
         _write_back(self.static, new)
         zero = torch.zeros((), dtype=torch.bool, device=self.device)
-        ran = [s.ran for s in driver.sites]
         overflow = [zero if s.overflow is None else s.overflow
                     for s in driver.sites]
         row = torch.cat([self.layout.pack(stats),
-                         torch.stack(ran).to(torch.float64),
                          torch.stack(overflow).to(torch.float64)])
         if row.numel() != self.rows.shape[1]:
             raise RuntimeError("the step's stats changed their layout")
@@ -186,13 +175,11 @@ class ChunkRunner:
         self.j.add_(1)
 
     def capture(self) -> None:
-        """Capture the step (the CPU: run its every body once) and record
-        its launches outside the guards and in one body of each site."""
+        """The static buffers and, on the card, the step's graph."""
         leaves, self.spec = pytree.tree_flatten(self.solver.state)
         self.static = [t.clone() for t in leaves]
         self.j = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.graph = None
-        before = _kernels.launch_counts()
         if self.cuda:
             dev = self.device
             torch.cuda.synchronize(dev)
@@ -216,20 +203,6 @@ class ChunkRunner:
                                                for s in driver.sites),
                 peak_bytes=torch.cuda.max_memory_allocated(dev) - mem0,
                 held_bytes=torch.cuda.memory_allocated(dev) - mem0)
-        else:
-            saved = [t.clone() for t in self.static]
-            driver = loops.GuardedDriver(
-                self.caps, lambda pred: contextlib.nullcontext())
-            self._step_into_static(driver)
-            for s, v in zip(self.static, saved):
-                s.copy_(v)
-        after = _kernels.launch_counts()
-        # a capture launches nothing: its counts go back
-        _kernels.add_launches({k: before[k] - after[k] for k in after})
-        self.sites = driver.sites
-        self.outside = {k: after[k] - before[k]
-                        - sum(s.cap * s.body_launches.get(k, 0)
-                              for s in self.sites) for k in after}
         self.info["caps"] = list(self.caps)
 
     # ------------------------------------------------------------------
@@ -257,31 +230,14 @@ class ChunkRunner:
                 self._step_into_static(
                     loops.GuardedDriver(self.caps, loops.cpu_guard))
         rows = self.rows.cpu().numpy()  # the chunk's one host read
-        width, nsites = self.layout.width, len(self.sites)
-        ran = rows[:, width:width + nsites]
-        overflow = rows[:, width + nsites:].any(axis=0)
-        self._count_launches(ran)
-        stats = [self.layout.unpack(r) for r in rows[:, :width]]
+        width = self.layout.width
+        overflow = rows[:, width:].any(axis=0)
         if overflow.any():
-            self.solver.discarded_steps.extend(
-                {k: v for k, v in s.items() if np.ndim(v) == 0} for s in stats)
             self.caps = [min(site.maxiter, 2 * cap) if over else cap
                          for cap, site, over in zip(self.caps, self.sites,
                                                     overflow)]
             return None
         self.solver.state = pytree.tree_unflatten(
             [t.clone() for t in self.static], self.spec)
-        return stats
-
-    def _count_launches(self, ran: np.ndarray) -> None:
-        totals = ran.sum(axis=0)
-        counts = {k: self.outside[k] * self.k
-                  + sum(int(site.body_launches.get(k, 0) * n)
-                        for site, n in zip(self.sites, totals))
-                  for k in self.outside}
-        if self.cuda:
-            _kernels.add_launches(counts)
-        acc = self.solver.chunk_launches
-        for k, n in counts.items():
-            acc[k] = acc.get(k, 0) + n
+        return [self.layout.unpack(r) for r in rows[:, :width]]
 

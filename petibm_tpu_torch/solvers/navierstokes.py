@@ -175,11 +175,6 @@ class NavierStokesSolver:
         self._chunk = None
         #: chunks whose loops overflowed their caps (rerun and recaptured)
         self.chunk_overflows = 0
-        #: host stats of the steps run and thrown away: a chunk's warm-up
-        #: and the replays of a chunk that overflowed
-        self.discarded_steps: list[dict] = []
-        #: the launches the chunks' replays made, by kernel
-        self.chunk_launches: dict = {}
         dtype_name = params.get("dtype") or "float32"
         if dtype_name not in _DTYPES:
             raise ValueError(f"parameters.dtype must be float32 or float64, "

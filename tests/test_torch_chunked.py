@@ -299,14 +299,14 @@ def test_guarded_loop_matches_host_and_jax(case):
     maxiter = int(opts.get("max_it", 10000))
     # caps at, above and (where the loop runs) below what it needs
     guarded, site = _guarded(tsolve, b, x0, n)
-    assert not bool(site.overflow) and int(site.ran) == n
+    assert not bool(site.overflow) and int(guarded.iters) == n
     _assert_results_equal(guarded, host)
     guarded, site = _guarded(tsolve, b, x0, n + 3)
     assert not bool(site.overflow)
     _assert_results_equal(guarded, host)
     if n > 1 and n < maxiter:
         cut, site = _guarded(tsolve, b, x0, n - 1)
-        assert bool(site.overflow) and int(site.ran) == n - 1
+        assert bool(site.overflow) and int(cut.iters) == n - 1
         short = dict(opts, max_it=n - 1)
         want = _loop_solvers(which, method, short)[0](_tensors(b),
                                                       _tensors(x0))
@@ -331,12 +331,12 @@ def test_guarded_loop_matches_host_and_jax(case):
 
 def test_guarded_cond_runs_where_pred_holds():
     x = torch.zeros(3, dtype=torch.float64)
-    for flag in (False, True):
+    for flag, want in ((False, 0.0), (True, 1.0), (False, 1.0)):
         driver = loops.GuardedDriver([1], loops.cpu_guard)
         with loops.use(driver):
             loops.cond(torch.tensor(flag), lambda: x.add_(1.0))
-        assert int(driver.sites[0].ran) == int(flag)
-    assert torch.equal(x, torch.ones(3, dtype=torch.float64))
+        assert [s.kind for s in driver.sites] == ["cond"]
+        assert torch.equal(x, torch.full((3,), want, dtype=torch.float64))
 
 
 # ----------------------------------------------------------------------
@@ -369,8 +369,8 @@ def test_overflow_reruns_and_recaptures(tmp_path, monkeypatch):
     # MG-CG (its 8-11 iterations a step overflow every chunk here)
     assert [s.kind for s in sites] == ["cg", "refine", "cg"]
     assert chunked._chunk.caps[2] == 2 ** chunked.chunk_overflows
-    # the discarded steps: the warm-up and each overflowed chunk's
-    assert len(chunked.discarded_steps) == 1 + 4 * chunked.chunk_overflows
+    # each of the three chunks overflowed: caps 1, 2 and 4 against 8-11
+    assert chunked.chunk_overflows == 3
 
 
 def test_divergence_in_chunk_names_its_step(tmp_path):
@@ -468,12 +468,11 @@ def _counting(monkeypatch, module, name):
 
 @pytest.mark.parametrize("fdm", [True, False])
 def test_launch_reconstruction_equals_calls(fdm, tmp_path, monkeypatch):
-    """The launches the engine reconstructs for a chunk (outside the
-    guards x k, plus each body's launches x the bodies the rows say ran)
-    equal the wrappers' calls in the chunk, and the calls the stats
-    imply: K1 2 + p_iters a step (FDM), or 2 per V-cycle and a V-cycle
-    per CG iteration and one more (MG-CG), with K4/K5 at each V-cycle's
-    sweeps."""
+    """The launches ``chip_smoke.py`` reconstructs from a chunk's stats
+    equal the wrappers' calls in the chunk (the guarded step's CPU twin,
+    which runs the bodies a replay runs): K1 2 + p_iters a step (FDM), or
+    2 per V-cycle and a V-cycle per CG iteration and one more (MG-CG),
+    with K4/K5 at each V-cycle's sweeps."""
     from petibm_tpu_torch.linalg import cuda_sweep, mg
 
     k1 = _counting(monkeypatch, cs, "poisson_apply_separable")
@@ -482,15 +481,13 @@ def test_launch_reconstruction_equals_calls(fdm, tmp_path, monkeypatch):
     cfg = cylinder(tmp_path, "run", nt=8, nsave=8, nrestart=8,
                    stepsPerDispatch=4, fdm=fdm)
     solver = DecoupledIBPMSolver(cfg, device="cpu")
-    solver.advance_chunk()        # warm-up, capture pass, one chunk
-    first = dict(solver.chunk_launches)
+    solver.advance_chunk()        # warm-up and one chunk
     before = (k1.launches, sweep.launches)
     solver.advance_chunk()
     calls = {"K1": k1.launches - before[0],
              "K4/K5": sweep.launches - before[1]}
-    got = {key: solver.chunk_launches[key] - first[key] for key in calls}
-    assert got == calls
     hist = solver.stats_history[4:]
+    assert [h["ite"] for h in hist] == [5, 6, 7, 8]
     if fdm:
         assert calls == {"K1": sum(2 + h["p_iters"] for h in hist),
                          "K4/K5": 0}
@@ -499,9 +496,7 @@ def test_launch_reconstruction_equals_calls(fdm, tmp_path, monkeypatch):
         assert calls == {
             "K1": 2 * vcycles,
             "K4/K5": solver.poisson_mg.sweeps_per_vcycle() * vcycles}
-    # nothing else launched
-    assert all(v == 0 for key, v in solver.chunk_launches.items()
-               if key not in calls)
+    assert solver.chunk_overflows == 0
     solver.close()
 
 
@@ -585,4 +580,35 @@ def test_cuda_chunk_replays_without_sync(tmp_path):
     rows = solver._chunk.rows.cpu()
     assert rows.shape[0] == 4 and bool(torch.isfinite(rows).all())
     assert [h["ite"] for h in solver.stats_history] == list(range(1, 9))
+    solver.close()
+
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_counts_launches_on_device(tmp_path):
+    """With ``count_on_device`` on, a replayed chunk counts K1's launches
+    on the card (2 + p_iters a step) while its wrappers' host counters,
+    and a capture's, stay 0."""
+    _card()
+    from petibm_tpu_torch import _kernels
+
+    cfg = cylinder(tmp_path, "run", dtype="float32", nt=4, nsave=100,
+                   nrestart=100, stepsPerDispatch=4)
+    solver = DecoupledIBPMSolver(cfg, device="cuda")
+    solver.run()                  # warm-up, capture, one chunk
+    _kernels.count_on_device("cuda")
+    try:
+        _kernels.reset_launch_counts()
+        solver._chunk.capture()
+        solver.nt += 4
+        solver.run()
+        counts = _kernels.device_launch_counts()
+    finally:
+        _kernels.count_on_device(None)
+    solver._chunk.capture()
+    assert all(n == 0 for n in _kernels.launch_counts().values())
+    assert solver.chunk_overflows == 0
+    hist = solver.stats_history[4:]
+    assert counts == dict({k: 0 for k in counts},
+                          K1=sum(2 + h["p_iters"] for h in hist))
     solver.close()
