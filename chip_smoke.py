@@ -39,15 +39,15 @@ Phases, in order (any failure raises and the script exits non-zero):
    the card against the plain-PyTorch CPU path;
 8. run the three cells again with ``fdm: false``, the multigrid-
    preconditioned CG pressure solve (the smoother's sweeps K4/K5 on
-   non-periodic levels, K6/K7 on periodic ones): the flagship (20 warm-up
-   and 50 timed steps), the sphere (20 steps) and the 256^3 TGV (10
+   non-periodic levels, K6/K7 on periodic ones): the flagship (10 warm-up
+   and 30 timed steps), the sphere (20 steps) and the 256^3 TGV (10
    steps, the energy does not grow), each through ``run()`` with every
    launch count checked against the stats and its device busy share
    profiled over a few more steps (device ms per V-cycle beside the
    profile window's p_iters);
-9. A/B the three MG-CG paths with the kernels on and off from their
-   developed states, and small MG-CG cases on the card against the CPU
-   path;
+9. A/B the three MG-CG paths (1 step each, float64 and float32) with
+   the kernels on and off from their developed states, and small MG-CG
+   cases on the card against the CPU path;
 10. run the coupled IBPM through ``IBPMSolver.run()``:
    ``examples/ibpm/cylinder2dRe550`` and its pinned-pressure twin
    ``cylinder2dRe550_GPU`` (450^2 stretched, 314 points, float32) for
@@ -56,7 +56,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    and max 0.12 of the Koumoutsakos & Leonard (1995) curve over t in
    [0.5, 3], setup seconds (the Schur build) and ms/step printed, one
    JSON line each; Re=550 with ``fdm: false`` (CG on the coupled system,
-   the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 5
+   the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 3
    steps with its launches against the stats, one more step profiled,
    then one step A/B'd with the kernels off; small 2D and 3D coupled
    cases (K2a, K3) on the card against the CPU path;
@@ -121,6 +121,20 @@ Phases, in order (any failure raises and the script exits non-zero):
    launches held against the stats, the wrappers' host counters 0 over
    it (a replay does not enter them); one ``{"chunked": ...}`` JSON
    line.
+
+15. the domain decomposition (``parameters.sharding``): two ranks on the
+   one card, processes of this script (``--phase15-rank``), through the
+   solver API, NCCL with a host id of its own per rank
+   (``P15_NCCL_ENV``): (a) the flagship on a [1, 2] mesh for 50 steps, (b)
+   on [2, 1] for 20, (c) the sphere on [1, 2] for 10, each beside a
+   single-rank card run from the same start (fields and forces within
+   1e-4 of their largest value, v/p/f iterations equal on 95% of the
+   steps), (d) the 32^2 cylinder in float64 beside a single-rank CPU run
+   (1e-9, iterations equal); ms/step of each rank beside the single
+   rank's, the halo exchanges, all-reduces and all-to-alls a step and
+   their bytes; one ``{"distributed": ...}`` JSON line a cell.  The ranks
+   launch no hand kernel: the decomposed path has none, in either
+   package.
 
 A kernel wrapper counts a launch where it launches its kernel: on the
 host outside a CUDA graph's capture, and on the card too while
@@ -407,9 +421,15 @@ def tgv3d_initial_state(solver) -> None:
     solver.state = state_from_numpy(state, solver.device, solver.dtype)
 
 
+#: seconds the timed batches of one ``_time_ms`` call may take
+TIME_BUDGET_S = 1.0
+
+
 def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
     """Median times of one ``fn(arg)`` over ``applies`` calls, in batches
-    of ``batch`` after a warm-up: (device ms, host ms).
+    of ``batch`` after a warm-up: (device ms, host ms).  A function whose
+    warm-up calls take more than ``TIME_BUDGET_S`` over all the batches
+    (a twin of a few ms and more) gets fewer batches, at least 2.
 
     Device: CUDA events around a batch that the host enqueued while the
     card was held busy by a spin kernel, so the batch runs back to back
@@ -418,11 +438,16 @@ def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
     enqueues one call at a time waits."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(10):
         fn(arg)
     torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / 10
+    batches = max(2, min(applies // batch,
+                         int(TIME_BUDGET_S / (2 * batch * per_call))))
     device, host = [], []
-    for _ in range(applies // batch):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(50_000_000)  # ~25 ms: outlasts the enqueueing
@@ -465,6 +490,14 @@ def phase0_device() -> dict:
                               "written)" if hdf5_available() else
                               "no (the solvers write their text logs "
                               "only; restarts are refused)"))
+    try:
+        import yaml  # noqa: F401
+
+        has_yaml = "yes"
+    except ImportError:
+        has_yaml = "no"
+    # every phase passes dicts (phase 15's ranks read theirs as JSON)
+    print(f"pyyaml imports: {has_yaml} (configs go as dicts either way)")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -685,7 +718,7 @@ def phase2_kernels(tmp: str) -> dict:
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype)[6:]
         size = torch.finfo(dtype).bits // 8
-        applies = 200 if dtype == torch.float32 else 40
+        applies = 100 if dtype == torch.float32 else 40
         tol = tols[dtype]
         # K1: the flagship's, the oscillating cylinder's and the sphere's
         # pressure, bit for bit
@@ -1478,8 +1511,8 @@ def _timed_run(solver, warm: int, total: int) -> float:
 
 
 def phase8_mg(tmp: str) -> tuple:
-    """The three cells with ``fdm: false`` through run(): the flagship (20
-    warm-up + 50 timed steps), the sphere (5 + 15), the 256^3 TGV (10 in
+    """The three cells with ``fdm: false`` through run(): the flagship (10
+    warm-up + 30 timed steps), the sphere (5 + 15), the 256^3 TGV (10 in
     chunks, the energy read between them); every launch count against the
     stats.  Returns the three solvers and the launches of each run."""
     import numpy as np
@@ -1493,15 +1526,15 @@ def phase8_mg(tmp: str) -> tuple:
     flag = DecoupledIBPMSolver(flagship_config(os.path.join(tmp, "mg_flag"),
                                                fdm=False), device=DEVICE)
     _reset_counts()
-    elapsed = _timed_run(flag, 20, 70)
+    elapsed = _timed_run(flag, 10, 40)
     counts.append(_counts())
-    _check_run(flag.stats_history, 70, "vpf")
+    _check_run(flag.stats_history, 40, "vpf")
     _check_counts("flagship mg", counts[-1], _mg_counts(flag))
     st = flag.state
     _check_fields({"p": st["p"], "f": st["f"]},
                   {"p": flag.mesh.shape(3), "f": (flag.bodies.n_pts, 2)})
     fx, fy = flag.bodies.avg_forces(st["f"].cpu().numpy())[0]
-    _report_mg("flagship mg", flag, elapsed, 50,
+    _report_mg("flagship mg", flag, elapsed, 30,
                f"; t = {flag.t:.4f}: Cd {2 * fx:.5f}, Cl {2 * fy:.5f}")
 
     # the sphere: 3D K4/K5, K1, BiCGStab on K2a, K3
@@ -1560,8 +1593,9 @@ def phase8_mg(tmp: str) -> tuple:
 
 def phase9_mg_ab(tmp: str, flag, sph, tgv) -> None:
     """The MG-CG paths with the kernels on and off from their developed
-    states (float64 to 1e-10 with equal iteration counts, float32 to
-    1e-4), then small MG-CG cases on the card against the CPU path."""
+    states, one step each (float64 to 1e-10 with equal iteration counts,
+    float32 to 1e-4), then small MG-CG cases on the card against the CPU
+    path."""
     from petibm_tpu_torch.convert import state_to_numpy
     from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
     from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
@@ -1572,16 +1606,16 @@ def phase9_mg_ab(tmp: str, flag, sph, tgv) -> None:
                        device=DEVICE)
         return make_solver
 
+    # one step each: the stencil side runs the smoother's plain twins,
+    # ~3 s a step on the sphere
+    tols = dict(f32_tol=1e-4, f64_tol=1e-10, same_iters=True)
     _ab("450x450 mg", make(flagship_config, DecoupledIBPMSolver),
-        state_to_numpy(flag.state), 4, _ibm_fields, f32_tol=1e-4,
-        f64_tol=1e-10, same_iters=True)
+        state_to_numpy(flag.state), 1, _ibm_fields, **tols)
     _ab("sphere mg", make(sphere_config, DecoupledIBPMSolver),
-        state_to_numpy(sph.state), 5, _ibm_fields, f32_tol=1e-4,
-        f64_tol=1e-10, same_iters=True)
+        state_to_numpy(sph.state), 1, _ibm_fields, **tols)
     _ab("tgv256 mg", make(tgv3d_config, NavierStokesSolver),
-        state_to_numpy(tgv.state), 2,
-        lambda s: dict(s.state["q"], p=s.state["p"]), f32_tol=1e-4,
-        f64_tol=1e-10, same_iters=True)
+        state_to_numpy(tgv.state), 1,
+        lambda s: dict(s.state["q"], p=s.state["p"]), **tols)
     _cuda_vs_cpu("32^2 mg", lambda dev, tag: DecoupledIBPMSolver(small_config(
         os.path.join(tmp, f"small_mg_{tag}"), nt=20, dtype="float64",
         fdm=False), device=dev), ("p", "f"))
@@ -1713,13 +1747,15 @@ def phase10_coupled(tmp: str) -> list:
     if mg.poisson_mg._fused_apply0 is None:
         raise AssertionError("re550 mg: K1 is not the V-cycle's level 0")
     _reset_counts()
-    elapsed = _timed_run(mg, 1, 5)
+    elapsed = _timed_run(mg, 1, 3)
     counts.append(_counts())
-    _check_run(mg.stats_history, 5, "vp")
+    _check_run(mg.stats_history, 3, "vp")
     _check_counts("re550 mg", counts[-1], _mg_counts(mg, 1))
-    _report_mg("re550 mg", mg, elapsed, 4, profile_steps=1)
+    _report_mg("re550 mg", mg, elapsed, 2, profile_steps=1)
     mg.close()
     part("re550 mg")
+    # its stencil side runs the smoother's twins, ~20 s a step in each
+    # dtype
     _ab("re550 mg", make_mg, state_to_numpy(mg.state), 1, _ibm_fields,
         f32_tol=1e-4, f64_tol=1e-10, same_iters=True)
     part("re550 mg A/B")
@@ -2932,6 +2968,240 @@ def phase14_chunked(tmp: str, card: str) -> list:
     return [r["launches"] for r in records]
 
 
+#: phase 15's cells: (name, config function, mesh shape, steps, dtype)
+P15_CELLS = (("flagship_1x2", "flagship_config", [1, 2], 50, "float32"),
+             ("flagship_2x1", "flagship_config", [2, 1], 20, "float32"),
+             ("sphere_1x2", "sphere_config", [1, 2], 10, "float32"),
+             ("cylinder_f64", "small_config", [1, 2], 5, "float64"))
+#: two ranks on one card: NCCL refuses two ranks of a communicator on one
+#: device ("Duplicate GPU detected", scripts/probe_nccl_one_card.py) unless
+#: each rank has a host id of its own; the socket transport on loopback
+#: then carries them
+P15_NCCL_ENV = {"NCCL_SOCKET_IFNAME": "lo", "NCCL_IB_DISABLE": "1",
+                "NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1"}
+
+
+def _p15_solver(cfg: dict, device: str):
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+
+    return DecoupledIBPMSolver(cfg, device=device)
+
+
+def _p15_steps(solver, steps: int) -> dict:
+    """``steps`` steps from the solver's start: each step's stats, the
+    ms/step of steps 2.. (host clock, synchronized), the collectives of
+    those steps and the wrappers' kernel launches over all of them."""
+    import torch
+
+    from petibm_tpu_torch.parallel import counters, reset_counters
+
+    sync = (torch.cuda.synchronize if solver.device.type == "cuda"
+            else (lambda: None))
+    stats = []
+    if solver.device.type == "cuda":
+        _reset_counts()
+    t0 = None
+    for k in range(steps):
+        if k == 1:
+            sync()
+            reset_counters()
+            t0 = time.perf_counter()
+        solver.state, s = solver._step_fn(solver.state)
+        stats.append({key: float(v) for key, v in s.items() if key != "f"})
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    comm = counters()
+    launches = _counts() if solver.device.type == "cuda" else {}
+    return {"stats": stats, "ms": ms, "comm": comm, "launches": launches}
+
+
+def _p15_fields(solver) -> dict:
+    from petibm_tpu_torch.convert import state_to_numpy
+
+    full = state_to_numpy(solver.state, solver.part)
+    out = dict(full["q"], p=full["p"])
+    if "f" in full:
+        out["f"] = full["f"]
+    return out
+
+
+def phase15_rank(spec_path: str, rank: int) -> None:
+    """One rank of phase 15 (run as ``chip_smoke.py --phase15-rank SPEC
+    RANK``): every cell of the spec decomposed on its mesh, through the
+    solver API; writes its timings and counters, and rank 0 the gathered
+    fields, under the spec's ``out``."""
+    import numpy as np
+    import torch
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.set_num_threads(1)
+    report = {}
+    for cell in spec["cells"]:
+        cfg = cell["config"]
+        cfg["parameters"]["sharding"] = {"nDevices": spec["world"],
+                                         "shape": cell["shape"]}
+        cfg["parameters"]["distributed"] = {
+            "coordinator": f"localhost:{spec['port']}",
+            "numProcesses": spec["world"], "processId": rank}
+        solver = _p15_solver(cfg, spec["device"])
+        run = _p15_steps(solver, cell["steps"])
+        fields = _p15_fields(solver)
+        solver.close()
+        report[cell["name"]] = {k: run[k] for k in ("ms", "comm",
+                                                    "launches", "stats")}
+        report[cell["name"]]["backend"] = solver.part.pmesh.backend
+        report[cell["name"]]["device"] = str(solver.device)
+        if rank == 0:
+            np.savez(os.path.join(spec["out"], f"{cell['name']}.npz"),
+                     **fields)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _p15_launch(spec: dict, timeout: float) -> list:
+    """The ranks as processes of this script, started together; their
+    reports by rank.  Any rank that fails, or does not end within
+    ``timeout`` seconds, fails the phase; every rank is stopped."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        spec["port"] = sk.getsockname()[1]
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    procs = []
+    for rank in range(spec["world"]):
+        env = dict(os.environ)
+        if spec["device"].startswith("cuda"):  # NCCL
+            env.update(P15_NCCL_ENV, NCCL_HOSTID=f"petibm-rank-{rank}")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase15-rank",
+             path, str(rank)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    errors, deadline = [], time.perf_counter() + timeout
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                _, err = proc.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                errors.append(f"rank {rank} did not end within {timeout} s")
+                continue
+            if proc.returncode != 0:
+                errors.append(f"rank {rank} exited {proc.returncode}:\n"
+                              f"{err[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if errors:
+        raise AssertionError("phase 15: " + "\n".join(errors))
+    reports = []
+    for rank in range(spec["world"]):
+        with open(os.path.join(spec["out"], f"rank{rank}.json")) as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def _p15_iters(dec: list, ref: list) -> tuple:
+    """The v/p/f iteration counts of each step of both runs: the share
+    of steps where all three are equal, and the steps where they differ
+    (with both runs' counts)."""
+    keys = [k for k in ("v_iters", "p_iters", "f_iters") if k in ref[0]]
+    differ = [(n + 1, [int(d[k]) for k in keys], [int(r[k]) for k in keys])
+              for n, (d, r) in enumerate(zip(dec, ref))
+              if any(d[k] != r[k] for k in keys)]
+    return 1.0 - len(differ) / len(ref), differ
+
+
+def phase15_distributed(tmp: str, card: str) -> None:
+    """The decomposed step (``parameters.sharding``; ``parallel/``): two
+    ranks on the one card, processes of this script, each from the same
+    start as a single-rank run, through the solver API.  (a) the
+    flagship on a [1, 2] mesh, 50 steps; (b) on [2, 1], 20 steps; (c) the
+    sphere of phase 5 on [1, 2], 10 steps: u, v(, w), p and f within
+    1e-4 of max |field| of the single-rank card run (float32) and the
+    v/p/f iterations equal on at least 95% of the steps (the others
+    listed); (d) the 32^2 cylinder in float64 on the card against a
+    single-rank CPU run, 5 steps, fields and forces within 1e-9 and the
+    iterations equal on every step.  Prints the backend, ms/step of each
+    rank beside the single rank's (two ranks share one card: not a
+    scaling number), and the halo exchanges, all-reduces and
+    all-to-alls a step with the bytes this rank sends; the ranks launch
+    no hand kernel (the JAX package's gates under a mesh)."""
+    import numpy as np
+
+    funcs = {"flagship_config": flagship_config,
+             "sphere_config": sphere_config, "small_config": small_config}
+    out = os.path.join(tmp, "p15")
+    os.makedirs(out)
+    cells = []
+    for name, func, shape, steps, dtype in P15_CELLS:
+        cfg = funcs[func](os.path.join(out, name), nt=steps, dtype=dtype)
+        cells.append({"name": name, "config": cfg, "shape": shape,
+                      "steps": steps})
+    spec = {"world": 2, "device": DEVICE, "out": out,
+            "cells": json.loads(json.dumps(cells))}
+    # the backend follows the device (multihost.maybe_initialize)
+    print(f"phase 15: 2 ranks on {card}, backend "
+          + ("nccl (NCCL_HOSTID per rank, socket transport on lo)"
+             if DEVICE.startswith("cuda") else "gloo"))
+    t0 = time.perf_counter()
+    reports = _p15_launch(spec, timeout=240.0)
+    print(f"phase 15 ranks done in {time.perf_counter() - t0:.1f} s")
+    failures = []
+    for cell, (name, _, shape, steps, dtype) in zip(cells, P15_CELLS):
+        ref_dev = "cpu" if dtype == "float64" else DEVICE
+        cfg = json.loads(json.dumps(cell["config"]))
+        cfg["output"] = os.path.join(out, name + "-single")
+        cfg["logs"] = cfg["output"]
+        solver = _p15_solver(cfg, ref_dev)
+        ref = _p15_steps(solver, steps)
+        want = _p15_fields(solver)
+        solver.close()
+        got = dict(np.load(os.path.join(out, f"{name}.npz")))
+        rel = {k: float(np.abs(got[k] - want[k]).max()
+                        / max(np.abs(want[k]).max(), 1e-30)) for k in want}
+        absd = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        share, differ = _p15_iters(reports[0][name]["stats"], ref["stats"])
+        ms = [r[name]["ms"] for r in reports]
+        comm = reports[0][name]["comm"]
+        per_step = {k: {"calls": v["calls"] / (steps - 1),
+                        "bytes": v["bytes"] / (steps - 1)}
+                    for k, v in comm.items() if k != "gather"}
+        launches = [r[name]["launches"] for r in reports]
+        rec = {"cell": name, "mesh": shape, "steps": steps, "dtype": dtype,
+               "backend": reports[0][name]["backend"],
+               "rank_devices": [r[name]["device"] for r in reports],
+               "reference": ref_dev, "max_rel_diff": rel,
+               "max_abs_diff": absd, "iters_equal_share": share,
+               "iters_differ": differ[:10], "ms_per_step_ranks": ms,
+               "ms_per_step_single": ref["ms"],
+               "collectives_per_step_rank0": per_step,
+               "rank_kernel_launches": launches, "card": card}
+        print(json.dumps({"distributed": rec}))
+        if any(any(v for v in n.values()) for n in launches):
+            failures.append(f"{name}: a rank launched a hand kernel")
+        if dtype == "float64":
+            bad = {k: v for k, v in absd.items() if not v <= 1e-9}
+            if bad or differ:
+                failures.append(f"{name}: {bad} above 1e-9 or iterations "
+                                f"differ at {differ[:5]}")
+        else:
+            bad = {k: v for k, v in rel.items() if not v <= 1e-4}
+            if bad or share < 0.95:
+                failures.append(f"{name}: {bad} above 1e-4 or iterations "
+                                f"equal on {share:.2%} of steps")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+
+
 def main() -> int:
     import tempfile
 
@@ -2967,6 +3237,8 @@ def main() -> int:
         done(13)
         counts_chunked = phase14_chunked(tmp, _smi())
         done(14)
+        phase15_distributed(tmp, _smi())
+        done(15)
     # each main path's launches, counted from 0 just before it ran
     runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
             + counts_coupled + counts_moving + counts_windowed
@@ -2994,4 +3266,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase15-rank":
+        phase15_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

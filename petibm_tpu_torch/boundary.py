@@ -9,6 +9,15 @@ and evolve only for convective BCs.  ``extend`` pads a field by one ghost
 layer per direction (periodic wrap or ``a0*target + a1``); the plain
 interior stencil on the extended array is the reference's folded-BC
 operator plus its MatShell correction.
+
+Under a domain decomposition (``part``, a ``parallel.dist.Partition``)
+fields are the rank's blocks: ``extend`` takes a block's interior sides
+from the neighbouring ranks' halo (periodic wrap across ranks included)
+and only its domain-wall sides from the BCs, and the ``bcstate`` face
+arrays are the block's segment of each face, so ``init_state``,
+``update_eqs`` and ``update_ghost_values`` run on the segment as they
+stand (no quantity of theirs is global).  A block off a face keeps a
+segment it never reads.
 """
 
 from __future__ import annotations
@@ -59,19 +68,14 @@ def _static_a0(bctype: BCType, same_dir: bool) -> float:
     return 0.0
 
 
-def _pad1(g: torch.Tensor, axis: int, wrap: bool) -> torch.Tensor:
-    """One layer on each side of ``axis``: periodic images or edge copies."""
-    n = g.shape[axis]
-    lo = g.narrow(axis, n - 1 if wrap else 0, 1)
-    hi = g.narrow(axis, 0 if wrap else n - 1, 1)
-    return torch.cat([lo, g, hi], dim=axis)
-
-
 class BoundarySet:
     """All face BCs of a simulation (reference: boundarysimple.cpp:44-146)."""
 
-    def __init__(self, mesh: StaggeredMesh, config: dict):
+    def __init__(self, mesh: StaggeredMesh, config: dict, part=None):
+        """``part``: the rank's ``Partition`` of a decomposed run, else
+        None."""
         self.mesh = mesh
+        self.part = part
         self.dim = mesh.dim
         self.specs: dict[tuple[int, int], FaceBC] = {}
 
@@ -113,6 +117,20 @@ class BoundarySet:
                         raise ValueError(
                             f"missing BC for field {Field(f).name} at "
                             f"{BCLoc(2 * d + side).name}")
+
+    def touches(self, d: int, side: int) -> bool:
+        """Whether this rank's block lies on the face (always, undivided)."""
+        return self.part is None or self.part.touches(d, side)
+
+    def _halo(self, x: torch.Tensor, d: int) -> tuple:
+        """The layers beyond ``x`` along direction ``d``, (below, above):
+        the neighbouring ranks' or the periodic images, None at a wall."""
+        if self.part is not None:
+            return self.part.halo(x, d)
+        if not self.mesh.periodic[d]:
+            return None, None
+        axis = self.mesh.axis_of(d)
+        return x.narrow(axis, x.shape[axis] - 1, 1), x.narrow(axis, 0, 1)
 
     # ------------------------------------------------------------------
     def _target(self, q: dict, spec: FaceBC) -> torch.Tensor:
@@ -200,12 +218,12 @@ class BoundarySet:
         done: list[int] = []
         for d in dirs:
             axis = mesh.axis_of(d)
-            if mesh.periodic[d]:
-                out = _pad1(out, axis, wrap=True)
-                done.append(d)
-                continue
+            halo = self._halo(out, d)
             ghosts = []
             for side, idx in ((0, 0), (1, out.shape[axis] - 1)):
+                if halo[side] is not None:
+                    ghosts.append(halo[side])
+                    continue
                 spec = self.specs[(field, 2 * d + side)]
                 g = spec.a0 * out.narrow(axis, idx, 1)
                 if not homogeneous:
@@ -223,8 +241,14 @@ class BoundarySet:
         already-extended directions (wrap if periodic, else edge)."""
         g = a1.unsqueeze(face_axis)
         for dprev in done_dirs:
-            g = _pad1(g, self.mesh.axis_of(dprev),
-                      wrap=bool(self.mesh.periodic[dprev]))
+            axis = self.mesh.axis_of(dprev)
+            # the neighbours' segments (or the periodic images); edge
+            # copies past a wall
+            lo, hi = self._halo(g, dprev)
+            n = g.shape[axis]
+            g = torch.cat([g.narrow(axis, 0, 1) if lo is None else lo, g,
+                           g.narrow(axis, n - 1, 1) if hi is None else hi],
+                          dim=axis)
         return g
 
 

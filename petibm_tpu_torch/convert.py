@@ -5,7 +5,8 @@ A state is a dict with the keys ``q`` (velocity components), ``p``,
 histories, newest first), ``dP``, and for the IBM solvers ``f`` and
 ``df``.  ``state_from_numpy`` takes that tree with numpy leaves (the JAX
 solver's state after ``jax.device_get``) and returns the port's state;
-``state_to_numpy`` converts back.  Keys and nesting are kept as they are.
+``state_to_numpy`` converts back, gathering a decomposed state.  Keys and
+nesting are kept as they are.
 """
 
 from __future__ import annotations
@@ -25,8 +26,12 @@ def state_from_numpy(tree, device, dtype: torch.dtype):
     return torch.as_tensor(np.array(tree), dtype=dtype, device=device)
 
 
-def state_to_numpy(state):
-    """Tensors -> numpy arrays on the host, the nesting unchanged."""
+def state_to_numpy(state, part=None):
+    """Tensors -> numpy arrays on the host, the nesting unchanged; a
+    decomposed run's state (``part``, its ``Partition``) is gathered
+    first, on every rank."""
+    if part is not None:
+        state = part.gather_state(state)
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items()}
     if isinstance(state, (tuple, list)):

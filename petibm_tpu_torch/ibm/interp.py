@@ -14,6 +14,12 @@ window.  Then
 as dense matmuls.  Above WINDOWED_THRESHOLD points ``auto`` picks
 ``WindowedDeltaOp``, which keeps only the (N, K) window weights and
 expands them to factor rows chunk by chunk inside each apply.
+
+Decomposed over a process group (``DeltaOp.set_mesh``), each rank keeps
+the full (N, n_d) factor rows and contracts only its block's columns
+(``local_windows``): E sums the ranks' partials (one all-reduce), H
+writes the rank's block with no communication.  The windowed engine is
+not decomposed yet (ROADMAP item 19b).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ class DeltaOp:
     #: True for the windowed engine, whose windows hold no (N, n_d) factor
     #: rows: the consumers of dense E B_N H blocks check it
     windowed = False
+    #: the rank's ``Partition`` of a decomposed run, else None
+    part = None
 
     def __init__(self, mesh: StaggeredMesh, kernel: str = "ROMA_ET_AL_1999",
                  *, dtype: torch.dtype, device):
@@ -122,10 +130,28 @@ class DeltaOp:
             out[c] = {"sd": sd_d, "sv": sv_d}
         return out
 
+    def set_mesh(self, part) -> None:
+        """Interpolate and spread on the rank's blocks of a decomposed
+        run: ``windows`` stays global, ``local_windows`` cuts it."""
+        self.part = part
+
+    def local_windows(self, win: dict) -> dict:
+        """The factor rows' columns of the rank's block (all of them when
+        undecomposed)."""
+        if self.part is None:
+            return win
+        out = {}
+        for c, w in win.items():
+            cols = [slice(*self.part.range(Field(c), d))
+                    for d in range(self.dim)]
+            out[c] = {k: [m[:, cols[d]] for d, m in enumerate(v)]
+                      for k, v in w.items()}
+        return out
+
     # ------------------------------------------------------------------
     def interpolate(self, q: dict, win: dict) -> torch.Tensor:
         """E u: volume-weighted interpolation onto the Lagrangian points;
-        returns (N, dim)."""
+        returns (N, dim), summed over the ranks of a decomposed run."""
         cols = []
         for c in range(self.dim):
             w = win[c]
@@ -136,7 +162,8 @@ class DeltaOp:
                 t = torch.einsum("pz,zyx->pyx", w["sv"][2], arr)
                 t = torch.einsum("py,pyx->px", w["sv"][1], t)
             cols.append(torch.sum(t * w["sv"][0], dim=1))
-        return torch.stack(cols, dim=1)
+        out = torch.stack(cols, dim=1)
+        return out if self.part is None else self.part.allreduce_sum(out)
 
     def spread(self, f: torch.Tensor, win: dict) -> dict:
         """H f = Delta^T f: spread the (N, dim) Lagrangian forces onto the
@@ -184,6 +211,10 @@ class WindowedDeltaOp(DeltaOp):
     _chunk_budget = 512 * 1024 * 1024
     #: the largest chunk (the JAX engine caps it at 8192)
     _max_chunk = 1 << 16
+
+    def set_mesh(self, part) -> None:
+        raise NotImplementedError("the windowed delta engine on a decomposed "
+                                  "run is not ported yet (ROADMAP item 19b)")
 
     def windows(self, X) -> dict:
         """{c: {"idx", "sd", "sv": [per-dir (N, K)], "lo", "hi": [per-dir

@@ -23,9 +23,13 @@ reference's GPU backend (row and column 0 of the pressure block the
 identity): its operator, and its exact inverse from a projected solve
 (the FDM pressure solve, or the coupled IBPM's Schur solve).
 
-Not ported yet: the sharded transform core (ROADMAP item 19), and the
-``precision`` knobs of the transforms (full precision of the working
-dtype here).
+Decomposed over a process group (``set_mesh``; JAX ``fdm.py:64-186``),
+a solve repartitions the blocks with four all-to-alls
+(``_ShardedTransformCore``): block -> y cut over all ranks (the x and z
+transforms local, an rfft on a periodic x among them) -> x cut over all
+ranks (the y transform, the FFTs on y and z and the eigenvalue divide
+local) -> back.  Not ported: the ``precision`` knobs of the transforms
+(full precision of the working dtype here).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import alltoall
 from ..types import Field
 from . import loops
 from .krylov import SolveResult, _norm, counter, tadd_, tmap, tsub_
@@ -129,6 +134,232 @@ def _fft_solve(b, fwd: list, inv: list, inv_lam, dim: int,
     return _apply_per_axis(inv, xhat, dim)
 
 
+def _dense(mats: list, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``_apply_per_axis`` of real factors; a complex ``x`` (after an FFT)
+    takes them on its real and imaginary parts, as a real array would."""
+    if not x.is_complex():
+        return _apply_per_axis(mats, x, dim)
+    return torch.complex(_apply_per_axis(mats, x.real.contiguous(), dim),
+                         _apply_per_axis(mats, x.imag.contiguous(), dim))
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """A 1D real view of a chunk (complex entries as two reals)."""
+    t = t.contiguous()
+    return (torch.view_as_real(t) if t.is_complex() else t).reshape(-1)
+
+
+def _unflat(flat: torch.Tensor, shape: tuple, cplx: bool) -> torch.Tensor:
+    if not cplx:
+        return flat.reshape(shape)
+    return torch.view_as_complex(flat.reshape(shape + (2,)))
+
+
+def _pad_to(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """``x`` zero-padded along ``axis`` to ``n`` entries."""
+    extra = n - x.shape[axis]
+    if extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+class _ShardedTransformCore:
+    """The separable solve on a field decomposed over a process group
+    (``parallel.dist.Partition``), the distributed-FFT pattern of JAX
+    ``fdm.py:64-186`` with explicit all-to-alls:
+
+        the (dy, dx) blocks -> y cut over all D ranks (all-to-all 1)
+        x (and z) transforms local: dense, or the rfft on a periodic x
+        y cut -> x cut over all ranks (all-to-all 2)
+        y transform and the FFTs on y and z, the eigenvalue divide, and
+        back, local
+        x cut -> y cut (all-to-all 3); x (and z) back-transforms local
+        y cut -> the blocks (all-to-all 4)
+
+    x and y are zero-padded to a multiple of D (x after its rfft, when
+    x is an FFT axis), and so are the dense transforms and ``inv_lam``,
+    so each rank's cut is D-th of the padded axis and the pad stays
+    exactly zero.  Transposes 2 and 3 move equal chunks (complex ones as
+    pairs of reals); 1 and 4 move each block's overlap with each cut.
+    The JAX package's shard_map core takes FFTs on z only and leaves an
+    FFT on x or y to GSPMD; here the FFT of each axis runs where the
+    axis is whole, as the single-device ``rfftn`` would (the last FFT
+    axis real-to-complex), up to the order of the sums."""
+
+    def __init__(self, part, field, fwd: list, bwd: list,
+                 inv_lam: torch.Tensor, fft_axes: tuple, fft_sizes: tuple,
+                 dtype: torch.dtype):
+        self.part, self.field, self.dtype = part, field, dtype
+        self.dim = dim = part.dim
+        self.D = D = part.pmesh.size
+        self.rank = part.rank
+        ax_x, ax_y = dim - 1, dim - 2
+        n = [part.mesh.n(field, d) for d in range(dim)]
+        self.nx, self.ny = n[0], n[1]
+        sizes = dict(zip(fft_axes, fft_sizes))
+        #: the rfft on x, in the y-cut phase (x is then the last FFT axis)
+        self.x_fft = ax_x in sizes
+        #: the FFTs of the x-cut phase: (axes, sizes, real-to-complex?)
+        rest = [ax for ax in fft_axes if ax != ax_x]
+        self.rest = (tuple(rest), tuple(sizes[ax] for ax in rest),
+                     not self.x_fft)
+        self.y_fft = ax_y in sizes
+        # the x extent while x is cut: px real, or the rfft's nx // 2 + 1
+        xw = n[0] // 2 + 1 if self.x_fft else n[0]
+        self.sx, self.sy = -(-xw // D), -(-n[1] // D)
+        self.px, py = self.sx * D, self.sy * D
+
+        def padmat(m, to):
+            if m is None or m.shape[0] == to:
+                return m
+            out = torch.zeros((to, to), dtype=m.dtype, device=m.device)
+            out[:m.shape[0], :m.shape[1]] = m
+            return out
+
+        pads = [self.px, py] + n[2:]
+
+        def split(mats):
+            """(the x and z factors, the y factor), each a per-direction
+            list for ``_apply_per_axis``"""
+            mats = [padmat(m, pads[d]) for d, m in enumerate(mats)]
+            return ([None if d == 1 else m for d, m in enumerate(mats)],
+                    [m if d == 1 else None for d, m in enumerate(mats)])
+
+        self.fwd_xz, self.fwd_y = split(fwd)
+        self.bwd_xz, self.bwd_y = split(bwd)
+        # the divide in the x-cut layout: y padded where it is dense (an
+        # FFT on y takes its ny entries alone), x padded and cut
+        lam = _pad_to(inv_lam, ax_x, self.px)
+        if not self.y_fft:
+            lam = _pad_to(lam, ax_y, py)
+        self.inv_lam = lam[..., self.rank * self.sx:
+                           (self.rank + 1) * self.sx].contiguous()
+        # every rank's block rows and columns
+        self.rows = [part.range(field, 1, r) for r in range(D)]
+        self.cols = [part.range(field, 0, r) for r in range(D)]
+        self.lead = tuple(n[2:][::-1])  # the z extent (3D)
+
+    def _cut_rows(self, r: int) -> tuple:
+        return r * self.sy, (r + 1) * self.sy
+
+    def _overlap(self, blk: int, cut: int) -> tuple:
+        """Rows of rank ``blk``'s block inside rank ``cut``'s y cut."""
+        (y0, y1), (c0, c1) = self.rows[blk], self._cut_rows(cut)
+        return max(y0, c0), max(min(y1, c1), max(y0, c0))
+
+    def _to_ycut(self, b: torch.Tensor) -> torch.Tensor:
+        """All-to-all 1: my block's rows to each y cut; my cut of the
+        (.., sy, nx) layout assembled from every block."""
+        me, D = self.rank, self.D
+        y0 = self.rows[me][0]
+        pieces, send = [], []
+        for r in range(D):
+            lo, hi = self._overlap(me, r)
+            piece = b[..., lo - y0:hi - y0, :].reshape(-1)
+            pieces.append(piece)
+            send.append(piece.numel())
+        recv, shapes = [], []
+        for s in range(D):
+            lo, hi = self._overlap(s, me)
+            x0, x1 = self.cols[s]
+            shapes.append((lo, hi, x0, x1))
+            recv.append(int(np.prod(self.lead + (hi - lo, x1 - x0))))
+        flat = alltoall(torch.cat(pieces), send, recv)
+        out = torch.zeros(self.lead + (self.sy, self.nx), dtype=b.dtype,
+                          device=b.device)
+        c0 = self._cut_rows(me)[0]
+        for (lo, hi, x0, x1), chunk in zip(shapes, flat.split(recv)):
+            out[..., lo - c0:hi - c0, x0:x1] = chunk.reshape(
+                self.lead + (hi - lo, x1 - x0))
+        return out
+
+    def _from_ycut(self, x: torch.Tensor) -> torch.Tensor:
+        """All-to-all 4, the inverse of ``_to_ycut``."""
+        me, D = self.rank, self.D
+        c0 = self._cut_rows(me)[0]
+        pieces, send = [], []
+        for r in range(D):
+            lo, hi = self._overlap(r, me)
+            x0, x1 = self.cols[r]
+            piece = x[..., lo - c0:hi - c0, x0:x1].reshape(-1)
+            pieces.append(piece)
+            send.append(piece.numel())
+        y0, y1 = self.rows[me]
+        x0, x1 = self.cols[me]
+        recv, spans = [], []
+        for s in range(D):
+            lo, hi = self._overlap(me, s)
+            spans.append((lo, hi))
+            recv.append(int(np.prod(self.lead + (hi - lo, x1 - x0))))
+        flat = alltoall(torch.cat(pieces), send, recv)
+        out = torch.empty(self.lead + (y1 - y0, x1 - x0), dtype=x.dtype,
+                          device=x.device)
+        for (lo, hi), chunk in zip(spans, flat.split(recv)):
+            out[..., lo - y0:hi - y0, :] = chunk.reshape(
+                self.lead + (hi - lo, x1 - x0))
+        return out
+
+    def _ycut_to_xcut(self, x: torch.Tensor) -> torch.Tensor:
+        """All-to-all 2: (.., sy, px) -> (.., py, sx), equal chunks."""
+        D, sx = self.D, self.sx
+        chunks = [_flat(x[..., :, r * sx:(r + 1) * sx]) for r in range(D)]
+        count = chunks[0].numel()
+        flat = alltoall(torch.cat(chunks), [count] * D, [count] * D)
+        shape = self.lead + (self.sy, sx)
+        return torch.cat([_unflat(c, shape, x.is_complex())
+                          for c in flat.split(count)], dim=-2)
+
+    def _xcut_to_ycut(self, x: torch.Tensor) -> torch.Tensor:
+        """All-to-all 3: (.., py, sx) -> (.., sy, px), equal chunks."""
+        D, sy = self.D, self.sy
+        chunks = [_flat(x[..., r * sy:(r + 1) * sy, :]) for r in range(D)]
+        count = chunks[0].numel()
+        flat = alltoall(torch.cat(chunks), [count] * D, [count] * D)
+        shape = self.lead + (sy, self.sx)
+        return torch.cat([_unflat(c, shape, x.is_complex())
+                          for c in flat.split(count)], dim=-1)
+
+    def _xcut_solve(self, x: torch.Tensor) -> torch.Tensor:
+        """The x-cut phase: the y transform, the FFTs on y and z, the
+        divide, and back."""
+        dim, ny = self.dim, self.ny
+        axes, sizes, real = self.rest
+        x = _dense(self.fwd_y, x, dim)
+        if self.y_fft:
+            x = x[..., :ny, :]  # the FFT takes y's entries alone
+        if axes:
+            x = (torch.fft.rfftn(x, dim=axes) if real
+                 else torch.fft.fftn(x, dim=axes))
+        x = x * self.inv_lam
+        if axes:
+            x = (torch.fft.irfftn(x, s=sizes, dim=axes).to(self.dtype)
+                 if real else torch.fft.ifftn(x, dim=axes))
+        if self.y_fft:
+            x = _pad_to(x, dim - 2, self.sy * self.D)
+        return _dense(self.bwd_y, x, dim)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        dim = self.dim
+        x = _dense(self.fwd_xz, _pad_to(self._to_ycut(b), dim - 1,
+                                        self.nx if self.x_fft else self.px),
+                   dim)
+        if self.x_fft:
+            x = _pad_to(torch.fft.rfft(x, dim=-1), dim - 1, self.px)
+        x = self._xcut_to_ycut(self._xcut_solve(self._ycut_to_xcut(x)))
+        if self.x_fft:
+            x = torch.fft.irfft(x[..., :self.nx // 2 + 1], n=self.nx,
+                                dim=-1).to(self.dtype)
+        return self._from_ycut(_dense(self.bwd_xz, x, dim))
+
+
+def _sharded_core(solver, part, field, fwd, bwd) -> _ShardedTransformCore:
+    return _ShardedTransformCore(part, field, fwd, bwd, solver.inv_lam,
+                                 solver._fft_axes, solver._fft_sizes,
+                                 solver.dtype)
+
+
 class FastDiagPoisson:
     """Direct separable solver of the (positive semidefinite) negated
     Poisson operator -D B1 G; the all-Neumann constant mode is zeroed."""
@@ -175,12 +406,22 @@ class FastDiagPoisson:
             dtype=dtype, device=device)
         self._Q = qs
         self._Qt = qts
+        self._part = None
+        self._core = None
+
+    def set_mesh(self, part) -> None:
+        """Solve on the rank's pressure block of a decomposed run
+        (``_ShardedTransformCore``; JAX ``fdm.py:337-347``)."""
+        self._part = part
+        self._core = _sharded_core(self, part, Field.P, self._Qt, self._Q)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """x = A^+ b.  The plain-sum (nullspace) component of b is projected
         out first; Q Lam^+ Q^T alone is only a reflexive inverse on
         stretched grids."""
         b = b.to(self.dtype)
+        if self._core is not None:
+            return self._core.solve(b - self._part.mean(b))
         b = b - torch.mean(b)
         return _fft_solve(b, self._Qt, self._Q, self.inv_lam, self.dim,
                           self._fft_axes, self._fft_sizes, self.dtype)
@@ -255,8 +496,16 @@ class FastDiagHelmholtz:
                                        device=device)
         self._Q = qs
         self._Qinv = qinvs
+        self._core = None
+
+    def set_mesh(self, part, field) -> None:
+        """Solve on the rank's block of velocity ``field`` of a decomposed
+        run (JAX ``fdm.py:490-500``)."""
+        self._core = _sharded_core(self, part, field, self._Qinv, self._Q)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
+        if self._core is not None:
+            return self._core.solve(b.to(self.dtype))
         return _fft_solve(b.to(self.dtype), self._Qinv, self._Q,
                           self.inv_lam, self.dim, self._fft_axes,
                           self._fft_sizes, self.dtype)
@@ -296,16 +545,29 @@ def _with_leaf(tree, key, value):
     return value if key is None else dict(tree, **{key: value})
 
 
-def pinned_operator(A, key: str | None = None):
+def holds_first(part) -> bool:
+    """Whether this rank holds the pressure's entry 0 (always, undivided):
+    the block at the grid's origin."""
+    return part is None or not any(part.origin())
+
+
+def pinned_operator(A, key: str | None = None, part=None):
     """The pinned-pressure operator of the reference's GPU (AmgX) backend:
     A with row and column 0 of the pressure block replaced by the identity
     (MatZeroRowsColumns, navierstokes.cpp:414-420).  ``key`` names the
-    pressure leaf when A acts on a dict (the coupled {p, f} system)."""
+    pressure leaf when A acts on a dict (the coupled {p, f} system);
+    ``part``: a decomposed run's ``Partition`` (entry 0 is on the block at
+    the origin)."""
+    first = holds_first(part)
 
     def apply(x):
         p = _leaf(x, key)
         flat = p.reshape(-1)
-        y = A(_with_leaf(x, key, set_first(flat, 0.0).reshape(p.shape)))
+        if first:
+            x = _with_leaf(x, key, set_first(flat, 0.0).reshape(p.shape))
+        y = A(x)
+        if not first:
+            return y
         yp = _leaf(y, key)
         return _with_leaf(y, key, set_first(yp.reshape(-1), flat[0])
                           .reshape(yp.shape))
@@ -321,26 +583,42 @@ class PinnedSolve:
     the rows != 0 with the right side r + beta e0, beta = s - sum(r) (the
     compatibility shift that makes it sum-free); the gauge is fixed by
     shifting the projected solution so its entry 0 is 0, then setting it
-    to s (JAX ``navierstokes.py:428-436``, ``ibpm.py:198-221``)."""
+    to s (JAX ``navierstokes.py:428-436``, ``ibpm.py:198-221``).  On a
+    decomposed run (``part``) the sum is the group's and the solution's
+    entry 0 goes from the rank that holds it to all (one all-reduce
+    each)."""
 
-    def __init__(self, inner, key: str | None = None):
+    def __init__(self, inner, key: str | None = None, part=None):
         self.inner = inner
         self.key = key
+        self.part = part
+        self.first = holds_first(part)
 
     def solve(self, r):
         rp = _leaf(r, self.key)
         flat = rp.reshape(-1)
         s = flat[0]
-        beta = s - torch.sum(flat)  # -sum over i != 0
-        out = self.inner.solve(_with_leaf(
-            r, self.key, set_first(flat, beta).reshape(rp.shape)))
+        total = torch.sum(flat)
+        if self.part is not None:
+            total = self.part.allreduce_sum(total)
+        if self.first:
+            r = _with_leaf(r, self.key, set_first(flat, s - total)
+                           .reshape(rp.shape))  # beta: -sum over i != 0
+        out = self.inner.solve(r)
         op = _leaf(out, self.key)
         of = op.reshape(-1)
-        return _with_leaf(out, self.key,
-                          set_first(of - of[0], s).reshape(op.shape))
+        if self.part is None:
+            return _with_leaf(out, self.key,
+                              set_first(of - of[0], s).reshape(op.shape))
+        o0 = self.part.allreduce_sum(of[0] if self.first
+                                     else torch.zeros_like(of[0]))
+        of = of - o0
+        if self.first:
+            of = set_first(of, s)
+        return _with_leaf(out, self.key, of.reshape(op.shape))
 
 
-def make_fdm_solver(fdm, A, opts: dict):
+def make_fdm_solver(fdm, A, opts: dict, reduce=None):
     """Direct solve + iterative refinement with KSP stopping semantics.
 
     ``fdm.solve(b)`` is a (near-)exact inverse on a tensor or dict of
@@ -349,7 +627,8 @@ def make_fdm_solver(fdm, A, opts: dict):
     recurrence residual r_{k+1} = r_k - A dx_k is above
     max(atol, rtol*||b||), still shrinks by at least 10% per pass, and
     fewer than max_it passes ran.  ``iters`` counts refinement passes.
-    Arguments after ``x0`` go to ``A`` (a moving body's windows)."""
+    Arguments after ``x0`` go to ``A`` (a moving body's windows);
+    ``reduce`` sums a decomposed run's norms over the process group."""
     atol = float(opts.get("atol", 1e-6))
     rtol = float(opts.get("rtol", 0.0))
     maxiter = int(opts.get("max_it", 10000))
@@ -361,8 +640,8 @@ def make_fdm_solver(fdm, A, opts: dict):
         r = tmap(lambda ri, adi: ri - adi, r, A(dx, *args))
         # the predicate compares in the working dtype on the device, as
         # the JAX while_loop does
-        tol = torch.clamp(rtol * _norm(b), min=atol)
-        rn = _norm(r)
+        tol = torch.clamp(rtol * _norm(b, reduce), min=atol)
+        rn = _norm(r, reduce)
         prev = torch.full_like(rn, float("inf"))
         it = counter(rn)
 
@@ -376,7 +655,7 @@ def make_fdm_solver(fdm, A, opts: dict):
             tadd_(x, dx)
             tsub_(r, A(dx, *args))
             prev.copy_(rn)
-            rn.copy_(_norm(r))
+            rn.copy_(_norm(r, reduce))
             it.add_(1)
             pred.copy_(more())
 

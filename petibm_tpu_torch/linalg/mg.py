@@ -172,8 +172,8 @@ class PoissonMG:
             widths, inv_dist = new_w, new_c
 
     def set_mesh(self, mesh) -> None:
-        raise NotImplementedError("sharded multigrid is not ported yet "
-                                  "(ROADMAP item 19)")
+        raise NotImplementedError("the multigrid V-cycle on a decomposed "
+                                  "run is not ported yet (ROADMAP item 19b)")
 
     # ------------------------------------------------------------------
     def _coupling(self, lvl: int, phi, d: int):

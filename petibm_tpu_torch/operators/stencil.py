@@ -13,6 +13,11 @@ Reference math:
 Ghosts go through ``BoundarySet.extend``, so the homogeneous (a0-folded
 matrix action) and inhomogeneous (+ a1 correction) variants share one
 code path.
+
+Decomposed (``parallel/dist.py``), the closures are built on the rank's
+``LocalMesh`` and act on its blocks: ``extend`` fills the interior sides
+from the halo, the gradient appends the block's upper halo, and the
+Laplacian's a1 correction lands only on blocks that lie on its face.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ def _tensor(arr, dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def make_gradient(mesh: StaggeredMesh, *, dtype: torch.dtype, device):
-    """p -> velocity-space gradient closure (entries ±1/dL)."""
+def make_gradient(mesh: StaggeredMesh, *, dtype: torch.dtype, device,
+                  part=None):
+    """p -> velocity-space gradient closure (entries ±1/dL); ``part``: the
+    rank's ``Partition`` of a decomposed run."""
     inv_dl = [_tensor(mesh.bcast(Field(c), c, 1.0 / mesh.dl(Field(c), c)),
                       dtype, device) for c in range(mesh.dim)]
 
@@ -42,7 +49,13 @@ def make_gradient(mesh: StaggeredMesh, *, dtype: torch.dtype, device):
         for c in range(mesh.dim):
             axis = mesh.axis_of(c)
             n = p.shape[axis]
-            if mesh.periodic[c]:
+            if part is not None and part.parts[c] > 1:
+                # the next cell past the block: the neighbour's, or the
+                # periodic image; none past the wall
+                ext = part.extend_hi(p, c)
+                m = mesh.n(Field(c), c)
+                diff = ext.narrow(axis, 1, m) - ext.narrow(axis, 0, m)
+            elif mesh.periodic[c]:
                 # the appended max-face point wraps to p(0)
                 hi = torch.cat([p.narrow(axis, 1, n - 1),
                                 p.narrow(axis, 0, 1)], dim=axis)
@@ -148,6 +161,8 @@ def make_laplacian(mesh: StaggeredMesh, bcset: BoundarySet, *,
                     continue
                 axis = mesh.axis_of(d)
                 for side, cvecs in ((0, cneg), (1, cpos)):
+                    if not bcset.touches(d, side):
+                        continue
                     a1 = bcstate[bcset.specs[(c, 2 * d + side)].key]["a1"]
                     cvec = cvecs[c][d]
                     cedge = cvec.narrow(axis, 0 if side == 0

@@ -1,0 +1,422 @@
+"""Process mesh, block partition and the collectives of a decomposed run.
+
+Counterpart of ``petibm_tpu/parallel/dist.py`` (dist.py:1-139).  The only
+parallelism in this problem class is spatial domain decomposition.  The
+JAX package shards its dense arrays over a ("dy", "dx") device mesh and
+lets GSPMD insert the halo exchanges and reductions; here one process
+runs per device, each owns one block of every grid field, and the
+exchanges are explicit:
+
+- ``ProcessMesh``: the ("dy", "dx") grid of ranks, laid over the trailing
+  two array axes (y and x); z stays local in 3D, as in the JAX layout.
+- ``Partition``: each rank's block of every staggered field.  Each mesh
+  axis cuts the pressure cells of its direction into contiguous ranges
+  (``k*n // p``); a face belongs to the rank of the cell below it, so on a
+  non-periodic axis the last rank holds one face fewer.
+- ``Partition.halo``: the width-1 halo exchange (``isend``/``irecv``),
+  wrapping across ranks on a periodic axis; ``allreduce_sum`` and
+  ``Partition.mean``; ``Partition.scatter`` (a block sliced from the full
+  array every rank holds) and ``Partition.gather`` (the full array
+  assembled from the blocks by an all-gather: rank 0 writes it);
+  ``alltoall`` for the FDM's transposes (``linalg/fdm.py``).
+
+Lagrangian arrays (forces, body coordinates) and scalars stay replicated.
+The BC face arrays are each rank's segment of the face, along its block
+(the replicated face restricted to the block; ``Partition.gather_face``
+assembles it).
+
+The tensors go to the collectives as they are: NCCL for cuda tensors,
+gloo for CPU ones (``multihost.maybe_initialize`` picks the backend from
+the device).  Every collective adds its calls and the bytes this rank
+sends to ``COUNTERS``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..types import STR2BCLOC, Field
+
+#: solver-state keys holding Eulerian grid fields (decomposed); everything
+#: else (Lagrangian forces f/df, scalars) stays replicated and the BC face
+#: arrays are held as segments (JAX dist.py:79-92)
+FIELD_KEYS = ("q", "p", "dP", "conv", "diff")
+
+#: kind -> [calls, bytes sent by this rank]; ``reset_counters`` zeroes it
+COUNTERS = {"halo": [0, 0], "allreduce": [0, 0], "alltoall": [0, 0],
+            "gather": [0, 0]}
+
+
+def reset_counters() -> None:
+    for v in COUNTERS.values():
+        v[0] = v[1] = 0
+
+
+def counters() -> dict:
+    """{kind: {"calls": n, "bytes": b}} since the last reset."""
+    return {k: {"calls": v[0], "bytes": v[1]} for k, v in COUNTERS.items()}
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COUNTERS[kind][0] += 1
+    COUNTERS[kind][1] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _factor2(n: int) -> tuple[int, int]:
+    """Near-square factorization n = a*b with a <= b."""
+    a = int(math.isqrt(n))
+    while a > 1 and n % a != 0:
+        a -= 1
+    return a, n // a
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item 19b)")
+
+
+class ProcessMesh:
+    """The ("dy", "dx") grid of the process group's ranks, row-major:
+    rank = iy * shape[1] + ix."""
+
+    axis_names = ("dy", "dx")
+
+    def __init__(self, shape):
+        import torch.distributed as dist
+
+        self.shape = tuple(int(s) for s in shape)
+        self.ranks = np.arange(math.prod(self.shape)).reshape(self.shape)
+        self.size = int(self.ranks.size)
+        self.rank = dist.get_rank()
+        self.backend = str(dist.get_backend())
+        # a collective of the whole group first: NCCL's point-to-point
+        # batches want the communicator up on every rank
+        dist.barrier()
+
+    def rank_at(self, iy: int, ix: int) -> int:
+        return int(self.ranks[iy, ix])
+
+
+def mesh_from_config(node: dict | None) -> ProcessMesh | None:
+    """The process mesh of the ``parameters.sharding`` node (JAX
+    ``mesh_from_config``): ``nDevices`` (default: the process group's
+    size), ``platform`` (read by nothing: every rank runs where its
+    solver runs), ``shape`` ([dy, dx]).  None when the node is absent or
+    selects one device.  One process runs per device, so ``nDevices``
+    must equal the group's size."""
+    from .multihost import process_info
+
+    if not node:
+        return None
+    _, world = process_info()
+    n = int(node.get("nDevices", world))
+    if n > world:
+        raise ValueError(
+            f"sharding.nDevices={n} but only {world} process(es) run: "
+            "launch one process per device (torchrun, or "
+            "parameters.distributed)")
+    if n < 2:
+        return None
+    if n != world:
+        raise ValueError(f"sharding.nDevices={n} but {world} processes run: "
+                         "one process per device")
+    if node.get("shape"):
+        dims = [int(v) for v in node["shape"]]
+        if math.prod(dims) != n:
+            raise ValueError(f"sharding.shape {dims} != nDevices {n}")
+        if len(dims) == 3:
+            raise _not_ported("the 3-axis (dz, dy, dx) mesh")
+        if len(dims) != 2:
+            raise ValueError("sharding.shape wants 2 or 3 entries")
+    else:
+        dims = list(_factor2(n))
+    return ProcessMesh(dims)
+
+
+def allreduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the process group (a new tensor)."""
+    import torch.distributed as dist
+
+    buf = t.clone()
+    _count("allreduce", _nbytes(buf))
+    dist.all_reduce(buf)
+    return buf
+
+
+def alltoall(flat: torch.Tensor, send_counts: list,
+             recv_counts: list) -> torch.Tensor:
+    """``all_to_all_single`` of a 1D tensor: ``send_counts[r]`` entries to
+    rank r, ``recv_counts[r]`` from it, in rank order."""
+    import torch.distributed as dist
+
+    src = flat.contiguous()
+    out = torch.empty(sum(recv_counts), dtype=src.dtype, device=src.device)
+    _count("alltoall", _nbytes(src))
+    dist.all_to_all_single(out, src, [int(c) for c in recv_counts],
+                           [int(c) for c in send_counts])
+    return out
+
+
+class Partition:
+    """Each rank's block of every field of a ``StaggeredMesh`` on a
+    ``ProcessMesh``.  Directions x and y are cut over the mesh axes "dx"
+    and "dy"; z is whole on every rank."""
+
+    def __init__(self, mesh, pmesh: ProcessMesh):
+        self.mesh = mesh
+        self.pmesh = pmesh
+        self.dim = mesh.dim
+        self.periodic = [bool(p) for p in mesh.periodic]
+        #: parts per direction (x: dx, y: dy, z: 1)
+        self.parts = [pmesh.shape[1], pmesh.shape[0], 1][:self.dim]
+        self.bounds = []
+        for d in range(self.dim):
+            n, p = mesh.n(Field.P, d), self.parts[d]
+            if n < 2 * p:
+                raise ValueError(
+                    f"{n} cells along direction {d} cannot be cut into {p} "
+                    "blocks of at least 2 cells")
+            self.bounds.append([k * n // p for k in range(p + 1)])
+        self.rank = pmesh.rank
+        self.coord = self.coord_of(self.rank)
+
+    # --- layout ---------------------------------------------------------
+    def coord_of(self, rank: int) -> list:
+        """The block index per direction of ``rank``."""
+        iy, ix = divmod(int(rank), self.pmesh.shape[1])
+        return [ix, iy, 0][:self.dim]
+
+    def range(self, field, d: int, rank: int | None = None) -> tuple:
+        """[lo, hi) of ``field``'s points along direction ``d`` on ``rank``
+        (default this one)."""
+        k = self.coord[d] if rank is None else self.coord_of(rank)[d]
+        lo, hi = self.bounds[d][k], self.bounds[d][k + 1]
+        if (int(field) == d and not self.periodic[d]
+                and k == self.parts[d] - 1):
+            hi -= 1  # the wall face: n - 1 velocity points
+        return lo, hi
+
+    def block(self, field, rank: int | None = None) -> tuple:
+        """The rank's block of ``field`` as slices in array-axis order."""
+        return tuple(slice(*self.range(field, d, rank))
+                     for d in reversed(range(self.dim)))
+
+    def local_shape(self, field, rank: int | None = None) -> tuple:
+        return tuple(s.stop - s.start for s in self.block(field, rank))
+
+    def origin(self) -> tuple:
+        """The global index of the block's first point per array axis
+        (the same for every field)."""
+        return tuple(self.bounds[d][self.coord[d]]
+                     for d in reversed(range(self.dim)))
+
+    def touches(self, d: int, side: int) -> bool:
+        """Whether the block lies on the domain's min (``side`` 0) or max
+        (1) face of direction ``d``."""
+        return self.coord[d] == (0 if side == 0 else self.parts[d] - 1)
+
+    # --- reductions -----------------------------------------------------
+    def allreduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return allreduce_sum(t)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a decomposed field over the whole grid (one
+        all-reduce of its sum and its point count)."""
+        both = torch.stack([torch.sum(x),
+                            torch.tensor(float(x.numel()), dtype=x.dtype,
+                                         device=x.device)])
+        both = self.allreduce_sum(both)
+        return both[0] / both[1]
+
+    # --- halo -----------------------------------------------------------
+    def _neighbour(self, d: int, step: int) -> int | None:
+        coord = list(self.coord)
+        k = coord[d] + step
+        if not 0 <= k < self.parts[d]:
+            if not self.periodic[d]:
+                return None
+            k %= self.parts[d]
+        coord[d] = k
+        return self.pmesh.rank_at(coord[1], coord[0])
+
+    def halo(self, x: torch.Tensor, d: int, lower: bool = True) -> tuple:
+        """The width-1 halo of a block along direction ``d``: (the slab
+        below the block, the slab above it), each from the neighbouring
+        rank (wrapping on a periodic axis), None past a domain wall.  On
+        an axis with one part a periodic field wraps onto itself.  With
+        ``lower`` false only the slab above is exchanged (the lower one is
+        None)."""
+        import torch.distributed as dist
+
+        axis = self.dim - 1 - d
+        n = x.shape[axis]
+        if self.parts[d] == 1:
+            if self.periodic[d]:
+                return (x.narrow(axis, n - 1, 1) if lower else None,
+                        x.narrow(axis, 0, 1))
+            return None, None
+        lo_nbr, hi_nbr = self._neighbour(d, -1), self._neighbour(d, 1)
+        shape = list(x.shape)
+        shape[axis] = 1
+        lo_buf = (torch.empty(shape, dtype=x.dtype, device=x.device)
+                  if lower and lo_nbr is not None else None)
+        hi_buf = (torch.empty(shape, dtype=x.dtype, device=x.device)
+                  if hi_nbr is not None else None)
+        # posted in one order on every rank (NCCL matches a pair's messages
+        # in order): our first slab to the lower neighbour (tag 1, its
+        # upper halo), our last to the upper one (tag 2); the upper halo
+        # is the upper neighbour's first slab, the lower halo the lower
+        # neighbour's last
+        ops = []
+        if lo_nbr is not None:
+            first = x.narrow(axis, 0, 1).contiguous()
+            ops.append(dist.P2POp(dist.isend, first, lo_nbr, tag=1))
+        if lower and hi_nbr is not None:
+            last = x.narrow(axis, n - 1, 1).contiguous()
+            ops.append(dist.P2POp(dist.isend, last, hi_nbr, tag=2))
+        if hi_buf is not None:
+            ops.append(dist.P2POp(dist.irecv, hi_buf, hi_nbr, tag=1))
+        if lo_buf is not None:
+            ops.append(dist.P2POp(dist.irecv, lo_buf, lo_nbr, tag=2))
+        _count("halo", sum(_nbytes(op.tensor) for op in ops
+                           if op.op is dist.isend))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return lo_buf, hi_buf
+
+    def extend_hi(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """``x`` with the next point above the block along ``d`` appended
+        (from the neighbour, or the periodic image); unchanged on the last
+        block of a non-periodic direction.  Only the upper slab moves."""
+        _, hi = self.halo(x, d, lower=False)
+        return x if hi is None else torch.cat([x, hi], dim=self.dim - 1 - d)
+
+    # --- scatter / gather -----------------------------------------------
+    def scatter(self, full, field, dtype=None, device=None) -> torch.Tensor:
+        """The rank's block of a full array that every rank holds (cut
+        where it lies, then moved)."""
+        return self._cut(full, self.block(field), dtype, device)
+
+    @staticmethod
+    def _cut(full, block: tuple, dtype, device) -> torch.Tensor:
+        full = torch.as_tensor(full)
+        return full[block].to(dtype=dtype or full.dtype,
+                              device=device or full.device).contiguous()
+
+    def _gather_blocks(self, x: torch.Tensor, blocks: list, full_shape,
+                       take=None) -> torch.Tensor:
+        """The full array from every rank's block (``blocks[r]``: slices of
+        rank r's block), by one all-gather of the blocks padded to the
+        largest; ranks where ``take(r)`` is false are left out."""
+        import torch.distributed as dist
+
+        sizes = [math.prod(s.stop - s.start for s in b) for b in blocks]
+        width = max(sizes)
+        flat = torch.zeros(width, dtype=x.dtype, device=x.device)
+        flat[:x.numel()] = x.reshape(-1)
+        parts = [torch.empty_like(flat) for _ in blocks]
+        _count("gather", _nbytes(flat))
+        dist.all_gather(parts, flat)
+        full = torch.zeros(tuple(full_shape), dtype=x.dtype, device=x.device)
+        for r, (blk, part) in enumerate(zip(blocks, parts)):
+            if take is None or take(r):
+                shape = tuple(s.stop - s.start for s in blk)
+                full[blk] = part[:sizes[r]].reshape(shape)
+        return full
+
+    def gather(self, x: torch.Tensor, field) -> torch.Tensor:
+        """The full array of a decomposed field, on every rank."""
+        blocks = [self.block(field, r) for r in range(self.pmesh.size)]
+        return self._gather_blocks(x, blocks, self.mesh.shape(Field(field)))
+
+    def face_block(self, field, d: int, rank: int | None = None) -> tuple:
+        """The rank's segment of a face of ``field`` normal to ``d``."""
+        axis = self.dim - 1 - d
+        blk = list(self.block(field, rank))
+        del blk[axis]
+        return tuple(blk)
+
+    def gather_face(self, a: torch.Tensor, field, d: int,
+                    side: int) -> torch.Tensor:
+        """The full face array (field ``field``'s face normal to ``d`` at
+        ``side``) from the segments of the ranks on that face."""
+        blocks = [self.face_block(field, d, r) for r in range(self.pmesh.size)]
+        shape = list(self.mesh.shape(Field(field)))
+        del shape[self.dim - 1 - d]
+        on_face = self.parts[d] - 1 if side else 0
+        return self._gather_blocks(
+            a, blocks, shape, take=lambda r: self.coord_of(r)[d] == on_face)
+
+    def scatter_face(self, full, field, d: int, dtype=None,
+                     device=None) -> torch.Tensor:
+        """The rank's segment of a full face array."""
+        return self._cut(full, self.face_block(field, d), dtype, device)
+
+
+    def gather_state(self, state: dict) -> dict:
+        """A solver state with every decomposed leaf gathered (the grid
+        fields of ``FIELD_KEYS`` and the BC face segments); replicated
+        leaves as they are."""
+        vel = ("u", "v", "w")
+
+        def fields(tree):
+            return {k: self.gather(v, Field(vel.index(k)))
+                    for k, v in tree.items()}
+
+        out = {}
+        for key, val in state.items():
+            if key == "q":
+                out[key] = fields(val)
+            elif key in ("p", "dP"):
+                out[key] = self.gather(val, Field.P)
+            elif key in ("conv", "diff"):
+                out[key] = tuple(fields(h) for h in val)
+            elif key == "bc":
+                out[key] = {}
+                for fkey, st in val.items():
+                    name, loc = fkey.split("_", 1)
+                    loc = STR2BCLOC[loc]
+                    out[key][fkey] = {
+                        k: self.gather_face(a, vel.index(name), loc.axis,
+                                            int(loc.is_max))
+                        for k, a in st.items()}
+            else:
+                out[key] = val
+        return out
+
+
+class LocalMesh:
+    """The rank's view of a ``StaggeredMesh``: ``shape`` and ``n`` are the
+    block's, and ``bcast`` slices a per-direction 1D array of the global
+    line (as ``dl``, ``coord`` and ``lines`` return it) to the block's
+    range before shaping it, so the stencil closures built on this view
+    carry the block's coefficients.  Everything else is the global
+    mesh's."""
+
+    def __init__(self, part: Partition):
+        self._global = part.mesh
+        self.part = part
+
+    def __getattr__(self, name):
+        return getattr(self._global, name)
+
+    def shape(self, field) -> tuple:
+        return self.part.local_shape(field)
+
+    def n(self, field, direction) -> int:
+        lo, hi = self.part.range(field, int(direction))
+        return hi - lo
+
+    def bcast(self, field, direction, arr1d) -> np.ndarray:
+        d = int(direction)
+        arr = np.asarray(arr1d)
+        if len(arr) != self._global.n(field, d):
+            raise ValueError(f"bcast wants a line of {field!r} along {d}")
+        lo, hi = self.part.range(field, d)
+        return self._global.bcast(field, d, arr[lo:hi])

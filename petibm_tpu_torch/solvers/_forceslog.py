@@ -21,6 +21,8 @@ class ForcesLogMixin:
 
     def _record_stats(self, ite0: int, stats: dict, count: int) -> None:
         super()._record_stats(ite0, stats, count)
+        if not getattr(self, "is_root", True):
+            return  # rank 0 writes the log of a decomposed run
         if self._forces_log is None:
             self._forces_log = open(os.path.join(
                 self.output_dir, f"forces-{self.nstart}.txt"), "w")

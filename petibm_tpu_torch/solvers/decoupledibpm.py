@@ -23,6 +23,12 @@ solver's method (CG by default) on E B_N H applied as interpolate after
 spread, with no preconditioner.  The hooks ``_pre_step``, ``_windows``
 and ``_body_velocity`` are where a moving body
 (``solvers/rigidkinematics.py``) enters the step.
+
+On a decomposed run the forces and their solve stay replicated: every
+rank holds the full factor rows and the dense blocks (built from them at
+setup, no communication) and E sums the ranks' partials, so each rank
+solves the same force system (the dense blocks, or the Krylov solve on
+replicated vectors).
 """
 
 from __future__ import annotations
@@ -68,14 +74,18 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
             self.mesh, params.get("delta", "ROMA_ET_AL_1999"),
             dtype=self.dtype, device=self.device, n_pts=self.bodies.n_pts,
             engine=params.get("deltaEngine", "auto"))
+        if self.part is not None:
+            self.delta.set_mesh(self.part)
         self.state["f"] = torch.zeros((self.bodies.n_pts, self.mesh.dim),
                                       dtype=self.dtype, device=self.device)
         self.state["df"] = torch.zeros_like(self.state["f"])
         # the windows at the body's first coordinates: a stationary body's
-        # for good, a moving body's for the setup-time inverse
-        self._static_windows = self.delta.windows(
+        # for good, a moving body's for the setup-time inverse; the dense
+        # blocks take the full rows, the step the rank's columns
+        self._full_windows = self.delta.windows(
             torch.as_tensor(self.bodies.all_coords(), dtype=self.dtype,
                             device=self.device))
+        self._static_windows = self.delta.local_windows(self._full_windows)
         self._make_force_solver(solver_config(config, "forces"))
 
     def _refuse_kinematics(self, config: dict) -> None:
@@ -101,7 +111,7 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
     def _dense_force_blocks(self) -> tuple:
         """The dense E B1 H blocks at the body's first coordinates and
         their inverse (JAX decoupledibpm.py:88-95, 150-155)."""
-        mats = dense_ebnh_blocks(self._static_windows, self.mesh.dim, self.dt)
+        mats = dense_ebnh_blocks(self._full_windows, self.mesh.dim, self.dt)
         return mats, BlockInverse(mats, self.dtype, self.device)
 
     def _make_force_solver(self, fopts: dict) -> None:

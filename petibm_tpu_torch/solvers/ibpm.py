@@ -64,6 +64,11 @@ _SCHUR_CHUNK = 64
 class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
     _skip_base_poisson = True  # the {p, f} block system replaces p_solver
 
+    def _check_decomposed(self, config: dict) -> None:
+        raise NotImplementedError(
+            "the coupled IBPM on a decomposed run is not ported yet "
+            "(ROADMAP item 19b)")
+
     def _extra_init(self, config: dict) -> None:
         self.bodies = BodyPack(config, self.mesh)
         if self.bodies.n_bodies == 0:

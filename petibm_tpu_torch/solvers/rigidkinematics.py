@@ -46,6 +46,11 @@ from .decoupledibpm import DecoupledIBPMSolver, blocks_apply
 
 
 class RigidKinematicsSolver(DecoupledIBPMSolver):
+    def _check_decomposed(self, config: dict) -> None:
+        raise NotImplementedError(
+            "a moving body (rigid kinematics) on a decomposed run is not ported yet "
+            "(ROADMAP item 19b)")
+
     def _extra_init(self, config: dict) -> None:
         super()._extra_init(config)
         if self.delta.windowed and self.steps_per_dispatch > 1:

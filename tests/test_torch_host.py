@@ -364,7 +364,9 @@ def test_port_imports_no_jax():
             "petibm_tpu_torch.cli.writemesh, petibm_tpu_torch.ibm.interp, "
             "petibm_tpu_torch.io.probes, petibm_tpu_torch.io.vorticity, "
             "petibm_tpu_torch.cli.vorticity, petibm_tpu_torch.cli.common, "
-            "petibm_tpu_torch.utils.profiling\n"
+            "petibm_tpu_torch.utils.profiling, petibm_tpu_torch.parallel, "
+            "petibm_tpu_torch.parallel.dist, "
+            "petibm_tpu_torch.parallel.multihost\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
             "assert not bad, bad\n"

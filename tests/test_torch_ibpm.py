@@ -350,12 +350,15 @@ def test_cli_logs_match(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"sharding": {"nDevices": 2}}, "ROADMAP item 19"),
+    # in one process a two-device mesh is a configuration error (the
+    # coupled IBPM's refusal under a process group:
+    # tests/test_torch_parallel.py)
+    ({"sharding": {"nDevices": 2}}, "nDevices=2"),
 ])
 def test_unsupported_configs_raise(tmp_path, params, item):
     cfg = config(tmp_path, "port")
     cfg["parameters"].update(params)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         TorchSolver(cfg, device="cpu")
 
 
