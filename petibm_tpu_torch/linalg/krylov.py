@@ -47,9 +47,27 @@ def _leaves(tree) -> list:
 
 def _dot(x, y, reduce=None) -> torch.Tensor:
     """The inner product; ``reduce`` sums a decomposed run's per-rank
-    partial over the process group (``Partition.allreduce_sum``)."""
-    out = sum(torch.sum(a * b) for a, b in zip(_leaves(x), _leaves(y)))
-    return out if reduce is None else reduce(out)
+    partial over the process group (``parallel.dist.GroupSum``).  The
+    leaves of a dict that ``reduce.replicated`` names are whole on every
+    rank: the decomposed leaves' partials are summed over the group
+    alone, and each replicated leaf's product enters once, in the sorted
+    key order of the JAX pytree (the coupled {f, p}: f·f + sum(p·p))."""
+    sums = [torch.sum(a * b) for a, b in zip(_leaves(x), _leaves(y))]
+    if reduce is None:
+        return sum(sums)
+    replicated = getattr(reduce, "replicated", ())
+    if not isinstance(x, dict) or not replicated.intersection(x):
+        return reduce(sum(sums))
+    keys = sorted(x)
+    group = reduce(sum(s for k, s in zip(keys, sums) if k not in replicated))
+    out, added = None, False
+    for k, s in zip(keys, sums):
+        if k not in replicated:
+            if added:
+                continue
+            s, added = group, True
+        out = s if out is None else out + s
+    return out
 
 
 def _norm(x, reduce=None) -> torch.Tensor:

@@ -12,6 +12,8 @@ decomposed solver holds its blocks from the start.
 
 from .dist import (  # noqa: F401
     FIELD_KEYS,
+    GroupSum,
+    LevelBlocks,
     LocalMesh,
     Partition,
     ProcessMesh,

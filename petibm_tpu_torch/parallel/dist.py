@@ -163,58 +163,27 @@ def alltoall(flat: torch.Tensor, send_counts: list,
     return out
 
 
-class Partition:
-    """Each rank's block of every field of a ``StaggeredMesh`` on a
-    ``ProcessMesh``.  Directions x and y are cut over the mesh axes "dx"
-    and "dy"; z is whole on every rank."""
+class _Blocks:
+    """Blocks of cell-aligned ranges on a ``ProcessMesh``: direction x is
+    cut over "dx", y over "dy", z is whole.  ``bounds[d]`` holds the
+    ``parts[d] + 1`` cut points of direction d.  The halo exchange and
+    the reductions live here; ``Partition`` (the staggered fields) and
+    ``LevelBlocks`` (the multigrid levels) give the ranges."""
 
-    def __init__(self, mesh, pmesh: ProcessMesh):
-        self.mesh = mesh
+    def __init__(self, pmesh: ProcessMesh, dim: int, periodic, bounds):
         self.pmesh = pmesh
-        self.dim = mesh.dim
-        self.periodic = [bool(p) for p in mesh.periodic]
+        self.dim = dim
+        self.periodic = [bool(p) for p in periodic]
         #: parts per direction (x: dx, y: dy, z: 1)
-        self.parts = [pmesh.shape[1], pmesh.shape[0], 1][:self.dim]
-        self.bounds = []
-        for d in range(self.dim):
-            n, p = mesh.n(Field.P, d), self.parts[d]
-            if n < 2 * p:
-                raise ValueError(
-                    f"{n} cells along direction {d} cannot be cut into {p} "
-                    "blocks of at least 2 cells")
-            self.bounds.append([k * n // p for k in range(p + 1)])
+        self.parts = [pmesh.shape[1], pmesh.shape[0], 1][:dim]
+        self.bounds = [list(b) for b in bounds]
         self.rank = pmesh.rank
         self.coord = self.coord_of(self.rank)
 
-    # --- layout ---------------------------------------------------------
     def coord_of(self, rank: int) -> list:
         """The block index per direction of ``rank``."""
         iy, ix = divmod(int(rank), self.pmesh.shape[1])
         return [ix, iy, 0][:self.dim]
-
-    def range(self, field, d: int, rank: int | None = None) -> tuple:
-        """[lo, hi) of ``field``'s points along direction ``d`` on ``rank``
-        (default this one)."""
-        k = self.coord[d] if rank is None else self.coord_of(rank)[d]
-        lo, hi = self.bounds[d][k], self.bounds[d][k + 1]
-        if (int(field) == d and not self.periodic[d]
-                and k == self.parts[d] - 1):
-            hi -= 1  # the wall face: n - 1 velocity points
-        return lo, hi
-
-    def block(self, field, rank: int | None = None) -> tuple:
-        """The rank's block of ``field`` as slices in array-axis order."""
-        return tuple(slice(*self.range(field, d, rank))
-                     for d in reversed(range(self.dim)))
-
-    def local_shape(self, field, rank: int | None = None) -> tuple:
-        return tuple(s.stop - s.start for s in self.block(field, rank))
-
-    def origin(self) -> tuple:
-        """The global index of the block's first point per array axis
-        (the same for every field)."""
-        return tuple(self.bounds[d][self.coord[d]]
-                     for d in reversed(range(self.dim)))
 
     def touches(self, d: int, side: int) -> bool:
         """Whether the block lies on the domain's min (``side`` 0) or max
@@ -245,13 +214,14 @@ class Partition:
         coord[d] = k
         return self.pmesh.rank_at(coord[1], coord[0])
 
-    def halo(self, x: torch.Tensor, d: int, lower: bool = True) -> tuple:
+    def halo(self, x: torch.Tensor, d: int, lower: bool = True,
+             upper: bool = True) -> tuple:
         """The width-1 halo of a block along direction ``d``: (the slab
         below the block, the slab above it), each from the neighbouring
         rank (wrapping on a periodic axis), None past a domain wall.  On
         an axis with one part a periodic field wraps onto itself.  With
-        ``lower`` false only the slab above is exchanged (the lower one is
-        None)."""
+        ``lower`` (``upper``) false the slab below (above) is not
+        exchanged and comes back None."""
         import torch.distributed as dist
 
         axis = self.dim - 1 - d
@@ -259,7 +229,7 @@ class Partition:
         if self.parts[d] == 1:
             if self.periodic[d]:
                 return (x.narrow(axis, n - 1, 1) if lower else None,
-                        x.narrow(axis, 0, 1))
+                        x.narrow(axis, 0, 1) if upper else None)
             return None, None
         lo_nbr, hi_nbr = self._neighbour(d, -1), self._neighbour(d, 1)
         shape = list(x.shape)
@@ -267,14 +237,14 @@ class Partition:
         lo_buf = (torch.empty(shape, dtype=x.dtype, device=x.device)
                   if lower and lo_nbr is not None else None)
         hi_buf = (torch.empty(shape, dtype=x.dtype, device=x.device)
-                  if hi_nbr is not None else None)
+                  if upper and hi_nbr is not None else None)
         # posted in one order on every rank (NCCL matches a pair's messages
         # in order): our first slab to the lower neighbour (tag 1, its
         # upper halo), our last to the upper one (tag 2); the upper halo
         # is the upper neighbour's first slab, the lower halo the lower
         # neighbour's last
         ops = []
-        if lo_nbr is not None:
+        if upper and lo_nbr is not None:
             first = x.narrow(axis, 0, 1).contiguous()
             ops.append(dist.P2POp(dist.isend, first, lo_nbr, tag=1))
         if lower and hi_nbr is not None:
@@ -297,18 +267,6 @@ class Partition:
         _, hi = self.halo(x, d, lower=False)
         return x if hi is None else torch.cat([x, hi], dim=self.dim - 1 - d)
 
-    # --- scatter / gather -----------------------------------------------
-    def scatter(self, full, field, dtype=None, device=None) -> torch.Tensor:
-        """The rank's block of a full array that every rank holds (cut
-        where it lies, then moved)."""
-        return self._cut(full, self.block(field), dtype, device)
-
-    @staticmethod
-    def _cut(full, block: tuple, dtype, device) -> torch.Tensor:
-        full = torch.as_tensor(full)
-        return full[block].to(dtype=dtype or full.dtype,
-                              device=device or full.device).contiguous()
-
     def _gather_blocks(self, x: torch.Tensor, blocks: list, full_shape,
                        take=None) -> torch.Tensor:
         """The full array from every rank's block (``blocks[r]``: slices of
@@ -329,6 +287,62 @@ class Partition:
                 shape = tuple(s.stop - s.start for s in blk)
                 full[blk] = part[:sizes[r]].reshape(shape)
         return full
+
+
+class Partition(_Blocks):
+    """Each rank's block of every field of a ``StaggeredMesh`` on a
+    ``ProcessMesh``.  Directions x and y are cut over the mesh axes "dx"
+    and "dy"; z is whole on every rank."""
+
+    def __init__(self, mesh, pmesh: ProcessMesh):
+        self.mesh = mesh
+        parts = [pmesh.shape[1], pmesh.shape[0], 1][:mesh.dim]
+        bounds = []
+        for d in range(mesh.dim):
+            n, p = mesh.n(Field.P, d), parts[d]
+            if n < 2 * p:
+                raise ValueError(
+                    f"{n} cells along direction {d} cannot be cut into {p} "
+                    "blocks of at least 2 cells")
+            bounds.append([k * n // p for k in range(p + 1)])
+        super().__init__(pmesh, mesh.dim, mesh.periodic, bounds)
+
+    # --- layout ---------------------------------------------------------
+    def range(self, field, d: int, rank: int | None = None) -> tuple:
+        """[lo, hi) of ``field``'s points along direction ``d`` on ``rank``
+        (default this one)."""
+        k = self.coord[d] if rank is None else self.coord_of(rank)[d]
+        lo, hi = self.bounds[d][k], self.bounds[d][k + 1]
+        if (int(field) == d and not self.periodic[d]
+                and k == self.parts[d] - 1):
+            hi -= 1  # the wall face: n - 1 velocity points
+        return lo, hi
+
+    def block(self, field, rank: int | None = None) -> tuple:
+        """The rank's block of ``field`` as slices in array-axis order."""
+        return tuple(slice(*self.range(field, d, rank))
+                     for d in reversed(range(self.dim)))
+
+    def local_shape(self, field, rank: int | None = None) -> tuple:
+        return tuple(s.stop - s.start for s in self.block(field, rank))
+
+    def origin(self) -> tuple:
+        """The global index of the block's first point per array axis
+        (the same for every field)."""
+        return tuple(self.bounds[d][self.coord[d]]
+                     for d in reversed(range(self.dim)))
+
+    # --- scatter / gather -----------------------------------------------
+    def scatter(self, full, field, dtype=None, device=None) -> torch.Tensor:
+        """The rank's block of a full array that every rank holds (cut
+        where it lies, then moved)."""
+        return self._cut(full, self.block(field), dtype, device)
+
+    @staticmethod
+    def _cut(full, block: tuple, dtype, device) -> torch.Tensor:
+        full = torch.as_tensor(full)
+        return full[block].to(dtype=dtype or full.dtype,
+                              device=device or full.device).contiguous()
 
     def gather(self, x: torch.Tensor, field) -> torch.Tensor:
         """The full array of a decomposed field, on every rank."""
@@ -389,6 +403,156 @@ class Partition:
             else:
                 out[key] = val
         return out
+
+
+class LevelBlocks(_Blocks):
+    """The blocks of one cell-centred multigrid level (``linalg/mg.py``).
+    Level 0 takes the pressure's blocks; a coarser level gives coarse
+    cell j, the sum of fine cells 2j and 2j+1, to the rank of its first
+    child (``coarsen``), so restriction and prolongation move at most
+    one slab along each cut axis.
+
+    A line sweep along a cut direction d moves its lines whole onto one
+    rank: ``to_pencil`` exchanges the blocks of the ranks that share the
+    other block coordinates (one all-to-all), so that each holds all of
+    direction d and a ``parts[d]``-th of the split direction
+    (``split_dir``: y for x lines, x for y lines); ``from_pencil`` is its
+    inverse."""
+
+    @classmethod
+    def of_pressure(cls, part: Partition) -> "LevelBlocks":
+        return cls(part.pmesh, part.dim, part.periodic, part.bounds)
+
+    def coarsen(self) -> "LevelBlocks":
+        return LevelBlocks(self.pmesh, self.dim, self.periodic,
+                           [[(b + 1) // 2 for b in bnd]
+                            for bnd in self.bounds])
+
+    def range(self, d: int, rank: int | None = None) -> tuple:
+        k = self.coord[d] if rank is None else self.coord_of(rank)[d]
+        return self.bounds[d][k], self.bounds[d][k + 1]
+
+    def block(self, rank: int | None = None) -> tuple:
+        """The rank's block as slices in array-axis order."""
+        return tuple(slice(*self.range(d, rank))
+                     for d in reversed(range(self.dim)))
+
+    def local_shape(self, rank: int | None = None) -> tuple:
+        return tuple(s.stop - s.start for s in self.block(rank))
+
+    def full_shape(self) -> tuple:
+        return tuple(self.bounds[d][-1] for d in reversed(range(self.dim)))
+
+    def cut(self, d: int) -> bool:
+        return self.parts[d] > 1
+
+    def split_dir(self, d: int) -> int:
+        """The direction a pencil of direction-d lines splits: y for x
+        lines, x for the others (z stays whole)."""
+        return 1 if d == 0 else 0
+
+    def holds_lines(self) -> bool:
+        """Whether every block has at least 2 cells along each cut
+        direction and every pencil at least one line: the level can stay
+        decomposed."""
+        def least(d):
+            return min(b - a for a, b in zip(self.bounds[d],
+                                             self.bounds[d][1:]))
+
+        return all(least(d) >= 2 and least(self.split_dir(d)) >= self.parts[d]
+                   for d in range(self.dim) if self.cut(d))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole level from the blocks, on every rank."""
+        blocks = [self.block(r) for r in range(self.pmesh.size)]
+        return self._gather_blocks(x, blocks, self.full_shape())
+
+    # --- pencils --------------------------------------------------------
+    def _group(self, d: int) -> list:
+        """The ranks whose blocks share every block coordinate but d's, in
+        the order of their coordinate along d."""
+        out = []
+        for k in range(self.parts[d]):
+            coord = list(self.coord)
+            coord[d] = k
+            out.append(self.pmesh.rank_at(coord[1], coord[0]))
+        return out
+
+    def pencil_range(self, d: int, k: int | None = None) -> tuple:
+        """[lo, hi) of the split direction's cells in member k's pencil
+        of direction-d lines (default this rank's)."""
+        s = self.split_dir(d)
+        lo, hi = self.range(s)
+        p = self.parts[d]
+        k = self.coord[d] if k is None else k
+        m = hi - lo
+        return lo + k * m // p, lo + (k + 1) * m // p
+
+    def _exchange(self, d: int, pieces: list, recv_shapes: list,
+                  cat_axis: int) -> list:
+        """One all-to-all within the group of direction d: ``pieces[k]``
+        (a tensor per field) to member k, and from member k one block of
+        ``recv_shapes[k]`` per field; each field's blocks joined along
+        ``cat_axis`` in member order."""
+        group = self._group(d)
+        nfields = len(pieces[0])
+        send = [0] * self.pmesh.size
+        recv = [0] * self.pmesh.size
+        flat = []
+        for k, r in enumerate(group):
+            flat += [t.contiguous().reshape(-1) for t in pieces[k]]
+            send[r] = sum(t.numel() for t in pieces[k])
+            recv[r] = nfields * math.prod(recv_shapes[k])
+        got = alltoall(torch.cat(flat), send, recv)
+        blocks = [c.split(math.prod(shape)) for c, shape in zip(
+            got.split([recv[r] for r in group]), recv_shapes)]
+        return [torch.cat([b[f].reshape(shape) for b, shape
+                           in zip(blocks, recv_shapes)], dim=cat_axis)
+                for f in range(nfields)]
+
+    def to_pencil(self, d: int, *xs: torch.Tensor) -> list:
+        """The rank's blocks of ``xs`` (fields of one shape) -> its pencils
+        of whole direction-d lines, in one all-to-all."""
+        ax_d, ax_s = self.dim - 1 - d, self.dim - 1 - self.split_dir(d)
+        lo_s = self.range(self.split_dir(d))[0]
+        mine = self.pencil_range(d)
+        pieces, shapes = [], []
+        for k in range(self.parts[d]):
+            a, b = self.pencil_range(d, k)
+            pieces.append([x.narrow(ax_s, a - lo_s, b - a) for x in xs])
+            shape = list(xs[0].shape)
+            shape[ax_d] = self.bounds[d][k + 1] - self.bounds[d][k]
+            shape[ax_s] = mine[1] - mine[0]
+            shapes.append(shape)
+        return self._exchange(d, pieces, shapes, ax_d)
+
+    def from_pencil(self, d: int, *xs: torch.Tensor) -> list:
+        """The inverse of ``to_pencil``."""
+        ax_d, ax_s = self.dim - 1 - d, self.dim - 1 - self.split_dir(d)
+        lo_d, hi_d = self.range(d)
+        pieces, shapes = [], []
+        for k in range(self.parts[d]):
+            lo, hi = self.bounds[d][k], self.bounds[d][k + 1]
+            pieces.append([x.narrow(ax_d, lo, hi - lo) for x in xs])
+            a, b = self.pencil_range(d, k)
+            shape = list(xs[0].shape)
+            shape[ax_d] = hi_d - lo_d
+            shape[ax_s] = b - a
+            shapes.append(shape)
+        return self._exchange(d, pieces, shapes, ax_s)
+
+
+class GroupSum:
+    """The process group's sum of a rank's partial: the ``reduce`` of the
+    Krylov solvers on a decomposed run.  ``replicated`` names the leaves
+    of a dict unknown that every rank holds whole (the Lagrangian forces
+    of the coupled {p, f} system): their inner products are every rank's
+    own and are not summed (``linalg/krylov.py``'s ``_dot``)."""
+
+    replicated = frozenset({"f"})
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        return allreduce_sum(t)
 
 
 class LocalMesh:

@@ -124,7 +124,7 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
             return
         ebnh = self._ebnh
 
-        def solve_forces(rhsf, win, x0=None):
+        def solve_forces(rhsf, win, x0=None, full=None):
             solver = make_solver(lambda df: ebnh(df, win), fopts)
             return solver(rhsf, torch.zeros_like(rhsf) if x0 is None else x0)
 
@@ -138,7 +138,7 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         refine = make_fdm_solver(inverse, lambda df: blocks_apply(mats, df),
                                  fopts)
 
-        def solve_forces(rhsf, win, x0=None):
+        def solve_forces(rhsf, win, x0=None, full=None):
             return refine(rhsf, torch.zeros_like(rhsf) if x0 is None else x0)
 
         self._solve_forces = solve_forces
@@ -149,8 +149,9 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         return state
 
     def _windows(self, state):
-        """Current delta windows (static for stationary bodies)."""
-        return self._static_windows
+        """The step's delta windows, (the full factor rows, the rank's
+        columns): static for stationary bodies."""
+        return self._full_windows, self._static_windows
 
     def _body_velocity(self, state):
         """Lagrangian boundary velocity UB (None for stationary bodies;
@@ -177,7 +178,8 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
 
         def moveIB(ctx):
             state = self._pre_step(ctx["state"])
-            return dict(ctx, state=state, win=self._windows(state))
+            full, win = self._windows(state)
+            return dict(ctx, state=state, win=win, win_full=full)
 
         def rhsVelocity(ctx):
             rhs1, state = self._rhs_velocity(ctx["state"])
@@ -195,7 +197,8 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         def solveForces(ctx):
             state = ctx["state"]
             x0 = state["df"] if self.warm_start_poisson else None
-            fsol = self._solve_forces(ctx["rhsf"], ctx["win"], x0)
+            fsol = self._solve_forces(ctx["rhsf"], ctx["win"], x0,
+                                      ctx["win_full"])
             return dict(ctx, fsol=fsol, df=fsol.x)
 
         def applyNoSlip(ctx):

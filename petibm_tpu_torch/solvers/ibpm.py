@@ -32,6 +32,14 @@ The coupled solve, as the JAX package chooses it:
   windows) or the analytic diagonal of E B1 H (BN > 1 or the windowed
   delta engine, whose windows hold no factor rows).
 
+On a decomposed run (JAX ``ibpm.py:97-101``) there is no direct solve:
+CG on -M runs with the pressure block on the decomposed FDM
+pseudo-inverse, or on the decomposed V-cycle for the pinned pressure,
+and the force block's exact inverse from the full factor rows every
+rank holds; E and H take the rank's columns, and the inner products sum
+the pressure's partials over the group and count the replicated forces
+once (``linalg/krylov.py``'s ``_dot``).
+
 A restart file carries ``force``, ``dP`` and ``dF`` (dPhi, the coupled
 solve's warm start) and the BC ghost state (JAX ``ibpm.py:443-468``).
 The step is ``_profile_phases`` chained (JAX ``ibpm.py:392-441``), the
@@ -46,8 +54,8 @@ import torch
 from ..config import solver_config
 from ..ibm.body import BodyPack
 from ..ibm.interp import dense_ebnh_blocks, make_delta_op
-from ..linalg.fdm import (FastDiagPoisson, PinnedSolve, make_fdm_solver,
-                          pinned_operator, set_first)
+from ..linalg.fdm import (FastDiagPoisson, PinnedSolve, holds_first,
+                          make_fdm_solver, pinned_operator, set_first)
 from ..linalg.krylov import make_solver, tmap
 from ..linalg.probe_diag import extract_diagonal
 from ..operators.cuda_stencil import make_cuda_poisson
@@ -64,11 +72,6 @@ _SCHUR_CHUNK = 64
 class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
     _skip_base_poisson = True  # the {p, f} block system replaces p_solver
 
-    def _check_decomposed(self, config: dict) -> None:
-        raise NotImplementedError(
-            "the coupled IBPM on a decomposed run is not ported yet "
-            "(ROADMAP item 19b)")
-
     def _extra_init(self, config: dict) -> None:
         self.bodies = BodyPack(config, self.mesh)
         if self.bodies.n_bodies == 0:
@@ -78,11 +81,16 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             self.mesh, params.get("delta", "ROMA_ET_AL_1999"),
             dtype=self.dtype, device=self.device, n_pts=self.bodies.n_pts,
             engine=params.get("deltaEngine", "auto"))
+        if self.part is not None:
+            self.delta.set_mesh(self.part)
         self.state["f"] = torch.zeros((self.bodies.n_pts, self.mesh.dim),
                                       dtype=self.dtype, device=self.device)
-        self._win = self.delta.windows(
+        # the force block's inverse takes the full factor rows, E and H
+        # the rank's columns (as the decoupled solver keeps them)
+        self._full_windows = self.delta.windows(
             torch.as_tensor(self.bodies.all_coords(), dtype=self.dtype,
                             device=self.device))
+        self._win = self.delta.local_windows(self._full_windows)
         self._create_coupled_poisson(config)
         self.state["dPhi"] = {"p": torch.zeros_like(self.state["p"]),
                               "f": torch.zeros_like(self.state["f"])}
@@ -105,7 +113,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             return {"p": div(w, None, homogeneous=True),
                     "f": delta.interpolate(w, win)}
 
-        A_p = pinned_operator(M, "p") if self.is_ref_p else M
+        A_p = pinned_operator(M, "p", part=self.part) if self.is_ref_p \
+            else M
 
         def negM(phi):
             return tmap(lambda x: -x, A_p(phi))
@@ -114,9 +123,12 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
 
         # the direct Schur-complement solve for BN order 1: the pressure
         # block -D B1 G has the exact FDM inverse, so the block system is
-        # solved through a setup-time dense force-space Schur complement
+        # solved through a setup-time dense force-space Schur complement;
+        # not on a decomposed run, which takes the outer CG (JAX
+        # ibpm.py:97-101)
         params = config.get("parameters", {})
         use_direct = (self.bn_order == 1 and not self.delta.windowed
+                      and self.part is None
                       and popts.get("pc", "mg") in ("mg", "fdm")
                       and bool(params.get("coupledDirect", True)))
         if use_direct and self.is_ref_p:
@@ -217,8 +229,11 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
                           p_pre) -> None:
         """CG on -M with a block preconditioner (``ibpm.py:248-335``): BN
         > 1, the windowed delta engine, ``coupledDirect: false``, ``fdm:
-        false``, or a pc other than mg and fdm."""
-        win, bn = self._win, self.bn
+        false``, a pc other than mg and fdm, or a decomposed run (the
+        pressure block on the decomposed FDM or V-cycle, the force block
+        from the full windows, every inner product summed over the group
+        with the replicated forces counted once)."""
+        win, bn, mean = self._full_windows, self.bn, self._mean
         pc = popts.get("pc", "mg")
         if pc in ("mg", "fdm"):
             if p_pre is None:
@@ -229,12 +244,13 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
                 # mean removed
                 def p_pre(r):
                     out = fdm_p.solve(r)
-                    return out - torch.mean(out)
+                    return out - mean(out)
             # the coupled operator is not K1 (the force term enters
             # between G and D), but the V-cycle's level-0 residual is the
             # plain pressure operator: K1 there
             if (not self.is_ref_p and self.bn_order == 1
                     and getattr(self, "poisson_mg", None) is not None
+                    and self.part is None
                     and not bool(config.get("parameters", {}).get(
                         "disablePallas", False))):
                 fused = make_cuda_poisson(self.poisson_mg.levels[0])
@@ -243,7 +259,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
         else:
             diag_p = extract_diagonal(
                 lambda p: -self.div(bn(self.grad(p)), None, homogeneous=True),
-                torch.zeros_like(self.state["p"]), radius=self.bn_order)
+                torch.zeros_like(self.state["p"]), radius=self.bn_order,
+                **self._diag_layout(Field.P))
 
             def p_pre(r):
                 return r / diag_p
@@ -277,7 +294,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
                 return {"p": p_pre(r["p"]), "f": r["f"] / diag_f}
 
         self._coupled_solver = make_solver(
-            negM, popts, M=M_block if pc != "none" else None)
+            negM, popts, M=M_block if pc != "none" else None,
+            reduce=self._reduce)
 
     # ------------------------------------------------------------------
     def _step_stats(self, ctx: dict) -> dict:
@@ -306,9 +324,11 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             rhs_p = self.div(ustar, state["bc"])
             rhs_f = self.delta.interpolate(ustar, self._win)
             if self.is_ref_p:
-                rhs_p = set_first(rhs_p.reshape(-1), 0.0).reshape(rhs_p.shape)
+                if holds_first(self.part):
+                    rhs_p = set_first(rhs_p.reshape(-1),
+                                      0.0).reshape(rhs_p.shape)
             else:
-                rhs_p = rhs_p - torch.mean(rhs_p)
+                rhs_p = rhs_p - self._mean(rhs_p)
             return dict(ctx, rhs={"p": -rhs_p, "f": -rhs_f})
 
         def solvePoisson(ctx):
@@ -321,7 +341,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
         def update(ctx):
             state, dphi = ctx["state"], ctx["dphi"]
             if not self.is_ref_p:
-                dphi = dict(dphi, p=dphi["p"] - torch.mean(dphi["p"]))
+                dphi = dict(dphi, p=dphi["p"] - self._mean(dphi["p"]))
             qnew = tmap(lambda u, g: u - g, ctx["ustar"],
                         self.bn(self._G_combined(dphi)))
             bc = self.bc.update_ghost_values(state["bc"], qnew)
@@ -341,7 +361,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
         # the base class's dP is replaced by dPhi's; the BC ghost state
         # stays
         return dict({"force": self.state["f"],
-                     "dP": self.state["dPhi"]["p"],
+                     "dP": self._gather(self.state["dPhi"]["p"], Field.P),
                      "dF": self.state["dPhi"]["f"]},
                     **self._bc_restart_extra())
 
@@ -351,7 +371,7 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
             self.state["f"] = self._tensor(extra["force"].reshape(fshape))
         if "dP" in extra and "dF" in extra:
             self.state["dPhi"] = {
-                "p": self._tensor(extra["dP"].reshape(
-                    self.mesh.shape(Field.P))),
+                "p": self._field(extra["dP"].reshape(
+                    self.mesh.shape(Field.P)), Field.P),
                 "f": self._tensor(extra["dF"].reshape(fshape))}
         self._restore_bc_extra(extra)

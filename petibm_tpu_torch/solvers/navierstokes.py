@@ -72,12 +72,13 @@ grid field on the ("dy", "dx") process mesh (``parallel/dist.py``).  The
 state is scattered at init; the operators are built on the rank's
 ``LocalMesh`` and exchange halos; means, norms and inner products are
 summed over the group; the FDM solves repartition their blocks
-(``linalg/fdm.py``); no hand kernel runs (the JAX package's gates,
+(``linalg/fdm.py``); the V-cycle keeps its finer levels on the blocks
+and runs K4-K7 on line pencils and on the whole coarse levels
+(``linalg/mg.py``), while K1-K3 stay off (the JAX package's gates,
 navierstokes.py:237, 266, 388, 411).  Output, iteration logs and restarts
 go through gather and scatter, and only rank 0 writes.  A decomposed run
-refuses what ROADMAP item 19b leaves: the V-cycle (``fdm: false``, MG
-preconditioners), ``fdm.repartition: false``, ``stepsPerDispatch`` > 1
-and probes.
+refuses what ROADMAP item 19b leaves: ``fdm.repartition: false``,
+``stepsPerDispatch`` > 1 and probes.
 
 Configurations this port does not cover raise ``NotImplementedError``:
 an ``mg.dtype`` that the V-cycle's kernels have no instances of, a moving
@@ -112,7 +113,8 @@ from ..operators.cuda_stencil import (make_cuda_convection,
                                       make_cuda_momentum, make_cuda_poisson,
                                       make_cuda_poisson_zblocked)
 from ..operators.stencil import make_divergence, make_gradient, make_laplacian
-from ..parallel.dist import LocalMesh, Partition, mesh_from_config
+from ..parallel.dist import (GroupSum, LocalMesh, Partition,
+                             mesh_from_config)
 from ..parallel.multihost import local_rank, maybe_initialize
 from ..timeintegration import create_time_integration
 from ..types import Field
@@ -219,7 +221,7 @@ class NavierStokesSolver:
             self.grid = LocalMesh(self.part)
         #: only rank 0 writes files
         self.is_root = self.part is None or self.part.rank == 0
-        self._reduce = None if self.part is None else self.part.allreduce_sum
+        self._reduce = None if self.part is None else GroupSum()
         self._mean = torch.mean if self.part is None else self.part.mean
         self.output_dir = config.get("output", os.getcwd())
         self.logs_dir = config.get("logs", self.output_dir)
@@ -306,8 +308,6 @@ class NavierStokesSolver:
         params = config.get("parameters", {})
         fdm_cfg = fdm_config(params)
         refused = [
-            (not bool(fdm_cfg.get("enabled", True)),
-             "fdm: false (the multigrid V-cycle)"),
             (not bool(fdm_cfg.get("repartition", True)),
              "fdm.repartition: false"),
             (int(params.get("stepsPerDispatch", 1)) > 1,
@@ -543,9 +543,6 @@ class NavierStokesSolver:
                 return out - mean(out)
 
             return M_fdm
-        if self.part is not None:
-            raise _not_ported("the multigrid V-cycle on a decomposed run",
-                              "ROADMAP item 19b")
         mg = params.get("mg", {}) or {}
         # V(1,1) by default, as in the JAX package
         knobs = dict(
@@ -557,6 +554,10 @@ class NavierStokesSolver:
             device=self.device, scale=self.dt)
         self.poisson_mg = PoissonMG(self.mesh.dxp, self.mesh.periodic,
                                     dtype=self.dtype, **knobs)
+        if self.part is not None:
+            # JAX navierstokes.py:523-531: the levels above
+            # consolidateBelow cells decomposed, the rest whole
+            self.poisson_mg.set_mesh(self.part)
         self.poisson_level = self.poisson_mg.levels[0]
         lp_dtype = _MG_DTYPES.get(str(mg.get("dtype")), self.dtype)
         if lp_dtype == self.dtype:
@@ -569,15 +570,18 @@ class NavierStokesSolver:
         # _create_poisson_solver), which halves the bytes it streams
         self.poisson_mg_lp = mg_lp = PoissonMG(
             self.mesh.dxp, self.mesh.periodic, dtype=lp_dtype, **knobs)
+        if self.part is not None:
+            mg_lp.set_mesh(self.part)  # JAX :557-558
         remove_mean, out_dtype = not self.is_ref_p, self.dtype
+        mean = self._mean
 
         def M_lp(r):
             # the nullspace means in the solver's dtype: a low-precision
             # sum over the whole grid would be noise
             if remove_mean:
-                r = r - torch.mean(r)
-            out = mg_lp.vcycle(0, r.to(lp_dtype)).to(out_dtype)
-            return out - torch.mean(out) if remove_mean else out
+                r = r - mean(r)
+            out = mg_lp.cycle(r.to(lp_dtype)).to(out_dtype)
+            return out - mean(out) if remove_mean else out
 
         return M_lp
 

@@ -12,6 +12,11 @@ windows directly (``fallbacks`` counts those steps).  Otherwise the step
 takes the decoupled solver's matrix-free Krylov force solve, as the JAX
 package does (decoupledibpm.py:85, 211-215).
 
+On a decomposed run every rank makes the full factor rows of the step's
+windows (the dense blocks take them) and cuts its block's columns for E
+and H (JAX ``rigidkinematics.py:96-122``); the refinement's residual is
+summed over the group, so every rank takes the same branch.
+
 The step's time is ``state["t"]``, a 0-d tensor of the solver's dtype on
 its device, advanced as ``t + dt`` inside the step, as the JAX package
 advances its scalar; it is re-seeded from the host's float64 ``self.t``
@@ -46,11 +51,6 @@ from .decoupledibpm import DecoupledIBPMSolver, blocks_apply
 
 
 class RigidKinematicsSolver(DecoupledIBPMSolver):
-    def _check_decomposed(self, config: dict) -> None:
-        raise NotImplementedError(
-            "a moving body (rigid kinematics) on a decomposed run is not ported yet "
-            "(ROADMAP item 19b)")
-
     def _extra_init(self, config: dict) -> None:
         super()._extra_init(config)
         if self.delta.windowed and self.steps_per_dispatch > 1:
@@ -84,13 +84,16 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
         rtol = float(fopts.get("rtol", 0.0))
         refine = make_fdm_solver(inverse, ebnh, fopts)
 
-        def solve_forces(rhsf, win, x0=None):
+        def solve_forces(rhsf, win, x0=None, full=None):
             res = refine(rhsf, torch.zeros_like(rhsf) if x0 is None else x0,
                          win)
+            # replicated on a decomposed run (E sums the ranks' partials):
+            # every rank takes the same branch
             fallback = ~res.converged
 
             def dense_solve():
-                mats = dense_ebnh_blocks(win, dim, dt)
+                mats = dense_ebnh_blocks(win if full is None else full, dim,
+                                         dt)
                 df = torch.stack([torch.linalg.solve_ex(mats[c],
                                                         rhsf[:, c])[0]
                                   for c in range(dim)], dim=1)
@@ -173,7 +176,8 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
         return dict(state, t=state["t"] + self.dt)
 
     def _windows(self, state):
-        return self.delta.windows(self.set_coordinates(state["t"]))
+        full = self.delta.windows(self.set_coordinates(state["t"]))
+        return full, self.delta.local_windows(full)
 
     def _body_velocity(self, state):
         return self.set_velocity(state["t"])

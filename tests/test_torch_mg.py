@@ -183,8 +183,11 @@ def test_vcycle_sweep_count_and_sharding(monkeypatch):
         other = "pcr" if key == "fused_sweep" else "fused_sweep"
         assert calls[key] - before[key] == pmg.sweeps_per_vcycle()
         assert calls[other] == before[other]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        pmg.set_mesh(None)
+    # undecomposed, ``cycle`` is the V-cycle from level 0 and no level
+    # keeps blocks (the decomposed hierarchy: test_torch_parallel_mg.py)
+    r = torch.as_tensor(rand(pmg.levels[0].shape, 1))
+    assert pmg.part is None and pmg.blocks == []
+    assert torch.equal(pmg.cycle(r), pmg.vcycle(0, r))
 
 
 @pytest.mark.cuda

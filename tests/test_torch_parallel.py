@@ -18,7 +18,8 @@ same configurations.
   sphere, a 16^3 TGV (BiCGStab + Jacobi momentum solve), and the pinned
   pressure on the cavity and a periodic TGV2D, on [2, 2];
 - job ``two`` (2 ranks): each configuration ROADMAP item 19b leaves out
-  raises ``NotImplementedError`` naming it;
+  raises ``NotImplementedError`` naming it (the V-cycle, the coupled IBPM
+  and the moving body run decomposed: ``test_torch_parallel_mg.py``);
 - the navierstokes CLI under ``torch.distributed.run`` on 2 processes
   against a single-process run: logs and rank 0's snapshot.
 """
@@ -290,9 +291,6 @@ FDM_GRIDS = {
 }
 
 REFUSED = {
-    "coupled_ibpm": "ibpm.IBPMSolver",
-    "rigid_kinematics": "rigidkinematics.RigidKinematicsSolver",
-    "fdm_false": "navierstokes.NavierStokesSolver",
     "windowed_engine": "decoupledibpm.DecoupledIBPMSolver",
     "probes": "navierstokes.NavierStokesSolver",
     "three_axis_mesh": "navierstokes.NavierStokesSolver",
@@ -303,16 +301,11 @@ REFUSED = {
 
 def _refused_config(name, tmpdir):
     shard = dict(SHARDING, nDevices=2)
-    ibm = name in ("coupled_ibpm", "rigid_kinematics", "windowed_engine")
-    cfg = (cylinder_config(tmpdir, sharding=shard) if ibm
+    cfg = (cylinder_config(tmpdir, sharding=shard)
+           if name == "windowed_engine"
            else cavity_config(tmpdir, sharding=shard))
     params = cfg["parameters"]
-    if name == "rigid_kinematics":
-        cfg["bodies"][0]["kinematics"] = {"type": "oscillation", "f": 0.2,
-                                          "D": 0.4, "KC": 2.0}
-    elif name == "fdm_false":
-        params["fdm"] = False
-    elif name == "windowed_engine":
+    if name == "windowed_engine":
         params["deltaEngine"] = "windowed"
     elif name == "probes":
         cfg["probes"] = [{"name": "probe-p", "type": "POINT", "field": "p",
@@ -521,27 +514,53 @@ def _env() -> dict:
 
 
 def _launch(job: str, world: int, out) -> None:
+    _launch_job([os.path.abspath(__file__), job], world, out, TIMEOUT[job])
+
+
+def _launch_job(script: list, world: int, out, timeout: float) -> None:
+    """Run ``python <script...> <rank> <world> <port> <out>`` as ``world``
+    rank processes; a rank that fails or outlives ``timeout`` seconds
+    fails the caller."""
+    _wait_job(_start_job(script, world, out), timeout)
+
+
+def _start_job(script: list, world: int, out) -> list:
+    """Start the rank processes of ``_launch_job`` (each one's output in
+    ``<out>/rank<r>.log``) and return them without waiting."""
     port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
-         str(port), str(out)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=_env()) for r in range(world)]
-    errors = []
+    procs = []
+    for r in range(world):
+        with open(os.path.join(str(out), f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, *script, str(r), str(world), str(port),
+                 str(out)], stdout=log, stderr=subprocess.STDOUT,
+                env=_env()))
+    return procs
+
+
+def _wait_job(procs: list, timeout: float) -> None:
+    """Wait for the rank processes of ``_start_job`` at most ``timeout``
+    seconds in all; a rank that failed or is still running fails the
+    caller (and is stopped)."""
+    import time
+
+    errors, deadline = [], time.monotonic() + timeout
     try:
         for r, p in enumerate(procs):
             try:
-                _, err = p.communicate(timeout=TIMEOUT[job])
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
             except subprocess.TimeoutExpired:
-                errors.append(f"rank {r}: no end within {TIMEOUT[job]} s")
+                errors.append(f"rank {r}: no end within {timeout} s")
                 continue
             if p.returncode != 0:
-                errors.append(f"rank {r} exited {p.returncode}:\n"
-                              f"{err[-3000:]}")
+                with open(os.path.join(p.args[-1], f"rank{r}.log")) as fh:
+                    errors.append(f"rank {r} exited {p.returncode}:\n"
+                                  f"{fh.read()[-3000:]}")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
     assert not errors, "\n".join(errors)
 
 
