@@ -40,7 +40,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 8. run the three cells again with ``fdm: false``, the multigrid-
    preconditioned CG pressure solve (the smoother's sweeps K4/K5 on
    non-periodic levels, K6/K7 on periodic ones): the flagship (10 warm-up
-   and 20 timed steps), the sphere (15 steps) and the 256^3 TGV (10
+   and 10 timed steps), the sphere (10 steps) and the 256^3 TGV (10
    steps, the energy does not grow), each through ``run()`` with every
    launch count checked against the stats and its device busy share
    profiled over a few more steps (device ms per V-cycle beside the
@@ -56,7 +56,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    and max 0.12 of the Koumoutsakos & Leonard (1995) curve over t in
    [0.5, 3], setup seconds (the Schur build) and ms/step printed, one
    JSON line each; Re=550 with ``fdm: false`` (CG on the coupled system,
-   the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 3
+   the V-cycle with K1 at its level-0 residual and the K4/K5 sweeps) for 2
    steps with its launches against the stats, one more step profiled,
    then one step A/B'd with the kernels off; small 2D and 3D coupled
    cases (K2a, K3) on the card against the CPU path;
@@ -105,10 +105,10 @@ Phases, in order (any failure raises and the script exits non-zero):
 14. ``stepsPerDispatch``: seven cells from one start each, their steps in
    chunks of k (the step one CUDA graph, its loops capped copies of their
    bodies under CUDA IF nodes, replayed k times, one host read a chunk)
-   beside the same steps one at a time: (a) the flagship, 200 steps, k
-   100; (b) the sphere, 50, 25; (c) the 256^3 TGV, 20, 10; (d) the
-   coupled Re=550, 200, 100; (e) the oscillating cylinder, 200, 100; (f)
-   the flagship with ``fdm: false``, 20, 10; (g) (f) with its CG loop's
+   beside the same steps one at a time: (a) the flagship, 100 steps, k
+   50; (b) the sphere, 50, 25; (c) the 256^3 TGV, 20, 10; (d) the
+   coupled Re=550, 100, 50; (e) the oscillating cylinder, 100, 50; (f)
+   the flagship with ``fdm: false``, 10, 5; (g) (f) with its CG loop's
    cap forced to 4, 10, 10: it overflows, reruns and recaptures; (h) the
    coupled Re=550 with ``fdm: false``, one chunk of 2 for its graph's
    size.  Each holds fields and stats at tolerance 0 and prints both
@@ -125,17 +125,23 @@ Phases, in order (any failure raises and the script exits non-zero):
 15. the domain decomposition (``parameters.sharding``): two ranks on the
    one card, processes of this script (``--phase15-rank``), through the
    solver API, NCCL with a host id of its own per rank
-   (``P15_NCCL_ENV``): the flagship on a [1, 2] mesh for 20 steps and
-   on [2, 1] for 10, the sphere on [1, 2] for 10, the flagship with
-   ``fdm: false`` (the decomposed V-cycle) for 3, the coupled Re=550 for
-   3 and the oscillating cylinder for 5, each beside a single-rank card
-   run from the same start (fields and forces within 1e-4 of their
-   largest value, or the coupled cell's own one-ulp spread, v/p/f
-   iterations equal on 95% of the steps); the 32^2 cylinder, its
-   ``fdm: false``, coupled and moving variants in float64 beside a
+   (``P15_NCCL_ENV``): the flagship on a [1, 2] mesh and on [2, 1]
+   for 5 steps, the sphere on [1, 2] for 5, the flagship with ``fdm:
+   false`` (the decomposed V-cycle) for 1, the coupled Re=550 for 1, the
+   oscillating cylinder for 5, the sphere on the 3-axis [2, 1, 1] mesh
+   for 3 (the FDM's contraction core) and with ``fdm: false`` for 1 (K5
+   on z pencils), the sphere with the windowed engine for 3 and the
+   flagship with ``fdm.repartition: false`` and two probes for 10, each
+   beside a single-rank card run from the same start (fields, forces
+   and probe files within 1e-4 of their largest value, or the coupled
+   cell's own one-ulp spread, v/p/f iterations equal on 95% of the
+   steps); the 32^2 cylinder, its ``fdm: false``, coupled, moving,
+   windowed-with-probes and windowed moving variants and the 24x20x16
+   sphere on [2, 1, 1] (FDM and ``fdm: false``) in float64 beside a
    single-rank CPU run (1e-9, iterations and fallbacks equal); ms/step
-   of each rank beside the single rank's, the halo exchanges,
-   all-reduces and all-to-alls a step and their bytes; one
+   of each rank beside the single rank's, the FDM core, the halo
+   exchanges, all-reduces, all-to-alls and reduce-scatters a step and
+   their bytes; one
    ``{"distributed": ...}`` JSON line a cell.  On the ranks K1-K3 launch
    no time (the JAX package's gates under a mesh) and K4/K5 (K6/K7) as
    their V-cycles imply.
@@ -431,9 +437,11 @@ def tgv3d_initial_state(solver) -> None:
 TIME_BUDGET_S = 1.0
 
 
-def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
+def _time_ms(fn, arg, applies: int = 200, batch: int = 20,
+             warm: int = 10) -> tuple:
     """Median times of one ``fn(arg)`` over ``applies`` calls, in batches
-    of ``batch`` after a warm-up: (device ms, host ms).  A function whose
+    of ``batch`` after ``warm`` warm-up calls: (device ms, host ms).  A
+    function whose
     warm-up calls take more than ``TIME_BUDGET_S`` over all the batches
     (a twin of a few ms and more) gets fewer batches, at least 2.
 
@@ -446,10 +454,10 @@ def _time_ms(fn, arg, applies: int = 200, batch: int = 20) -> tuple:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(warm):
         fn(arg)
     torch.cuda.synchronize()
-    per_call = (time.perf_counter() - t0) / 10
+    per_call = (time.perf_counter() - t0) / warm
     batches = max(2, min(applies // batch,
                          int(TIME_BUDGET_S / (2 * batch * per_call))))
     device, host = [], []
@@ -589,7 +597,11 @@ def _hold(label: str, kernel, twin, arg, tol: float, applies: int,
     each = ("" if len(pairs) == 1 else " (each output "
             + " / ".join(f"{e:.3e}" for e in errs) + ")")
     ms, host_ms = _time_ms(kernel, arg, applies)
-    plain_ms, plain_host_ms = _time_ms(twin, arg, applies)
+    # the twins take 0.05-20 ms a call: a quarter of the applies, in
+    # batches of 5 after 3 warm-up calls, times them well inside their
+    # spread (each batch waits behind a ~25 ms spin kernel)
+    plain_ms, plain_host_ms = _time_ms(twin, arg, max(applies // 4, 10),
+                                       batch=5, warm=3)
     bound_ms, bound_by = _bound(*work)
     print(f"{label}: max|kernel-twin| {err:.3e}{each} (rel {rel:.3e}, tol "
           f"{tol:g}); "
@@ -724,7 +736,7 @@ def phase2_kernels(tmp: str) -> dict:
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype)[6:]
         size = torch.finfo(dtype).bits // 8
-        applies = 100 if dtype == torch.float32 else 40
+        applies = 60 if dtype == torch.float32 else 24
         tol = tols[dtype]
         # K1: the flagship's, the oscillating cylinder's and the sphere's
         # pressure, bit for bit
@@ -822,9 +834,10 @@ def phase2_kernels(tmp: str) -> dict:
                             cuda_pcr.block_plan(shape3, axis3), pair,
                             applies // 2)
             del mg
-        _hold_pencils(meshes["450x450"][0],
-                      cases["450x450"]["parameters"]["dt"], dtype, randn,
-                      applies // 2)
+        for name, shape in (("450x450", [1, 2]), ("sphere", [2, 1, 1])):
+            _hold_pencils(name, meshes[name][0], shape,
+                          cases[name]["parameters"]["dt"], dtype, randn,
+                          applies // 2)
         # K6/K7: the TGV's line systems at 256^3, 128^3 and 64^3 (levels
         # 0-2), every axis, bit for bit; at 256^3 also the block path (the
         # first design, which takes lines of any length), in turns
@@ -859,46 +872,47 @@ def phase2_kernels(tmp: str) -> dict:
     return records
 
 
-def _hold_pencils(mesh, dt: float, dtype, randn, applies: int) -> None:
-    """K4/K5 at the shapes of the flagship's decomposed level 0 on [1, 2]
-    (phase 15's flagship_mg_1x2), on each rank's factors: the x sweep on
-    its pencil of whole x lines (225 x 450), the y sweep on its block (450
-    x 225), the couplings of the folded direction zero in the operands
-    (``PoissonMG.sweep_layout``), bit for bit with the twin.  The ranks'
-    layout comes from a stand-in of the process mesh: no group forms."""
-    import types
-
+def _hold_pencils(name: str, mesh, shape: list, dt: float, dtype, randn,
+                  applies: int) -> None:
+    """K4/K5 at the shapes of a decomposed level 0 (phase 15's MG cells:
+    the flagship on [1, 2], the sphere on [2, 1, 1]), on each rank's
+    factors: a sweep along a cut direction on its pencil of whole lines
+    (the flagship's 225 x 450 x lines, the sphere's 130 x 65 x 160 z
+    lines), the others on its block, the couplings of the folded
+    directions zero in the operands (``PoissonMG.sweep_layout``), bit for
+    bit with the twin.  The ranks' layout comes from a process mesh
+    without a group (``ProcessMesh(shape, rank=...)``)."""
     import torch
 
     from petibm_tpu_torch.linalg import cuda_sweep
     from petibm_tpu_torch.linalg.mg import PoissonMG
-    from petibm_tpu_torch.parallel import Partition
+    from petibm_tpu_torch.parallel import Partition, ProcessMesh
 
     size = torch.finfo(dtype).bits // 8
-    for rank in (0, 1):
-        pmesh = types.SimpleNamespace(shape=(1, 2), rank=rank, size=2,
-                                      rank_at=lambda iy, ix: 2 * iy + ix)
+    for rank in range(math.prod(shape)):
         mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=dtype,
                        device=DEVICE, scale=dt)
-        mg.set_mesh(Partition(mesh, pmesh))
+        mg.set_mesh(Partition(mesh, ProcessMesh(shape, rank=rank)))
         for d in range(mesh.dim):
             level, fold = mg.sweep_layout(0, d)
             aux = mg.folded_aux(level, d, fold)
-            shape = tuple(level.shape)
+            lshape = tuple(level.shape)
             axis = mesh.dim - 1 - d
-            pair = (randn(shape, dtype), randn(shape, dtype))
+            pair = (randn(lshape, dtype), randn(lshape, dtype))
             n = pair[0].numel()
-            plan = cuda_sweep.launch_plan((1,) + shape, axis + 1)
+            pad = 3 - mesh.dim
+            plan = cuda_sweep.launch_plan((1,) * pad + lshape, axis + pad)
             where = "pencil" if mg.blocks[0].cut(d) else "block"
-            _hold(f"K4/K5 flagship [1, 2] rank {rank} level 0 {where} "
-                  f"{shape} direction {d} {plan} {str(dtype)[6:]}",
+            ops = 7 + 6 * (mesh.dim - 1) + 14 * _steps(lshape[axis])
+            _hold(f"K4/K5 {name} {shape} rank {rank} level 0 {where} "
+                  f"{lshape} direction {d} {plan} {str(dtype)[6:]}",
                   lambda a: cuda_sweep.fused_sweep(a[0], a[1], aux, axis,
                                                    1.0),
                   lambda a: cuda_sweep.fused_sweep_ref(a[0], a[1], aux, axis,
                                                        1.0),
                   pair, 0.0, applies,
-                  ((3 * n + sum(t.numel() for t in aux)) * size,
-                   (7 + 6 + 14 * _steps(shape[axis])) * n, dtype))
+                  ((3 * n + sum(t.numel() for t in aux)) * size, ops * n,
+                   dtype))
 
 
 #: the record keys of a bfloat16 hold in the JSON line
@@ -1443,9 +1457,9 @@ def phase7_ab3d(tmp: str, sphere, tgv) -> None:
     # float32 at 1e-4, the CPU tests' float32 tolerance: the sphere's force
     # blocks (1963 points, condition ~450) lift the velocity's rounding
     # differences (~2e-6) to ~1e-5 in the forces
-    _ab("sphere", make_sphere, state_to_numpy(sphere.state), 10, _ibm_fields,
+    _ab("sphere", make_sphere, state_to_numpy(sphere.state), 5, _ibm_fields,
         f32_tol=1e-4)
-    _ab("tgv256", make_tgv, state_to_numpy(tgv.state), 5,
+    _ab("tgv256", make_tgv, state_to_numpy(tgv.state), 3,
         lambda s: dict(s.state["q"], p=s.state["p"]), f32_tol=1e-4)
 
     def small(dev, tag):
@@ -1519,7 +1533,7 @@ def _mg_counts(solver, level0_per_vcycle: int = 2) -> dict:
 
 
 def _report_mg(label: str, solver, elapsed: float, nsteps: int,
-               extra: str = "", profile_steps: int = 5) -> None:
+               extra: str = "", profile_steps: int = 3) -> None:
     """ms/step and p_iters of the run, then a profile of ``profile_steps``
     more steps (the profiler's post-processing grows with the events:
     a coupled step of ~150 V-cycles takes one)."""
@@ -1563,7 +1577,7 @@ def _timed_run(solver, warm: int, total: int) -> float:
 
 def phase8_mg(tmp: str) -> tuple:
     """The three cells with ``fdm: false`` through run(): the flagship (10
-    warm-up + 20 timed steps), the sphere (5 + 10), the 256^3 TGV (10 in
+    warm-up + 10 timed steps), the sphere (5 + 5), the 256^3 TGV (10 in
     chunks, the energy read between them); every launch count against the
     stats.  Returns the three solvers and the launches of each run."""
     import numpy as np
@@ -1577,24 +1591,24 @@ def phase8_mg(tmp: str) -> tuple:
     flag = DecoupledIBPMSolver(flagship_config(os.path.join(tmp, "mg_flag"),
                                                fdm=False), device=DEVICE)
     _reset_counts()
-    elapsed = _timed_run(flag, 10, 30)
+    elapsed = _timed_run(flag, 10, 20)
     counts.append(_counts())
-    _check_run(flag.stats_history, 30, "vpf")
+    _check_run(flag.stats_history, 20, "vpf")
     _check_counts("flagship mg", counts[-1], _mg_counts(flag))
     st = flag.state
     _check_fields({"p": st["p"], "f": st["f"]},
                   {"p": flag.mesh.shape(3), "f": (flag.bodies.n_pts, 2)})
     fx, fy = flag.bodies.avg_forces(st["f"].cpu().numpy())[0]
-    _report_mg("flagship mg", flag, elapsed, 20,
+    _report_mg("flagship mg", flag, elapsed, 10,
                f"; t = {flag.t:.4f}: Cd {2 * fx:.5f}, Cl {2 * fy:.5f}")
 
     # the sphere: 3D K4/K5, K1, BiCGStab on K2a, K3
     sph = DecoupledIBPMSolver(sphere_config(os.path.join(tmp, "mg_sphere"),
                                             fdm=False), device=DEVICE)
     _reset_counts()
-    elapsed = _timed_run(sph, 5, 15)
+    elapsed = _timed_run(sph, 5, 10)
     counts.append(_counts())
-    _check_run(sph.stats_history, 15, "vpf")
+    _check_run(sph.stats_history, 10, "vpf")
     hist = sph.stats_history
     _check_counts("sphere mg", counts[-1], dict(
         _mg_counts(sph), K2a=sum(3 * (1 + 2 * s["v_iters"]) for s in hist),
@@ -1603,7 +1617,7 @@ def phase8_mg(tmp: str) -> tuple:
     _check_fields(dict(st["q"], p=st["p"]),
                   {k: sph.mesh.shape(f) for f, k in enumerate("uvwp")})
     fx, fy, fz = sph.bodies.avg_forces(st["f"].cpu().numpy())[0]
-    _report_mg("sphere mg", sph, elapsed, 10,
+    _report_mg("sphere mg", sph, elapsed, 5,
                f"; t = {sph.t:.4f}: Cd {2 * fx / (np.pi / 4):.5f}")
 
     # the 256^3 TGV: K6/K7 on every level, K2b, BiCGStab on K2a, K3
@@ -1668,12 +1682,12 @@ def phase9_mg_ab(tmp: str, flag, sph, tgv) -> None:
         state_to_numpy(tgv.state), 1,
         lambda s: dict(s.state["q"], p=s.state["p"]), **tols)
     _cuda_vs_cpu("32^2 mg", lambda dev, tag: DecoupledIBPMSolver(small_config(
-        os.path.join(tmp, f"small_mg_{tag}"), nt=20, dtype="float64",
+        os.path.join(tmp, f"small_mg_{tag}"), nt=10, dtype="float64",
         fdm=False), device=dev), ("p", "f"))
 
     def small_tgv(dev, tag):
         s = NavierStokesSolver(tgv3d_config(
-            os.path.join(tmp, f"tgv16_mg_{tag}"), n=16, nt=10, dt=0.05,
+            os.path.join(tmp, f"tgv16_mg_{tag}"), n=16, nt=5, dt=0.05,
             dtype="float64", fdm=False), device=dev)
         tgv3d_initial_state(s)
         return s
@@ -1798,11 +1812,11 @@ def phase10_coupled(tmp: str) -> list:
     if mg.poisson_mg._fused_apply0 is None:
         raise AssertionError("re550 mg: K1 is not the V-cycle's level 0")
     _reset_counts()
-    elapsed = _timed_run(mg, 1, 3)
+    elapsed = _timed_run(mg, 1, 2)
     counts.append(_counts())
-    _check_run(mg.stats_history, 3, "vp")
+    _check_run(mg.stats_history, 2, "vp")
     _check_counts("re550 mg", counts[-1], _mg_counts(mg, 1))
-    _report_mg("re550 mg", mg, elapsed, 2, profile_steps=1)
+    _report_mg("re550 mg", mg, elapsed, 1, profile_steps=1)
     mg.close()
     part("re550 mg")
     # its stencil side runs the smoother's twins, ~20 s a step in each
@@ -1814,12 +1828,12 @@ def phase10_coupled(tmp: str) -> list:
     # (d) small cases, card against CPU
     _reset_counts()
     _cuda_vs_cpu("32^2 coupled", lambda dev, tag: IBPMSolver(small_config(
-        os.path.join(tmp, f"small_ibpm_{tag}"), nt=20, dtype="float64"),
+        os.path.join(tmp, f"small_ibpm_{tag}"), nt=10, dtype="float64"),
         device=dev), ("p", "f"))
     _check_counts("32^2 coupled", _counts(), {})
     _reset_counts()
     runs = _cuda_vs_cpu("24x20x16 coupled", lambda dev, tag: IBPMSolver(
-        small3d_config(os.path.join(tmp, f"small3d_ibpm_{tag}"), nt=5,
+        small3d_config(os.path.join(tmp, f"small3d_ibpm_{tag}"), nt=3,
                        dtype="float64"), device=dev), ("p", "f"))
     counts.append(_counts())
     hist = runs["card"].stats_history
@@ -2428,7 +2442,7 @@ def _beside_f32(label: str, bf16, f32) -> None:
           f"{theirs['busy']:.4f}")
 
 
-def _bf16_system(label: str, solver, maxiter: int = 300) -> list:
+def _bf16_system(label: str, solver, maxiter: int = 150) -> list:
     """One pressure system of ``solver`` (a consistent random right side,
     seeded) by CG with the float32 V-cycle and with the bfloat16 one
     (``solver``'s own preconditioner), at the cell's atol relative to the
@@ -2927,10 +2941,10 @@ def phase14_chunked(tmp: str, card: str) -> list:
     """``stepsPerDispatch``: each cell from one start, k steps a chunk
     (one CUDA graph of the step replayed k times, one host read), beside
     the single steps of the same steps (``_chunk_cell``): (a) the
-    flagship, 200 steps, k 100; (b) the sphere, 50, 25; (c) the 256^3 TGV
-    (FDM pressure), 20, 10; (d) the coupled Re=550, 200, 100; (e) the
-    oscillating cylinder, 200, 100 (its force solve's fallbacks equal);
-    (f) the flagship MG-CG, 20, 10; (g) (f) again with the CG loop's cap
+    flagship, 100 steps, k 50; (b) the sphere, 50, 25; (c) the 256^3 TGV
+    (FDM pressure), 20, 10; (d) the coupled Re=550, 100, 50; (e) the
+    oscillating cylinder, 100, 50 (its force solve's fallbacks equal);
+    (f) the flagship MG-CG, 10, 5; (g) (f) again with the CG loop's cap
     forced to 4: it overflows, reruns and recaptures and still equals
     the single steps; then the coupled Re=550 with ``fdm: false``, one
     k = 2 chunk for its node count and capture time.  Returns each
@@ -2957,7 +2971,7 @@ def phase14_chunked(tmp: str, card: str) -> list:
 
     flag = DecoupledIBPMSolver(flagship_config(
         os.path.join(tmp, "c_flag"), nt=0), device=DEVICE)
-    cell("(a) flagship", flag, 200, 100, k1_fdm)
+    cell("(a) flagship", flag, 100, 50, k1_fdm)
     flag.close()
 
     sph = DecoupledIBPMSolver(sphere_config(os.path.join(tmp, "c_sph"),
@@ -2979,15 +2993,15 @@ def phase14_chunked(tmp: str, card: str) -> list:
 
     re550 = IBPMSolver(re550_config(os.path.join(tmp, "c_re550"), nt=0),
                        device=DEVICE)
-    cell("(d) re550", re550, 200, 100, lambda hist: {})
+    cell("(d) re550", re550, 100, 50, lambda hist: {})
     re550.close()
 
     osc = RigidKinematicsSolver(oscillating_config(
         os.path.join(tmp, "c_osc"), nt=0), device=DEVICE)
-    cell("(e) oscillating", osc, 200, 100, k1_fdm)
+    cell("(e) oscillating", osc, 100, 50, k1_fdm)
     hist = osc.stats_history
     fallbacks = [sum(int(s["fallback"]) for s in part)
-                 for part in (hist[:200], hist[200:400])]
+                 for part in (hist[:100], hist[100:200])]
     print(f"phase 14 (e) oscillating: force-solve fallbacks single "
           f"{fallbacks[0]}, chunked {fallbacks[1]}")
     if fallbacks[0] != fallbacks[1]:
@@ -3001,7 +3015,7 @@ def phase14_chunked(tmp: str, card: str) -> list:
     def mg_implied(hist):
         return _mg_implied(mg, hist)
 
-    cell("(f) flagship mg", mg, 20, 10, mg_implied)
+    cell("(f) flagship mg", mg, 10, 5, mg_implied)
     # (g) from (f)'s end, the CG cap forced to 4
     cell("(g) flagship mg, CG cap 4", mg, 10, 10, mg_implied, cg_cap=4)
     if records[-1]["overflows"] != 1:
@@ -3020,35 +3034,73 @@ def phase14_chunked(tmp: str, card: str) -> list:
 
 
 #: phase 15's cells: (name, config function, mesh shape, steps, dtype,
-#: solver, extra parameters).  The coupled cells set coupledDirect: false,
+#: solver, extra parameters; "probes" there is the config's probes
+#: node).  The coupled cells set coupledDirect: false,
 #: which their decomposed runs take anyway (no direct solve under a
 #: mesh, JAX ibpm.py:97-101), so that the single-rank reference runs the
 #: same outer CG
 P15_CELLS = (
-    ("flagship_1x2", "flagship_config", [1, 2], 20, "float32", "decoupled",
+    ("flagship_1x2", "flagship_config", [1, 2], 5, "float32", "decoupled",
      {}),
-    ("flagship_2x1", "flagship_config", [2, 1], 10, "float32", "decoupled",
+    ("flagship_2x1", "flagship_config", [2, 1], 5, "float32", "decoupled",
      {}),
-    ("sphere_1x2", "sphere_config", [1, 2], 10, "float32", "decoupled", {}),
-    ("cylinder_f64", "small_config", [1, 2], 5, "float64", "decoupled", {}),
-    ("flagship_mg_1x2", "flagship_config", [1, 2], 3, "float32",
+    ("sphere_1x2", "sphere_config", [1, 2], 5, "float32", "decoupled", {}),
+    ("cylinder_f64", "small_config", [1, 2], 3, "float64", "decoupled", {}),
+    ("flagship_mg_1x2", "flagship_config", [1, 2], 1, "float32",
      "decoupled", {"fdm": False}),
-    ("re550_coupled_1x2", "re550_config", [1, 2], 3, "float32", "coupled",
+    ("re550_coupled_1x2", "re550_config", [1, 2], 1, "float32", "coupled",
      {"coupledDirect": False}),
     ("oscillating_1x2", "oscillating_config", [1, 2], 5, "float32",
      "moving", {}),
-    ("mg_f64", "small_config", [1, 2], 5, "float64", "decoupled",
+    ("mg_f64", "small_config", [1, 2], 3, "float64", "decoupled",
      {"fdm": False}),
-    ("coupled_f64", "small_config", [1, 2], 3, "float64", "coupled",
+    ("coupled_f64", "small_config", [1, 2], 2, "float64", "coupled",
      {"coupledDirect": False,
       "poissonSolver": _solver_opts(atol=1e-12, rtol=0.0)}),
-    ("moving_f64", "small_moving_config", [1, 2], 5, "float64", "moving",
-     {}))
+    ("moving_f64", "small_moving_config", [1, 2], 3, "float64", "moving",
+     {}),
+    # PR 17: the 3-axis mesh (z cut), the contraction core of the FDM,
+    # the windowed engine and the probes on the ranks
+    ("sphere_3axis_2x1x1", "sphere_config", [2, 1, 1], 3, "float32",
+     "decoupled", {}),
+    ("sphere_windowed_1x2", "sphere_config", [1, 2], 3, "float32",
+     "decoupled", {"deltaEngine": "windowed"}),
+    ("flagship_norepart_probes_1x2", "flagship_config", [1, 2], 10,
+     "float32", "decoupled",
+     {"fdm": {"repartition": False}, "probes": [
+         {"type": "POINT", "field": "p", "path": "probe-p.txt",
+          "loc": [1.0, 0.1]},
+         {"type": "VOLUME", "field": "u", "viewer": "ascii",
+          "path": "probe-u.txt", "n_monitor": 5,
+          "box": {"x": [-0.75, 0.75], "y": [-0.75, 0.75]}}]}),
+    ("sphere_mg_2x1x1", "sphere_config", [2, 1, 1], 1, "float32",
+     "decoupled", {"fdm": False}),
+    ("small3d_3axis_f64", "small3d_config", [2, 1, 1], 3, "float64",
+     "decoupled", {}),
+    ("small3d_mg_3axis_f64", "small3d_config", [2, 1, 1], 3, "float64",
+     "decoupled", {"fdm": False}),
+    ("windowed_probes_norepart_f64", "small_config", [1, 2], 3, "float64",
+     "decoupled",
+     {"deltaEngine": "windowed", "fdm": {"repartition": False}, "probes": [
+         {"type": "POINT", "field": "p", "path": "probe-p.txt",
+          "loc": [0.8, 0.1]},
+         {"type": "VOLUME", "field": "u", "viewer": "ascii",
+          "path": "probe-u.txt", "box": {"x": [-1.0, 1.0],
+                                         "y": [-1.0, 1.0]}}]}),
+    ("moving_windowed_f64", "small_moving_config", [1, 2], 3, "float64",
+     "moving", {"deltaEngine": "windowed"}))
 #: cells whose float32 fields are held to 3 times the single rank's spread
 #: against itself from an initial u one ulp up, where that exceeds 1e-4:
 #: the coupled outer CG stops near its float32 floor (atol 1e-6 at
 #: Re=550), so any other order of sums moves p and f by about as much
 P15_SPREAD = ("re550_coupled_1x2",)
+#: cells whose single-rank reference runs the ranks' arithmetic, the
+#: stencil closures and the twins (``disablePallas``; the twins of K4-K7
+#: are bit-equal to the kernels): K1-K3 are off under a mesh, and the
+#: sphere's first step from its uniform start has a momentum residual at
+#: the rounding floor, where K2a's rounding and the closure's decide
+#: between 2 and 0 BiCGStab iterations (the card, PR 17)
+P15_STENCIL_REFERENCE = ("sphere_mg_2x1x1",)
 #: two ranks on one card: NCCL refuses two ranks of a communicator on one
 #: device ("Duplicate GPU detected", scripts/probe_nccl_one_card.py) unless
 #: each rank has a host id of its own; the socket transport on loopback
@@ -3098,8 +3150,10 @@ def _p15_implied(sweeps: int, periodic: bool, stats: list) -> dict:
 
 def _p15_steps(solver, steps: int) -> dict:
     """``steps`` steps from the solver's start: each step's stats, the
-    ms/step of steps 2.. (host clock, synchronized), the collectives of
-    those steps and the wrappers' kernel launches over all of them."""
+    ms/step of steps 2.. (of step 1 in a 1-step cell; host clock,
+    synchronized), the collectives of
+    those steps and the wrappers' kernel launches over all of them; the
+    probes monitored after each step."""
     import torch
 
     from petibm_tpu_torch.parallel import counters, reset_counters
@@ -3109,16 +3163,23 @@ def _p15_steps(solver, steps: int) -> dict:
     stats = []
     if solver.device.type == "cuda":
         _reset_counts()
+    # steps 2.. timed (the only step of a 1-step cell)
+    first = min(1, steps - 1)
     t0 = None
     for k in range(steps):
-        if k == 1:
+        if k == first:
             sync()
             reset_counters()
             t0 = time.perf_counter()
         solver.state, s = solver._step_fn(solver.state)
         stats.append({key: float(v) for key, v in s.items() if key != "f"})
+        if solver.probes:
+            # the step's time and index, as ``advance`` keeps them
+            solver.t += solver.dt
+            solver.ite += 1
+            solver.monitor_probes()
     sync()
-    ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - first)
     comm = counters()
     launches = _counts() if solver.device.type == "cuda" else {}
     return {"stats": stats, "ms": ms, "comm": comm, "launches": launches}
@@ -3164,6 +3225,9 @@ def phase15_rank(spec_path: str, rank: int) -> None:
         report[cell["name"]]["mg_levels"] = [
             list(lb.local_shape()) for lb in getattr(mg, "blocks", [])]
         report[cell["name"]]["backend"] = solver.part.pmesh.backend
+        fdm = getattr(solver, "poisson_fdm", None)
+        report[cell["name"]]["fdm_core"] = (type(fdm._core).__name__
+                                            if fdm is not None else None)
         report[cell["name"]]["device"] = str(solver.device)
         if rank == 0:
             np.savez(os.path.join(spec["out"], f"{cell['name']}.npz"),
@@ -3222,6 +3286,20 @@ def _p15_launch(spec: dict, timeout: float) -> list:
     return reports
 
 
+def _probe_numbers(path: str):
+    """The numbers of an ASCII probe file, in order (its words dropped)."""
+    import numpy as np
+
+    out = []
+    with open(path) as fh:
+        for word in fh.read().split():
+            try:
+                out.append(float(word))
+            except ValueError:
+                pass
+    return np.array(out)
+
+
 def _p15_iters(dec: list, ref: list) -> tuple:
     """The v/p/f iteration counts of each step of both runs: the share
     of steps where all three are equal, and the steps where they differ
@@ -3237,24 +3315,34 @@ def phase15_distributed(tmp: str, card: str) -> None:
     """The decomposed step (``parameters.sharding``; ``parallel/``): two
     ranks on the one card, processes of this script, each from the same
     start as a single-rank run, through the solver API (``P15_CELLS``):
-    the flagship on a [1, 2] mesh, 20 steps, and on [2, 1], 10 steps; the
-    sphere of phase 5 on [1, 2], 10 steps; the flagship with ``fdm:
+    the flagship on a [1, 2] mesh and on [2, 1], 5 steps each; the
+    sphere of phase 5 on [1, 2], 5 steps; the flagship with ``fdm:
     false`` (the decomposed V-cycle: levels 450^2, 225^2 and 113^2 on the
-    blocks, 57^2 and below whole), 3 steps; the coupled Re=550 of phase
-    10, 3 steps; the oscillating cylinder of phase 11, 5 steps: u, v(, w),
-    p and f within 1e-4 of max |field| of the single-rank card run
-    (float32; for the cells of ``P15_SPREAD``, within 3 times the single
-    rank's own spread from an initial u one ulp up, where that is more)
-    and the v/p/f iterations equal on at least 95% of the steps (the
-    others listed); the 32^2 cylinder, its ``fdm: false``, coupled and
-    moving variants in float64 on the card against a single-rank CPU run,
-    3-5 steps, fields and forces within 1e-9, the iterations (and a
-    moving body's fallbacks) equal on every step.  Prints the backend,
-    ms/step of each rank beside the single rank's (two ranks share one
-    card: not a scaling number), and the halo exchanges, all-reduces and
-    all-to-alls a step with the bytes this rank sends.  On every rank K1-K3
-    launch no time (the JAX package's gates under a mesh) and K4/K5
-    (K6/K7 on periodic levels) as often as its V-cycles imply."""
+    blocks, 57^2 and below whole), 1 step; the coupled Re=550 of phase
+    10, 1 step; the oscillating cylinder of phase 11, 5 steps; the
+    sphere on the 3-axis [2, 1, 1] mesh (z cut: the FDM's contraction
+    core), 3 steps, and with ``fdm: false`` (K5 on z pencils), 1 step;
+    the sphere with ``deltaEngine: windowed`` on [1, 2], 3 steps; the
+    flagship with ``fdm.repartition: false``, a point probe of p in the
+    near wake and a volume probe of u around the body, 10 steps: u, v(,
+    w), p, f and the probe files within 1e-4 of max |field| of the
+    single-rank card run (float32; for the cells of ``P15_SPREAD``,
+    within 3 times the single rank's own spread from an initial u one
+    ulp up, where that is more) and the v/p/f iterations equal on at
+    least 95% of the steps (the others listed); float64 cells on the
+    card against a single-rank CPU run, 2-3 steps, fields, forces and
+    probe files within 1e-9, the iterations (and a moving body's
+    fallbacks) equal on every step: the 32^2 cylinder, its ``fdm:
+    false``, coupled and moving variants, the 24x20x16 sphere on [2, 1,
+    1] with the FDM and with ``fdm: false``, the cylinder with the
+    windowed engine, ``fdm.repartition: false`` and the two probes, and
+    the moving cylinder on the windowed engine.  Prints the backend,
+    the FDM core, ms/step of each rank beside the single rank's (two
+    ranks share one card: not a scaling number), and the halo
+    exchanges, all-reduces, all-to-alls and reduce-scatters a step with
+    the bytes this rank sends.  On every rank K1-K3 launch no time (the
+    JAX package's gates under a mesh) and K4/K5 (K6/K7 on periodic
+    levels) as often as its V-cycles imply."""
     import numpy as np
     import torch
 
@@ -3262,13 +3350,18 @@ def phase15_distributed(tmp: str, card: str) -> None:
              "sphere_config": sphere_config, "small_config": small_config,
              "re550_config": re550_config,
              "oscillating_config": oscillating_config,
-             "small_moving_config": small_moving_config}
+             "small_moving_config": small_moving_config,
+             "small3d_config": small3d_config}
     out = os.path.join(tmp, "p15")
     os.makedirs(out)
     cells = []
     for name, func, shape, steps, dtype, kind, extra in P15_CELLS:
+        extra = dict(extra)
+        probes = extra.pop("probes", None)
         cfg = funcs[func](os.path.join(out, name), **dict(
             extra, nt=steps, dtype=dtype))
+        if probes:
+            cfg["probes"] = probes
         cells.append({"name": name, "config": cfg, "shape": shape,
                       "steps": steps, "solver": kind})
     spec = {"world": 2, "device": DEVICE, "out": out,
@@ -3287,6 +3380,8 @@ def phase15_distributed(tmp: str, card: str) -> None:
         cfg = json.loads(json.dumps(cell["config"]))
         cfg["output"] = os.path.join(out, name + "-single")
         cfg["logs"] = cfg["output"]
+        if name in P15_STENCIL_REFERENCE:
+            cfg["parameters"]["disablePallas"] = True
         solver = _p15_solver(cfg, ref_dev, kind)
         ref = _p15_steps(solver, steps)
         want = _p15_fields(solver)
@@ -3314,11 +3409,24 @@ def phase15_distributed(tmp: str, card: str) -> None:
             solver.close()
             tol = {k: max(1e-4, 3 * v) for k, v in spread.items()}
         absd = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        # rank 0's probe files against the single rank's
+        for probe in cell["config"].get("probes", []):
+            key = "probe " + probe["path"]
+            a, b = (_probe_numbers(os.path.join(c["output"], probe["path"]))
+                    for c in (cell["config"], cfg))
+            if a.shape != b.shape:
+                failures.append(f"{name}: {key} has {a.shape} numbers "
+                                f"against {b.shape}")
+                continue
+            absd[key] = float(np.abs(a - b).max())
+            rel[key] = absd[key] / max(float(np.abs(b).max()), 1e-30)
+            tol[key] = 1e-4
         share, differ = _p15_iters(reports[0][name]["stats"], ref["stats"])
         ms = [r[name]["ms"] for r in reports]
         comm = reports[0][name]["comm"]
-        per_step = {k: {"calls": v["calls"] / (steps - 1),
-                        "bytes": v["bytes"] / (steps - 1)}
+        timed = max(steps - 1, 1)
+        per_step = {k: {"calls": v["calls"] / timed,
+                        "bytes": v["bytes"] / timed}
                     for k, v in comm.items() if k != "gather"}
         launches = [r[name]["launches"] for r in reports]
         implied = [_p15_implied(*r[name]["sweeps"], r[name]["stats"])
@@ -3327,8 +3435,11 @@ def phase15_distributed(tmp: str, card: str) -> None:
                      for run in (reports[0][name], ref)]
         rec = {"cell": name, "mesh": shape, "steps": steps, "dtype": dtype,
                "backend": reports[0][name]["backend"],
+               "fdm_core": reports[0][name]["fdm_core"],
                "rank_devices": [r[name]["device"] for r in reports],
-               "reference": ref_dev, "max_rel_diff": rel,
+               "reference": ref_dev + (" (disablePallas)" if name in
+                                       P15_STENCIL_REFERENCE else ""),
+               "max_rel_diff": rel,
                "max_abs_diff": absd, "iters_equal_share": share,
                "iters_differ": differ[:10], "ms_per_step_ranks": ms,
                "ms_per_step_single": ref["ms"],

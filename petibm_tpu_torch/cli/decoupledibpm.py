@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import sys
 
+from ..parallel.multihost import shutdown
 from ..solvers.decoupledibpm import DecoupledIBPMSolver
 from .common import (config_from_args, maybe_profile, parse_args,
                      report_chunks)
@@ -25,6 +26,7 @@ def main(argv=None) -> int:
     solver.run(progress=True)
     maybe_profile(solver, args)
     solver.close()
+    shutdown()
     report_chunks(solver)
     print(solver.timers.report())
     return 0

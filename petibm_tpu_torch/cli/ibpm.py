@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import sys
 
+from ..parallel.multihost import shutdown
 from ..solvers.ibpm import IBPMSolver
 from .common import (config_from_args, maybe_profile, parse_args,
                      report_chunks)
@@ -24,6 +25,7 @@ def main(argv=None) -> int:
     solver.run(progress=True)
     maybe_profile(solver, args)
     solver.close()
+    shutdown()
     report_chunks(solver)
     print(solver.timers.report())
     return 0

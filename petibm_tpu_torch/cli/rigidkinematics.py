@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import sys
 
+from ..parallel.multihost import shutdown
 from ..solvers.rigidkinematics import RigidKinematicsSolver
 from .common import (config_from_args, maybe_profile, parse_args,
                      report_chunks)
@@ -27,6 +28,7 @@ def main(argv=None) -> int:
     solver.run(progress=True)
     maybe_profile(solver, args)
     solver.close()
+    shutdown()
     report_chunks(solver)
     print(f"force solves that fell back to the dense solve: "
           f"{solver.fallbacks}")

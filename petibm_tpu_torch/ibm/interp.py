@@ -15,11 +15,14 @@ as dense matmuls.  Above WINDOWED_THRESHOLD points ``auto`` picks
 ``WindowedDeltaOp``, which keeps only the (N, K) window weights and
 expands them to factor rows chunk by chunk inside each apply.
 
-Decomposed over a process group (``DeltaOp.set_mesh``), each rank keeps
-the full (N, n_d) factor rows and contracts only its block's columns
-(``local_windows``): E sums the ranks' partials (one all-reduce), H
-writes the rank's block with no communication.  The windowed engine is
-not decomposed yet (ROADMAP item 19b).
+Decomposed over a process group (``set_mesh``), each rank keeps the
+global windows and works on its block alone: the factor engine
+contracts its block's columns of the (N, n_d) factor rows
+(``local_windows``), the windowed engine the part of each window box
+inside its block (``WindowedDeltaOp._span``).  In both, E sums the
+ranks' partials (one all-reduce) and H writes the rank's block with no
+communication; the diagonal reductions (diag(E B1 H)) read the global
+windows, as undecomposed.
 """
 
 from __future__ import annotations
@@ -213,8 +216,31 @@ class WindowedDeltaOp(DeltaOp):
     _max_chunk = 1 << 16
 
     def set_mesh(self, part) -> None:
-        raise NotImplementedError("the windowed delta engine on a decomposed "
-                                  "run is not ported yet (ROADMAP item 19b)")
+        """Interpolate and spread on the rank's blocks of a decomposed
+        run: the windows stay global (``local_windows`` passes them on)
+        and E and H take the part of each window box in the block."""
+        self.part = part
+
+    def local_windows(self, win: dict) -> dict:
+        return win
+
+    def _span(self, w: dict, c: int) -> tuple:
+        """(lo, hi) per direction: component ``c``'s window box, cut to
+        the rank's block on a decomposed run (global indices; hi <= lo
+        where they do not meet)."""
+        if self.part is None:
+            return w["lo"], w["hi"]
+        rng = [self.part.range(Field(c), d) for d in range(self.dim)]
+        return ([max(w["lo"][d], rng[d][0]) for d in range(self.dim)],
+                [min(w["hi"][d], rng[d][1]) for d in range(self.dim)])
+
+    def _local(self, c: int, lo: list, hi: list) -> tuple:
+        """The span as (z, y, x) slices of the rank's array."""
+        org = ([0] * self.dim if self.part is None
+               else [self.part.range(Field(c), d)[0]
+                     for d in range(self.dim)])
+        return tuple(slice(lo[d] - org[d], hi[d] - org[d])
+                     for d in reversed(range(self.dim)))
 
     def windows(self, X) -> dict:
         """{c: {"idx", "sd", "sv": [per-dir (N, K)], "lo", "hi": [per-dir
@@ -237,53 +263,56 @@ class WindowedDeltaOp(DeltaOp):
             out[c] = ent
         return out
 
-    def _chunk_size(self, w: dict) -> int:
+    def _chunk_size(self, w: dict, span: tuple | None = None) -> int:
         """Points per chunk: the budget over the bytes of one point's
-        (plane) row, the plane being the window box's extents but the
+        (plane) row, the plane being the span's extents but the
         last-contracted one, rounded down to a power of two in [8,
         _max_chunk] (JAX ``_chunk_size``)."""
+        lo, hi = (w["lo"], w["hi"]) if span is None else span
         plane = 1
         for d in range(self.dim - 1):
-            plane *= w["hi"][d] - w["lo"][d]
+            plane *= hi[d] - lo[d]
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         b = self._chunk_budget // max(1, plane * itemsize)
         b = min(self._max_chunk, 1 << int(b).bit_length() >> 1) if b >= 1 else 1
         return max(8, b)
 
-    def _expand(self, w: dict, d: int, idx, wt) -> torch.Tensor:
+    def _expand(self, span: tuple, d: int, idx, wt) -> torch.Tensor:
         """(B, K) banded rows -> (B, hi - lo) dense factor rows over the
-        window box, by one-hot comparison (no scatter)."""
-        lo, hi = w["lo"][d], w["hi"][d]
-        grid = torch.arange(lo, hi, device=idx.device)
+        span, by one-hot comparison (no scatter)."""
+        grid = torch.arange(span[0][d], span[1][d], device=idx.device)
         onehot = (idx[:, :, None] == grid[None, None, :]).to(self.dtype)
         return torch.einsum("pk,pkn->pn", wt, onehot)
 
-    def _box(self, w: dict) -> tuple:
-        """The window box as (z, y, x) slices of a component's array."""
-        return tuple(slice(w["lo"][d], w["hi"][d])
-                     for d in reversed(range(self.dim)))
-
-    def _chunks(self, w: dict, key: str):
+    def _chunks(self, w: dict, key: str, span: tuple):
         """(first, last, expanded factor rows per direction) per chunk."""
         N = w["idx"][0].shape[0]
-        B = self._chunk_size(w)
+        B = self._chunk_size(w, span)
         for a in range(0, N, B):
             b = min(N, a + B)
-            yield a, b, [self._expand(w, d, w["idx"][d][a:b], w[key][d][a:b])
+            yield a, b, [self._expand(span, d, w["idx"][d][a:b],
+                                      w[key][d][a:b])
                          for d in range(self.dim)]
 
     def interpolate(self, q: dict, win: dict) -> torch.Tensor:
-        """E u chunk by chunk on the window box: the factor engine's
-        algebra with (B, box) factor rows; returns (N, dim)."""
+        """E u chunk by chunk on the window box (its part in the rank's
+        block): the factor engine's algebra with (B, box) factor rows;
+        returns (N, dim), summed over the ranks of a decomposed run."""
         cols = []
         for c in range(self.dim):
             w = win[c]
-            arr = q[VEL_NAMES[c]][self._box(w)]
+            lo, hi = span = self._span(w, c)
+            if any(b <= a for a, b in zip(lo, hi)):
+                cols.append(torch.zeros(w["idx"][0].shape[0],
+                                        dtype=self.dtype,
+                                        device=self.device))
+                continue
+            arr = q[VEL_NAMES[c]][self._local(c, lo, hi)]
             if self.dim == 3:
                 # (bz, by * bx) once for every chunk's matmul
                 arr = arr.reshape(arr.shape[0], -1)
             parts = []
-            for _, _, s in self._chunks(w, "sv"):
+            for _, _, s in self._chunks(w, "sv", span):
                 if self.dim == 2:
                     t = torch.matmul(s[1], arr)
                 else:
@@ -292,16 +321,26 @@ class WindowedDeltaOp(DeltaOp):
                     t = torch.einsum("py,pyx->px", s[1], t)
                 parts.append(torch.sum(t * s[0], dim=1))
             cols.append(torch.cat(parts))
-        return torch.stack(cols, dim=1)
+        out = torch.stack(cols, dim=1)
+        return out if self.part is None else self.part.allreduce_sum(out)
 
     def spread(self, f: torch.Tensor, win: dict) -> dict:
-        """H f chunk by chunk on the window box, the chunks summed in
-        order, then placed in the component's zero grid."""
+        """H f chunk by chunk on the window box (its part in the rank's
+        block), the chunks summed in order, then placed in the
+        component's zero grid (the rank's block)."""
         out = {}
         for c in range(self.dim):
             w = win[c]
+            shape = (tuple(self.n[c][d] for d in reversed(range(self.dim)))
+                     if self.part is None
+                     else self.part.local_shape(Field(c)))
+            full = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            out[VEL_NAMES[c]] = full
+            lo, hi = span = self._span(w, c)
+            if any(b <= a for a, b in zip(lo, hi)):
+                continue
             acc = None
-            for a, b, s in self._chunks(w, "sd"):
+            for a, b, s in self._chunks(w, "sd", span):
                 fc = f[a:b, c]
                 if self.dim == 2:
                     g = torch.matmul((s[1] * fc[:, None]).T, s[0])
@@ -309,10 +348,7 @@ class WindowedDeltaOp(DeltaOp):
                     t = torch.einsum("pz,py->pzy", s[2] * fc[:, None], s[1])
                     g = torch.einsum("pzy,px->zyx", t, s[0])
                 acc = g if acc is None else acc + g
-            shape = tuple(self.n[c][d] for d in reversed(range(self.dim)))
-            full = torch.zeros(shape, dtype=self.dtype, device=self.device)
-            full[self._box(w)] = acc
-            out[VEL_NAMES[c]] = full
+            full[self._local(c, lo, hi)] = acc
         return out
 
 

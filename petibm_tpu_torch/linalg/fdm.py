@@ -23,13 +23,26 @@ reference's GPU backend (row and column 0 of the pressure block the
 identity): its operator, and its exact inverse from a projected solve
 (the FDM pressure solve, or the coupled IBPM's Schur solve).
 
-Decomposed over a process group (``set_mesh``; JAX ``fdm.py:64-186``),
-a solve repartitions the blocks with four all-to-alls
-(``_ShardedTransformCore``): block -> y cut over all ranks (the x and z
-transforms local, an rfft on a periodic x among them) -> x cut over all
-ranks (the y transform, the FFTs on y and z and the eigenvalue divide
-local) -> back.  Not ported: the ``precision`` knobs of the transforms
-(full precision of the working dtype here).
+Decomposed over a process group (``set_mesh``), a solve takes one of
+two cores, as the JAX package chooses (``fdm.py:342, 494``,
+``navierstokes.py:325-328, 495-500``):
+
+- on a 2-axis mesh with ``fdm.repartition`` (the default) it
+  repartitions the blocks with four all-to-alls
+  (``_ShardedTransformCore``, JAX ``fdm.py:64-186``): block -> y cut over
+  all ranks (the x and z transforms local, an rfft on a periodic x among
+  them) -> x cut over all ranks (the y transform, the FFTs on y and z
+  and the eigenvalue divide local) -> back;
+- on a 3-axis mesh, or with ``fdm.repartition: false``, it keeps the
+  blocks (``_ContractionCore``), what GSPMD makes of the JAX package's
+  tensordots over sharded axes: a dense transform along a cut axis
+  multiplies the block by its own columns of the factor and sums the
+  partial results over the axis's ranks (``reduce_scatter``); an FFT
+  along a cut axis runs on pencils of whole lines (an all-to-all there
+  and back).
+
+Not ported: the ``precision`` knobs of the transforms (full precision of
+the working dtype here).
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.dist import alltoall
+from ..parallel.dist import LevelBlocks, alltoall
 from ..types import Field
 from . import loops
 from .krylov import SolveResult, _norm, counter, tadd_, tmap, tsub_
@@ -354,10 +367,109 @@ class _ShardedTransformCore:
         return self._from_ycut(_dense(self.bwd_xz, x, dim))
 
 
-def _sharded_core(solver, part, field, fwd, bwd) -> _ShardedTransformCore:
-    return _ShardedTransformCore(part, field, fwd, bwd, solver.inv_lam,
-                                 solver._fft_axes, solver._fft_sizes,
-                                 solver.dtype)
+def _full_spectrum(half: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """An eigenvalue array over the rfft's n // 2 + 1 frequencies of
+    ``axis`` extended to all n (the symbol is even: entry k equals entry
+    n - k)."""
+    extra = n - half.shape[axis]
+    return torch.cat([half, half.narrow(axis, 1, extra).flip(axis)],
+                     dim=axis)
+
+
+class _ContractionCore:
+    """The separable solve on the rank's block of a field decomposed over
+    a process group, with no repartition: the counterpart of GSPMD's
+    tensordot over sharded axes (the JAX package on a 3-axis mesh, or
+    with ``fdm.repartition: false``).
+
+    Per direction, in the single device's order (x first): a dense
+    transform along an axis the mesh does not cut is the block's own
+    product; along a cut axis the rank multiplies its block by its
+    columns of the factor (the whole axis comes out) and
+    ``reduce_scatter`` sums the partial results over the ranks of that
+    axis, leaving each rank its rows.  The FFTs follow (each axis's 1D
+    complex FFT, on the pencils of whole lines where the axis is cut:
+    ``LevelBlocks.to_pencil``), the divide by the eigenvalue sum over the
+    full spectrum of the rank's block, the inverse FFTs, the real part,
+    and the dense back-transforms.  The full spectrum keeps every block
+    its extent (the single device's rfft halves the last FFT axis); the
+    result equals it up to the order of the sums."""
+
+    def __init__(self, part, field, fwd: list, bwd: list,
+                 inv_lam: torch.Tensor, fft_axes: tuple, fft_sizes: tuple,
+                 dtype: torch.dtype):
+        self.dim = dim = part.dim
+        self.dtype = dtype
+        self.blocks = lb = LevelBlocks.of_field(part, field)
+        ranges = [lb.range(d) for d in range(dim)]
+
+        def cut(mats):
+            """Direction d's factor, its columns of the rank's range
+            where d is cut (a back transform's columns index the
+            spectrum, cut as the field is)."""
+            return [m if m is None or not lb.cut(d)
+                    else m[:, ranges[d][0]:ranges[d][1]].contiguous()
+                    for d, m in enumerate(mats)]
+
+        self.fwd, self.bwd = cut(fwd), cut(bwd)
+        #: the FFT directions, x first
+        self.fft_dirs = sorted(dim - 1 - ax for ax in fft_axes)
+        lam = inv_lam
+        if fft_axes:
+            rax = fft_axes[-1]
+            lam = _full_spectrum(lam, rax, fft_sizes[-1])
+        self.inv_lam = lam[lb.block()].contiguous()
+
+    def _dense(self, mats: list, x: torch.Tensor, d: int) -> torch.Tensor:
+        m = mats[d]
+        one = [m if e == d else None for e in range(self.dim)]
+        if not self.blocks.cut(d):
+            return _apply_per_axis(one, x, self.dim)
+        # the block's columns: the partial result over the whole axis
+        return self.blocks.reduce_scatter(_apply_per_axis(one, x, self.dim),
+                                          d)
+
+    def _fft(self, x: torch.Tensor, d: int, inverse: bool) -> torch.Tensor:
+        axis = self.dim - 1 - d
+        fft = torch.fft.ifft if inverse else torch.fft.fft
+        if not self.blocks.cut(d):
+            return fft(x, dim=axis)
+        lb = self.blocks
+        parts = [x.real, x.imag] if x.is_complex() else [x]
+        pen = lb.to_pencil(d, *parts)
+        pen = pen[0] if len(pen) == 1 else torch.complex(*pen)
+        pen = fft(pen, dim=axis)
+        return torch.complex(*lb.from_pencil(d, pen.real.contiguous(),
+                                             pen.imag.contiguous()))
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        x = b
+        for d in range(self.dim):
+            if self.fwd[d] is not None:
+                x = self._dense(self.fwd, x, d)
+        if self.fft_dirs:
+            for d in self.fft_dirs:
+                x = self._fft(x, d, inverse=False)
+            x = x * self.inv_lam
+            for d in self.fft_dirs:
+                x = self._fft(x, d, inverse=True)
+            x = x.real.to(self.dtype).contiguous()
+        else:
+            x = x * self.inv_lam
+        for d in range(self.dim):
+            if self.bwd[d] is not None:
+                x = self._dense(self.bwd, x, d)
+        return x
+
+
+def _sharded_core(solver, part, field, fwd, bwd, repartition: bool = True):
+    """The decomposed solve's core: the four all-to-alls on a 2-axis mesh
+    with ``repartition``, else the contraction (JAX ``fdm.py:342, 494``:
+    its repartitioning core exists on 2-axis meshes only)."""
+    core = (_ShardedTransformCore if repartition
+            and len(part.pmesh.shape) == 2 else _ContractionCore)
+    return core(part, field, fwd, bwd, solver.inv_lam, solver._fft_axes,
+                solver._fft_sizes, solver.dtype)
 
 
 class FastDiagPoisson:
@@ -409,11 +521,12 @@ class FastDiagPoisson:
         self._part = None
         self._core = None
 
-    def set_mesh(self, part) -> None:
+    def set_mesh(self, part, repartition: bool = True) -> None:
         """Solve on the rank's pressure block of a decomposed run
-        (``_ShardedTransformCore``; JAX ``fdm.py:337-347``)."""
+        (``_sharded_core``; JAX ``fdm.py:337-347``)."""
         self._part = part
-        self._core = _sharded_core(self, part, Field.P, self._Qt, self._Q)
+        self._core = _sharded_core(self, part, Field.P, self._Qt, self._Q,
+                                   repartition)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """x = A^+ b.  The plain-sum (nullspace) component of b is projected
@@ -498,10 +611,11 @@ class FastDiagHelmholtz:
         self._Qinv = qinvs
         self._core = None
 
-    def set_mesh(self, part, field) -> None:
+    def set_mesh(self, part, field, repartition: bool = True) -> None:
         """Solve on the rank's block of velocity ``field`` of a decomposed
-        run (JAX ``fdm.py:490-500``)."""
-        self._core = _sharded_core(self, part, field, self._Qinv, self._Q)
+        run (``_sharded_core``; JAX ``fdm.py:490-500``)."""
+        self._core = _sharded_core(self, part, field, self._Qinv, self._Q,
+                                   repartition)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         if self._core is not None:

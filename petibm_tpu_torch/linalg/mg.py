@@ -35,11 +35,12 @@ prolongation move at most one slab along each cut axis.  A sweep along a
 cut direction folds the couplings of the cut and split directions into
 its right side on the block (K5's form, JAX ``mg.py:259-268``: their
 factors go to the kernel as zeros), moves the lines whole onto the ranks
-(``to_pencil``, one all-to-all), runs K4/K5 or K6/K7 there and moves
-back.  The restricted residual of the first level at or below the
-threshold (or the first whose blocks or pencils would thin below a
-line: the layout only, not the arithmetic) is gathered once, and every
-rank runs the coarser levels whole.
+(``to_pencil``, one all-to-all; x and z lines split along y, y lines
+along x), runs K4/K5 or K6/K7 there and moves back.  A 3-axis mesh
+cuts z as the others cut x and y.  The restricted residual of the first
+level at or below the threshold (or the first whose blocks or pencils
+would thin below a line: the layout only, not the arithmetic) is
+gathered once, and every rank runs the coarser levels whole.
 """
 
 from __future__ import annotations

@@ -2,13 +2,17 @@
 
 Counterpart of ``petibm_tpu/parallel/dist.py`` (dist.py:1-139).  The only
 parallelism in this problem class is spatial domain decomposition.  The
-JAX package shards its dense arrays over a ("dy", "dx") device mesh and
-lets GSPMD insert the halo exchanges and reductions; here one process
-runs per device, each owns one block of every grid field, and the
-exchanges are explicit:
+JAX package shards its dense arrays over a ("dy", "dx") or ("dz", "dy",
+"dx") device mesh and lets GSPMD insert the halo exchanges and
+reductions; here one process runs per device, each owns one block of
+every grid field, and the exchanges are explicit:
 
-- ``ProcessMesh``: the ("dy", "dx") grid of ranks, laid over the trailing
-  two array axes (y and x); z stays local in 3D, as in the JAX layout.
+- ``ProcessMesh``: the ("dy", "dx") or ("dz", "dy", "dx") grid of ranks,
+  laid over the trailing array axes (x over "dx", y over "dy", z over
+  "dz").  A 2D grid on a 3-axis mesh is replicated along "dz", as JAX
+  ``_leaf_spec`` leaves it: each "dz" layer holds the same (dy, dx)
+  blocks and computes them again, its sums run inside the layer (a
+  subgroup per layer) and rank 0 writes.
 - ``Partition``: each rank's block of every staggered field.  Each mesh
   axis cuts the pressure cells of its direction into contiguous ranges
   (``k*n // p``); a face belongs to the rank of the cell below it, so on a
@@ -18,7 +22,10 @@ exchanges are explicit:
   ``Partition.mean``; ``Partition.scatter`` (a block sliced from the full
   array every rank holds) and ``Partition.gather`` (the full array
   assembled from the blocks by an all-gather: rank 0 writes it);
-  ``alltoall`` for the FDM's transposes (``linalg/fdm.py``).
+  ``Partition.gather_box`` (one box of a field, from each block's part of
+  it: the volume probes); ``alltoall`` for the FDM's transposes and the
+  line pencils; ``reduce_scatter`` for the FDM's transforms contracted
+  over a cut axis (``linalg/fdm.py``).
 
 Lagrangian arrays (forces, body coordinates) and scalars stay replicated.
 The BC face arrays are each rank's segment of the face, along its block
@@ -47,7 +54,7 @@ FIELD_KEYS = ("q", "p", "dP", "conv", "diff")
 
 #: kind -> [calls, bytes sent by this rank]; ``reset_counters`` zeroes it
 COUNTERS = {"halo": [0, 0], "allreduce": [0, 0], "alltoall": [0, 0],
-            "gather": [0, 0]}
+            "gather": [0, 0], "reduce_scatter": [0, 0]}
 
 
 def reset_counters() -> None:
@@ -77,39 +84,61 @@ def _factor2(n: int) -> tuple[int, int]:
     return a, n // a
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item 19b)")
-
-
 class ProcessMesh:
-    """The ("dy", "dx") grid of the process group's ranks, row-major:
-    rank = iy * shape[1] + ix."""
+    """The ("dy", "dx") or ("dz", "dy", "dx") grid of the process group's
+    ranks, row-major: rank = (iz * dy + iy) * dx + ix.  ``rank`` given,
+    the layout alone (no process group: a stand-in for checks)."""
 
-    axis_names = ("dy", "dx")
-
-    def __init__(self, shape):
+    def __init__(self, shape, rank: int | None = None):
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.shape) not in (2, 3):
+            raise ValueError("a process mesh has 2 or 3 axes")
+        self.axis_names = ("dy", "dx") if len(self.shape) == 2 \
+            else ("dz", "dy", "dx")
+        #: (dz, dy, dx), dz 1 on a 2-axis mesh
+        self.dims = (1,) * (3 - len(self.shape)) + self.shape
+        self.ranks = np.arange(math.prod(self.dims)).reshape(self.dims)
+        self.size = int(self.ranks.size)
+        self._layers = None
+        if rank is not None:
+            self.rank, self.backend = int(rank), None
+            return
         import torch.distributed as dist
 
-        self.shape = tuple(int(s) for s in shape)
-        self.ranks = np.arange(math.prod(self.shape)).reshape(self.shape)
-        self.size = int(self.ranks.size)
         self.rank = dist.get_rank()
         self.backend = str(dist.get_backend())
         # a collective of the whole group first: NCCL's point-to-point
         # batches want the communicator up on every rank
         dist.barrier()
 
-    def rank_at(self, iy: int, ix: int) -> int:
-        return int(self.ranks[iy, ix])
+    def rank_at(self, *coord: int) -> int:
+        """The rank at (iz,) iy, ix."""
+        coord = (0,) * (3 - len(coord)) + tuple(int(c) for c in coord)
+        return int(self.ranks[coord])
+
+    def coord_of(self, rank: int) -> tuple:
+        """(iz, iy, ix) of ``rank``."""
+        return tuple(int(v) for v in np.unravel_index(int(rank), self.dims))
+
+    def layer_group(self):
+        """The process subgroup of this rank's "dz" layer.  Every rank
+        makes every layer's group on the first call (``new_group`` is a
+        collective of the whole group), so all ranks call it together."""
+        import torch.distributed as dist
+
+        if self._layers is None:
+            self._layers = [dist.new_group([int(r) for r in layer.ravel()])
+                            for layer in self.ranks]
+        return self._layers[self.coord_of(self.rank)[0]]
 
 
 def mesh_from_config(node: dict | None) -> ProcessMesh | None:
     """The process mesh of the ``parameters.sharding`` node (JAX
     ``mesh_from_config``): ``nDevices`` (default: the process group's
     size), ``platform`` (read by nothing: every rank runs where its
-    solver runs), ``shape`` ([dy, dx]).  None when the node is absent or
-    selects one device.  One process runs per device, so ``nDevices``
-    must equal the group's size."""
+    solver runs), ``shape`` ([dy, dx] or [dz, dy, dx]).  None when the
+    node is absent or selects one device.  One process runs per device,
+    so ``nDevices`` must equal the group's size."""
     from .multihost import process_info
 
     if not node:
@@ -130,34 +159,34 @@ def mesh_from_config(node: dict | None) -> ProcessMesh | None:
         dims = [int(v) for v in node["shape"]]
         if math.prod(dims) != n:
             raise ValueError(f"sharding.shape {dims} != nDevices {n}")
-        if len(dims) == 3:
-            raise _not_ported("the 3-axis (dz, dy, dx) mesh")
-        if len(dims) != 2:
+        if len(dims) not in (2, 3):
             raise ValueError("sharding.shape wants 2 or 3 entries")
     else:
         dims = list(_factor2(n))
     return ProcessMesh(dims)
 
 
-def allreduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the process group (a new tensor)."""
+def allreduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the process group, or over ``group`` (a new
+    tensor)."""
     import torch.distributed as dist
 
     buf = t.clone()
     _count("allreduce", _nbytes(buf))
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     return buf
 
 
-def alltoall(flat: torch.Tensor, send_counts: list,
-             recv_counts: list) -> torch.Tensor:
+def alltoall(flat: torch.Tensor, send_counts: list, recv_counts: list,
+             kind: str = "alltoall") -> torch.Tensor:
     """``all_to_all_single`` of a 1D tensor: ``send_counts[r]`` entries to
-    rank r, ``recv_counts[r]`` from it, in rank order."""
+    rank r, ``recv_counts[r]`` from it, in rank order; counted under
+    ``kind``."""
     import torch.distributed as dist
 
     src = flat.contiguous()
     out = torch.empty(sum(recv_counts), dtype=src.dtype, device=src.device)
-    _count("alltoall", _nbytes(src))
+    _count(kind, _nbytes(src))
     dist.all_to_all_single(out, src, [int(c) for c in recv_counts],
                            [int(c) for c in send_counts])
     return out
@@ -165,34 +194,58 @@ def alltoall(flat: torch.Tensor, send_counts: list,
 
 class _Blocks:
     """Blocks of cell-aligned ranges on a ``ProcessMesh``: direction x is
-    cut over "dx", y over "dy", z is whole.  ``bounds[d]`` holds the
-    ``parts[d] + 1`` cut points of direction d.  The halo exchange and
-    the reductions live here; ``Partition`` (the staggered fields) and
-    ``LevelBlocks`` (the multigrid levels) give the ranges."""
+    cut over "dx", y over "dy", z over "dz" (whole on a 2-axis mesh).
+    ``bounds[d]`` holds the ``parts[d] + 1`` cut points of direction d.
+    A 2D grid on a 3-axis mesh takes the rank's "dz" layer: its
+    neighbours and groups are in the layer and its sums run over the
+    layer's subgroup (``group``).  The halo exchange and the reductions
+    live here; ``Partition`` (the staggered fields) and ``LevelBlocks``
+    (the multigrid levels, and a field's cells) give the ranges."""
 
     def __init__(self, pmesh: ProcessMesh, dim: int, periodic, bounds):
         self.pmesh = pmesh
         self.dim = dim
         self.periodic = [bool(p) for p in periodic]
-        #: parts per direction (x: dx, y: dy, z: 1)
-        self.parts = [pmesh.shape[1], pmesh.shape[0], 1][:dim]
+        dz, dy, dx = pmesh.dims
+        #: parts per direction (x: dx, y: dy, z: dz)
+        self.parts = [dx, dy, dz][:dim]
         self.bounds = [list(b) for b in bounds]
         self.rank = pmesh.rank
+        #: the rank's "dz" layer
+        self.layer = pmesh.coord_of(self.rank)[0]
         self.coord = self.coord_of(self.rank)
+        #: the process group of the sums: the layer's where "dz" layers
+        #: replicate a 2D grid, else the whole group (None)
+        self.group = pmesh.layer_group() if dim == 2 and dz > 1 else None
 
     def coord_of(self, rank: int) -> list:
         """The block index per direction of ``rank``."""
-        iy, ix = divmod(int(rank), self.pmesh.shape[1])
-        return [ix, iy, 0][:self.dim]
+        iz, iy, ix = self.pmesh.coord_of(rank)
+        return [ix, iy, iz][:self.dim]
+
+    def rank_of(self, coord) -> int:
+        """The rank of block ``coord`` (in this rank's layer in 2D)."""
+        iz = coord[2] if self.dim == 3 else self.layer
+        return self.pmesh.rank_at(iz, coord[1], coord[0])
 
     def touches(self, d: int, side: int) -> bool:
         """Whether the block lies on the domain's min (``side`` 0) or max
         (1) face of direction ``d``."""
         return self.coord[d] == (0 if side == 0 else self.parts[d] - 1)
 
+    def _group(self, d: int) -> list:
+        """The ranks whose blocks share every block coordinate but d's, in
+        the order of their coordinate along d."""
+        out = []
+        for k in range(self.parts[d]):
+            coord = list(self.coord)
+            coord[d] = k
+            out.append(self.rank_of(coord))
+        return out
+
     # --- reductions -----------------------------------------------------
     def allreduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        return allreduce_sum(t)
+        return allreduce_sum(t, self.group)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a decomposed field over the whole grid (one
@@ -203,6 +256,31 @@ class _Blocks:
         both = self.allreduce_sum(both)
         return both[0] / both[1]
 
+    def reduce_scatter(self, y: torch.Tensor, d: int) -> torch.Tensor:
+        """The sum over direction d's group of its members' partials
+        ``y`` (each the whole of direction d), of which each member keeps
+        its range: one all-to-all (member k's rows to member k) and the
+        sum of what arrives, in member order, so every rank sums alike."""
+        axis = self.dim - 1 - d
+        group = self._group(d)
+        bnd = self.bounds[d]
+        shape = list(y.shape)
+        shape[axis] = bnd[self.coord[d] + 1] - bnd[self.coord[d]]
+        send = [0] * self.pmesh.size
+        recv = [0] * self.pmesh.size
+        pieces = []
+        for k, r in enumerate(group):
+            piece = y.narrow(axis, bnd[k], bnd[k + 1] - bnd[k])
+            pieces.append(piece.contiguous().reshape(-1))
+            send[r] = pieces[-1].numel()
+            recv[r] = math.prod(shape)
+        got = alltoall(torch.cat(pieces), send, recv, kind="reduce_scatter")
+        parts = got.split([recv[r] for r in group])
+        out = parts[0].reshape(shape)
+        for part in parts[1:]:
+            out = out + part.reshape(shape)
+        return out
+
     # --- halo -----------------------------------------------------------
     def _neighbour(self, d: int, step: int) -> int | None:
         coord = list(self.coord)
@@ -212,7 +290,7 @@ class _Blocks:
                 return None
             k %= self.parts[d]
         coord[d] = k
-        return self.pmesh.rank_at(coord[1], coord[0])
+        return self.rank_of(coord)
 
     def halo(self, x: torch.Tensor, d: int, lower: bool = True,
              upper: bool = True) -> tuple:
@@ -291,12 +369,14 @@ class _Blocks:
 
 class Partition(_Blocks):
     """Each rank's block of every field of a ``StaggeredMesh`` on a
-    ``ProcessMesh``.  Directions x and y are cut over the mesh axes "dx"
-    and "dy"; z is whole on every rank."""
+    ``ProcessMesh``.  Directions x, y and z are cut over the mesh axes
+    "dx", "dy" and "dz" (z whole on a 2-axis mesh; a 2D grid replicated
+    along "dz")."""
 
     def __init__(self, mesh, pmesh: ProcessMesh):
         self.mesh = mesh
-        parts = [pmesh.shape[1], pmesh.shape[0], 1][:mesh.dim]
+        dz, dy, dx = pmesh.dims
+        parts = [dx, dy, dz][:mesh.dim]
         bounds = []
         for d in range(mesh.dim):
             n, p = mesh.n(Field.P, d), parts[d]
@@ -372,6 +452,30 @@ class Partition(_Blocks):
         """The rank's segment of a full face array."""
         return self._cut(full, self.face_block(field, d), dtype, device)
 
+    def box_part(self, field, box: tuple, rank: int | None = None) -> tuple:
+        """The part of ``box`` (global slices of ``field`` in array-axis
+        order) in ``rank``'s block, as slices relative to the box's
+        start (empty where they do not meet)."""
+        out = []
+        for b, s in zip(box, self.block(field, rank)):
+            lo, hi = max(b.start, s.start), min(b.stop, s.stop)
+            lo = min(lo, b.stop)
+            out.append(slice(lo - b.start, max(hi, lo) - b.start))
+        return tuple(out)
+
+    def gather_box(self, x: torch.Tensor, field, box: tuple) -> torch.Tensor:
+        """The values of ``field`` inside ``box`` (global slices in
+        array-axis order), on every rank: each rank sends only its
+        block's part of the box (one all-gather of those parts)."""
+        mine = self.box_part(field, box)
+        origin = [s.start for s in self.block(field)]
+        local = tuple(slice(b.start + m.start - o, b.start + m.stop - o)
+                      for b, m, o in zip(box, mine, origin))
+        blocks = [self.box_part(field, box, r)
+                  for r in range(self.pmesh.size)]
+        return self._gather_blocks(x[local], blocks,
+                                   [b.stop - b.start for b in box])
+
 
     def gather_state(self, state: dict) -> dict:
         """A solver state with every decomposed leaf gathered (the grid
@@ -416,12 +520,23 @@ class LevelBlocks(_Blocks):
     rank: ``to_pencil`` exchanges the blocks of the ranks that share the
     other block coordinates (one all-to-all), so that each holds all of
     direction d and a ``parts[d]``-th of the split direction
-    (``split_dir``: y for x lines, x for y lines); ``from_pencil`` is its
-    inverse."""
+    (``split_dir``: y for x lines, x for y lines, y for z lines);
+    ``from_pencil`` is its inverse."""
 
     @classmethod
     def of_pressure(cls, part: Partition) -> "LevelBlocks":
         return cls(part.pmesh, part.dim, part.periodic, part.bounds)
+
+    @classmethod
+    def of_field(cls, part: Partition, field) -> "LevelBlocks":
+        """The blocks of one staggered field's points (a velocity's last
+        block one face short on its own non-periodic axis): its pencils
+        and its sums over a cut axis (``linalg/fdm.py``)."""
+        bounds = [list(b) for b in part.bounds]
+        f = int(field)
+        if f < part.dim and not part.periodic[f]:
+            bounds[f][-1] -= 1
+        return cls(part.pmesh, part.dim, part.periodic, bounds)
 
     def coarsen(self) -> "LevelBlocks":
         return LevelBlocks(self.pmesh, self.dim, self.periodic,
@@ -448,8 +563,9 @@ class LevelBlocks(_Blocks):
 
     def split_dir(self, d: int) -> int:
         """The direction a pencil of direction-d lines splits: y for x
-        lines, x for the others (z stays whole)."""
-        return 1 if d == 0 else 0
+        lines, x for y lines, y for z lines (each piece then holds whole
+        x rows)."""
+        return 0 if d == 1 else 1
 
     def holds_lines(self) -> bool:
         """Whether every block has at least 2 cells along each cut
@@ -468,16 +584,6 @@ class LevelBlocks(_Blocks):
         return self._gather_blocks(x, blocks, self.full_shape())
 
     # --- pencils --------------------------------------------------------
-    def _group(self, d: int) -> list:
-        """The ranks whose blocks share every block coordinate but d's, in
-        the order of their coordinate along d."""
-        out = []
-        for k in range(self.parts[d]):
-            coord = list(self.coord)
-            coord[d] = k
-            out.append(self.pmesh.rank_at(coord[1], coord[0]))
-        return out
-
     def pencil_range(self, d: int, k: int | None = None) -> tuple:
         """[lo, hi) of the split direction's cells in member k's pencil
         of direction-d lines (default this rank's)."""
@@ -547,12 +653,17 @@ class GroupSum:
     Krylov solvers on a decomposed run.  ``replicated`` names the leaves
     of a dict unknown that every rank holds whole (the Lagrangian forces
     of the coupled {p, f} system): their inner products are every rank's
-    own and are not summed (``linalg/krylov.py``'s ``_dot``)."""
+    own and are not summed (``linalg/krylov.py``'s ``_dot``).  ``group``:
+    the process subgroup of the sums (a ``Partition``'s ``group``), or
+    the whole group."""
 
     replicated = frozenset({"f"})
 
+    def __init__(self, group=None):
+        self.group = group
+
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        return allreduce_sum(t)
+        return allreduce_sum(t, self.group)
 
 
 class LocalMesh:

@@ -90,6 +90,17 @@ def maybe_initialize(node=None, device=None) -> bool:
     return True
 
 
+def shutdown() -> None:
+    """Leave the process group at the end of a run: a barrier, so that no
+    rank tears its transport down while another still reads from it, then
+    ``destroy_process_group``.  A no-op without a group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def process_info() -> tuple[int, int]:
     """(rank, world size): (0, 1) without a process group."""
     import torch.distributed as dist

@@ -68,22 +68,26 @@ the stage profiler, ``profile_stages`` (``utils/profiling.py``; JAX
 Domain decomposition (JAX ``navierstokes.py:95-105, 130-148``): with
 ``parameters.sharding`` in a run of N processes (``parameters.distributed``
 or torchrun; ``parallel/multihost.py``), each rank owns one block of every
-grid field on the ("dy", "dx") process mesh (``parallel/dist.py``).  The
-state is scattered at init; the operators are built on the rank's
-``LocalMesh`` and exchange halos; means, norms and inner products are
-summed over the group; the FDM solves repartition their blocks
-(``linalg/fdm.py``); the V-cycle keeps its finer levels on the blocks
-and runs K4-K7 on line pencils and on the whole coarse levels
-(``linalg/mg.py``), while K1-K3 stay off (the JAX package's gates,
-navierstokes.py:237, 266, 388, 411).  Output, iteration logs and restarts
-go through gather and scatter, and only rank 0 writes.  A decomposed run
-refuses what ROADMAP item 19b leaves: ``fdm.repartition: false``,
-``stepsPerDispatch`` > 1 and probes.
+grid field on the ("dy", "dx") or ("dz", "dy", "dx") process mesh
+(``parallel/dist.py``; a 2D grid replicated along "dz").  The state is
+scattered at init; the operators are built on the rank's ``LocalMesh``
+and exchange halos; means, norms and inner products are summed over the
+group; the FDM solves repartition their blocks on a 2-axis mesh, and
+contract their transforms over the cut axes on a 3-axis mesh or with
+``fdm.repartition: false`` (``linalg/fdm.py``); the V-cycle keeps its
+finer levels on the blocks and runs K4-K7 on line pencils and on the
+whole coarse levels (``linalg/mg.py``), while K1-K3 stay off (the JAX
+package's gates, navierstokes.py:237, 266, 388, 411).  The delta engines
+contract and spread on the rank's block (``ibm/interp.py``) and the
+probes read their boxes and corners from the blocks that hold them
+(``io/probes.py``).  Output, iteration logs and restarts go through
+gather and scatter, and only rank 0 writes.  A decomposed run refuses
+``stepsPerDispatch`` > 1 (ROADMAP item 19b-6).
 
 Configurations this port does not cover raise ``NotImplementedError``:
 an ``mg.dtype`` that the V-cycle's kernels have no instances of, a moving
 body on the windowed delta engine under ``stepsPerDispatch`` > 1 (ROADMAP
-item 20c), and on a decomposed run the list above; nothing is
+item 20c), and on a decomposed run a chunk of steps; nothing is
 substituted silently.
 """
 
@@ -221,7 +225,11 @@ class NavierStokesSolver:
             self.grid = LocalMesh(self.part)
         #: only rank 0 writes files
         self.is_root = self.part is None or self.part.rank == 0
-        self._reduce = None if self.part is None else GroupSum()
+        self._reduce = None if self.part is None else GroupSum(
+            self.part.group)
+        #: the FDM solves' core on a decomposed run: the four all-to-alls
+        #: unless ``fdm.repartition: false`` (or a 3-axis mesh)
+        self._repartition = bool(fdm_config(params).get("repartition", True))
         self._mean = torch.mean if self.part is None else self.part.mean
         self.output_dir = config.get("output", os.getcwd())
         self.logs_dir = config.get("logs", self.output_dir)
@@ -303,20 +311,12 @@ class NavierStokesSolver:
         return x if self.part is None else self.part.gather(x, field)
 
     def _check_decomposed(self, config: dict) -> None:
-        """Refuse what a decomposed run does not cover yet (ROADMAP item
-        19b); the IBM subclasses refuse more."""
+        """Refuse what a decomposed run does not cover yet: a chunk of
+        steps (ROADMAP item 19b-6)."""
         params = config.get("parameters", {})
-        fdm_cfg = fdm_config(params)
-        refused = [
-            (not bool(fdm_cfg.get("repartition", True)),
-             "fdm.repartition: false"),
-            (int(params.get("stepsPerDispatch", 1)) > 1,
-             "stepsPerDispatch > 1"),
-            (bool(config.get("probes")), "probes")]
-        for hit, what in refused:
-            if hit:
-                raise _not_ported(f"{what} on a decomposed run",
-                                  "ROADMAP item 19b")
+        if int(params.get("stepsPerDispatch", 1)) > 1:
+            raise _not_ported("stepsPerDispatch > 1 on a decomposed run",
+                              "ROADMAP item 19b-6")
 
     def _diag_layout(self, leaves) -> dict:
         """``extract_diagonal``'s keywords on the rank's block: its global
@@ -398,7 +398,8 @@ class NavierStokesSolver:
             if self.part is not None:
                 # JAX navierstokes.py:325-328
                 for c in range(self.mesh.dim):
-                    helm[VEL_NAMES[c]].set_mesh(self.part, Field(c))
+                    helm[VEL_NAMES[c]].set_mesh(self.part, Field(c),
+                                                self._repartition)
 
             class _HelmDict:
                 @staticmethod
@@ -455,7 +456,7 @@ class NavierStokesSolver:
                                       dtype=self.dtype, device=self.device,
                                       scale=self.dt)
             if self.part is not None:
-                fdm_pin.set_mesh(self.part)
+                fdm_pin.set_mesh(self.part, self._repartition)
             self._poisson_fdm_pinned = fdm_pin
             self.p_solver = make_fdm_solver(
                 PinnedSolve(fdm_pin, part=self.part), negA_p, popts,
@@ -530,7 +531,7 @@ class NavierStokesSolver:
                                                 self.mesh.periodic, **kw)
             if self.part is not None:
                 # JAX navierstokes.py:495-500
-                self.poisson_fdm.set_mesh(self.part)
+                self.poisson_fdm.set_mesh(self.part, self._repartition)
             self._fdm_mode = str(fdm_cfg.get("mode", "direct"))
             if self._fdm_mode == "direct":
                 return None
@@ -983,11 +984,13 @@ class NavierStokesSolver:
             node = dict(node)
             if not os.path.isabs(node.get("path", "")):
                 node["path"] = os.path.join(self.output_dir, node["path"])
-            self.probes.append(create_probe(node, self.mesh, self.bc))
+            self.probes.append(create_probe(node, self.mesh, self.bc,
+                                            part=self.part))
 
     def monitor_probes(self) -> None:
         """monitorProbes (navierstokes.cpp:840-856): each probe reads the
-        fields on the device."""
+        fields on the device (the rank's blocks of a decomposed run: every
+        rank takes part, rank 0 writes)."""
         if not self.probes:
             return
         with self.timers.stage("monitor"):

@@ -10,16 +10,20 @@ stats per step, the layout and FDM checks) to ``<out>``; the tests read
 it and run the JAX package's single-device solver in this process on the
 same configurations.
 
-- job ``four`` (4 ranks): ``mesh_from_config``; scatter, gather and the
+- job ``four`` (4 ranks): ``mesh_from_config`` (a 3-axis shape among
+  them); scatter, gather and the
   halo on staggered, uneven, periodic and walled blocks on [2, 2], [1, 4]
   and [4, 1]; the decomposed FDM Poisson and Helmholtz solves against
   the single-rank solves (2D stretched, 3D with a periodic z by FFT, odd
   sizes, FFTs on decomposed axes); the cavity, the 2D cylinder, the 3D
   sphere, a 16^3 TGV (BiCGStab + Jacobi momentum solve), and the pinned
   pressure on the cavity and a periodic TGV2D, on [2, 2];
-- job ``two`` (2 ranks): each configuration ROADMAP item 19b leaves out
-  raises ``NotImplementedError`` naming it (the V-cycle, the coupled IBPM
-  and the moving body run decomposed: ``test_torch_parallel_mg.py``);
+- job ``two`` (2 ranks): what ROADMAP item 19b leaves out
+  (``stepsPerDispatch`` > 1, item 19b-6) raises ``NotImplementedError``
+  naming it (the V-cycle, the coupled IBPM and the moving body run
+  decomposed: ``test_torch_parallel_mg.py``; the 3-axis mesh,
+  ``fdm.repartition: false``, the windowed engine and the probes:
+  ``test_torch_parallel_3axis.py``);
 - the navierstokes CLI under ``torch.distributed.run`` on 2 processes
   against a single-process run: logs and rank 0's snapshot.
 """
@@ -290,32 +294,18 @@ FDM_GRIDS = {
                         "xyz"),
 }
 
+#: what a decomposed run still refuses: a chunk of steps (ROADMAP item
+#: 19b-6); the 3-axis mesh, ``fdm.repartition: false``, the windowed
+#: engine and the probes run (``test_torch_parallel_3axis.py``)
 REFUSED = {
-    "windowed_engine": "decoupledibpm.DecoupledIBPMSolver",
-    "probes": "navierstokes.NavierStokesSolver",
-    "three_axis_mesh": "navierstokes.NavierStokesSolver",
     "steps_per_dispatch": "navierstokes.NavierStokesSolver",
-    "repartition_false": "navierstokes.NavierStokesSolver",
 }
 
 
 def _refused_config(name, tmpdir):
-    shard = dict(SHARDING, nDevices=2)
-    cfg = (cylinder_config(tmpdir, sharding=shard)
-           if name == "windowed_engine"
-           else cavity_config(tmpdir, sharding=shard))
-    params = cfg["parameters"]
-    if name == "windowed_engine":
-        params["deltaEngine"] = "windowed"
-    elif name == "probes":
-        cfg["probes"] = [{"name": "probe-p", "type": "POINT", "field": "p",
-                          "loc": [0.5, 0.5]}]
-    elif name == "three_axis_mesh":
-        params["sharding"] = dict(SHARDING, shape=[1, 1, 2])
-    elif name == "steps_per_dispatch":
-        params["stepsPerDispatch"] = 2
-    elif name == "repartition_false":
-        params["fdm"] = {"repartition": False}
+    cfg = cavity_config(tmpdir, sharding=dict(SHARDING, nDevices=2))
+    if name == "steps_per_dispatch":
+        cfg["parameters"]["stepsPerDispatch"] = 2
     return cfg
 
 
@@ -366,9 +356,10 @@ def _layout_checks(part, mesh, seed):
     return worst
 
 
-def _fdm_checks(part, mesh, cfg, seed):
+def _fdm_checks(part, mesh, cfg, seed, repartition=True):
     """Each decomposed FDM solve against the single-rank solve on the same
-    right side: {solve: max |difference| / max |x|}."""
+    right side: {solve: max |difference| / max |x|}; ``repartition``
+    false asks for the contraction core."""
     from petibm_tpu_torch.boundary import BoundarySet
     from petibm_tpu_torch.linalg.fdm import (FastDiagHelmholtz,
                                              FastDiagPoisson,
@@ -393,9 +384,9 @@ def _fdm_checks(part, mesh, cfg, seed):
         want = single.solve(b)
         dec = make()
         if field == Field.P:
-            dec.set_mesh(part)
+            dec.set_mesh(part, repartition=repartition)
         else:
-            dec.set_mesh(part, field)
+            dec.set_mesh(part, field, repartition=repartition)
         assert set(dec._fft_axes) == {mesh.dim - 1 - d for d in
                                       range(mesh.dim) if mesh.periodic[d]}
         got = part.gather(dec.solve(part.scatter(b, field)), field)
@@ -446,8 +437,8 @@ def _job_four(rank, out):
                       ("too_many", {"nDevices": 1000}),
                       ("three_axis", dict(SHARDING, shape=[1, 2, 2]))):
         try:
-            mesh_from_config(node)
-            res["mesh"][key] = "no error"
+            got = mesh_from_config(node)
+            res["mesh"][key] = [list(got.shape), list(got.axis_names)]
         except (ValueError, NotImplementedError) as err:
             res["mesh"][key] = [type(err).__name__, str(err)]
     res["layout"], res["fdm"] = {}, {}
@@ -609,8 +600,8 @@ def test_mesh_from_config_four_ranks(four):
     assert m["shape_4_1"] == [4, 1]
     assert m["bad_shape"][0] == "ValueError"
     assert m["too_many"][0] == "ValueError"
-    assert m["three_axis"][0] == "NotImplementedError"
-    assert "ROADMAP item 19b" in m["three_axis"][1]
+    # a 3-axis shape is the ("dz", "dy", "dx") mesh
+    assert m["three_axis"] == [[1, 2, 2], ["dz", "dy", "dx"]]
 
 
 @pytest.mark.parametrize("shape", [f"{a}x{b}" for a, b in MESH_SHAPES])
@@ -683,12 +674,13 @@ def test_decomposed_run_matches_jax_single(four, tmp_path, name):
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_decomposed_refusals_name_item_19b(two, name):
     """Under a 2-rank group each configuration ROADMAP item 19b leaves out
-    raises NotImplementedError naming it, on both ranks: nothing runs on
-    one rank or on the CPU by itself."""
+    (``stepsPerDispatch`` > 1: item 19b-6) raises NotImplementedError
+    naming it, on both ranks: nothing runs on one rank or on the CPU by
+    itself."""
     for res in two:
         kind, msg = res[name]
         assert kind == "NotImplementedError", (name, kind, msg)
-        assert "ROADMAP item 19b" in msg, msg
+        assert "ROADMAP item 19b-6" in msg, msg
 
 
 def _write_case(directory, cfg):
