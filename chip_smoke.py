@@ -109,9 +109,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    50; (b) the sphere, 50, 25; (c) the 256^3 TGV, 20, 10; (d) the
    coupled Re=550, 100, 50; (e) the oscillating cylinder, 100, 50; (f)
    the flagship with ``fdm: false``, 10, 5; (g) (f) with its CG loop's
-   cap forced to 4, 10, 10: it overflows, reruns and recaptures; (h) the
+   cap forced to 4, 5, 5: it overflows, reruns and recaptures; (h) the
    coupled Re=550 with ``fdm: false``, one chunk of 2 for its graph's
-   size.  Each holds fields and stats at tolerance 0 and prints both
+   size; (i) the oscillating cylinder on the windowed delta engine (its
+   window box the whole grid), 20, 10.  Each holds fields and stats at
+   tolerance 0 and prints both
    runs' ms/step, the graph's nodes, capture and instantiate seconds,
    the caps, overflows and peak memory, beside the card's name and power
    limit; then profiles up to 10 single steps and one chunk (the
@@ -125,9 +127,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 15. the domain decomposition (``parameters.sharding``): two ranks on the
    one card, processes of this script (``--phase15-rank``), through the
    solver API, NCCL with a host id of its own per rank
-   (``P15_NCCL_ENV``): the flagship on a [1, 2] mesh and on [2, 1]
-   for 5 steps, the sphere on [1, 2] for 5, the flagship with ``fdm:
-   false`` (the decomposed V-cycle) for 1, the coupled Re=550 for 1, the
+   (``P15_NCCL_ENV``): the flagship on a [1, 2] mesh for 11 steps and
+   on [2, 1] for 5, the sphere on [1, 2] for 5, the flagship with ``fdm:
+   false`` (the decomposed V-cycle) for 3, the coupled Re=550 for 1, the
    oscillating cylinder for 5, the sphere on the 3-axis [2, 1, 1] mesh
    for 3 (the FDM's contraction core) and with ``fdm: false`` for 1 (K5
    on z pencils), the sphere with the windowed engine for 3 and the
@@ -144,7 +146,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    their bytes; one
    ``{"distributed": ...}`` JSON line a cell.  On the ranks K1-K3 launch
    no time (the JAX package's gates under a mesh) and K4/K5 (K6/K7) as
-   their V-cycles imply.
+   their V-cycles imply.  The flagship on [1, 2] and its ``fdm: false``
+   also run their last 10 and 2 steps again in chunks of 5 and 2, each
+   rank's step one CUDA graph with its collectives in it (the loops'
+   copies masked: an IF node's body takes no NCCL collective), each
+   rank's state bit-equal to its single steps, K4/K5 counted on the
+   card inside the graphs.
 
 A kernel wrapper counts a launch where it launches its kernel: on the
 host outside a CUDA graph's capture, and on the card too while
@@ -2775,7 +2782,7 @@ def _counted_chunk(label: str, solver, implied) -> dict:
 
 
 def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
-                cg_cap: int | None = None) -> dict:
+                cg_cap: int | None = None, n_single: int = 10) -> dict:
     """One cell of phase 14 from the solver's state: ``nsteps`` steps
     through ``run()`` one at a time, then from the same start ``nsteps``
     through ``run()`` in chunks of ``k`` (the graph captured first,
@@ -2784,7 +2791,8 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
     The wrappers count only launches made outside a graph: over each
     chunk, those of the steps an overflow reran through the host driver,
     held to ``implied(stats)`` of those steps.  Then times one more chunk
-    (another while one overflows), profiles k single steps (their
+    (another while one overflows), profiles up to ``n_single`` of k
+    single steps (their
     launches held to the stats) and one chunk (``_profile``), and counts
     one chunk's launches on the device (``_counted_chunk``).  Returns the
     cell's record."""
@@ -2873,7 +2881,7 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
     else:
         raise AssertionError(f"phase 14 {label}: four chunks overflowed")
 
-    # one chunk and up to 10 single steps profiled, in one call: the
+    # one chunk and up to n_single single steps profiled, in one call: the
     # device time of the graph beside the eager step's (the single steps
     # last: a chunk is cut at a host event their count would misalign)
     _check_chunk_fits(f"phase 14 {label}", solver)
@@ -2882,7 +2890,7 @@ def _chunk_cell(label: str, solver, nsteps: int, k: int, implied,
     add(launches, counted)
     solver.steps_per_dispatch = 1
     _reset_counts()
-    n_single = min(k, 10)
+    n_single = min(k, n_single)
     prof_single = _profile(solver, n_single)
     counts = _counts()
     _check_counts(f"phase 14 {label} {n_single} single steps", counts,
@@ -2947,9 +2955,11 @@ def phase14_chunked(tmp: str, card: str) -> list:
     (f) the flagship MG-CG, 10, 5; (g) (f) again with the CG loop's cap
     forced to 4: it overflows, reruns and recaptures and still equals
     the single steps; then the coupled Re=550 with ``fdm: false``, one
-    k = 2 chunk for its node count and capture time.  Returns each
-    cell's launches: the wrappers' counts outside the graph and the
-    profiled chunk's kernel events."""
+    k = 2 chunk for its node count and capture time; (i) the oscillating
+    cylinder on the windowed delta engine (its window box the whole
+    grid, no host read a step), 20, 10, K1 counted on the device in its
+    graph.  Returns each cell's launches: the wrappers' counts outside
+    the graph and the profiled chunk's kernel events."""
     import torch
 
     from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
@@ -3017,7 +3027,7 @@ def phase14_chunked(tmp: str, card: str) -> list:
 
     cell("(f) flagship mg", mg, 10, 5, mg_implied)
     # (g) from (f)'s end, the CG cap forced to 4
-    cell("(g) flagship mg, CG cap 4", mg, 10, 10, mg_implied, cg_cap=4)
+    cell("(g) flagship mg, CG cap 4", mg, 5, 5, mg_implied, cg_cap=4)
     if records[-1]["overflows"] != 1:
         raise AssertionError("phase 14 (g): the forced cap did not overflow "
                              "once")
@@ -3026,8 +3036,19 @@ def phase14_chunked(tmp: str, card: str) -> list:
     # the coupled fdm: false step: one k = 2 chunk for its graph's size
     cmg = IBPMSolver(re550_config(os.path.join(tmp, "c_re550_mg"), nt=0,
                                   fdm=False), device=DEVICE)
-    cell("(h) re550 mg", cmg, 2, 2, lambda hist: _mg_implied(cmg, hist, 1))
+    # one single step profiled: ~50 000 kernel events a step
+    cell("(h) re550 mg", cmg, 2, 2, lambda hist: _mg_implied(cmg, hist, 1),
+         n_single=1)
     cmg.close()
+
+    # the moving body on the windowed engine: the Krylov force solve
+    wosc = RigidKinematicsSolver(oscillating_config(
+        os.path.join(tmp, "c_osc_win"), nt=0, deltaEngine="windowed"),
+        device=DEVICE)
+    if not wosc.delta.windowed:
+        raise AssertionError("phase 14 (i): not the windowed engine")
+    cell("(i) oscillating windowed", wosc, 20, 10, k1_fdm)
+    wosc.close()
     print(json.dumps({"chunked": {"device": card, "cells": [
         {k: v for k, v in r.items() if k != "launches"} for r in records]}}))
     return [r["launches"] for r in records]
@@ -3035,19 +3056,20 @@ def phase14_chunked(tmp: str, card: str) -> list:
 
 #: phase 15's cells: (name, config function, mesh shape, steps, dtype,
 #: solver, extra parameters; "probes" there is the config's probes
-#: node).  The coupled cells set coupledDirect: false,
+#: node, "chunk" a chunk's steps: the cell's steps again from the same
+#: start in chunks, ``_p15_chunked``).  The coupled cells set coupledDirect: false,
 #: which their decomposed runs take anyway (no direct solve under a
 #: mesh, JAX ibpm.py:97-101), so that the single-rank reference runs the
 #: same outer CG
 P15_CELLS = (
-    ("flagship_1x2", "flagship_config", [1, 2], 5, "float32", "decoupled",
-     {}),
+    ("flagship_1x2", "flagship_config", [1, 2], 11, "float32", "decoupled",
+     {"chunk": 5}),
     ("flagship_2x1", "flagship_config", [2, 1], 5, "float32", "decoupled",
      {}),
     ("sphere_1x2", "sphere_config", [1, 2], 5, "float32", "decoupled", {}),
     ("cylinder_f64", "small_config", [1, 2], 3, "float64", "decoupled", {}),
-    ("flagship_mg_1x2", "flagship_config", [1, 2], 1, "float32",
-     "decoupled", {"fdm": False}),
+    ("flagship_mg_1x2", "flagship_config", [1, 2], 3, "float32",
+     "decoupled", {"fdm": False, "chunk": 2}),
     ("re550_coupled_1x2", "re550_config", [1, 2], 1, "float32", "coupled",
      {"coupledDirect": False}),
     ("oscillating_1x2", "oscillating_config", [1, 2], 5, "float32",
@@ -3185,6 +3207,97 @@ def _p15_steps(solver, steps: int) -> dict:
     return {"stats": stats, "ms": ms, "comm": comm, "launches": launches}
 
 
+def _p15_chunked(solver, steps: int, k: int) -> dict:
+    """Of ``steps`` single steps (``advance``, the host driver), the first
+    ``steps - n`` spin the start up (n the most whole chunks of ``k`` in
+    ``steps - 1``: the caps come from a warm-up step past the impulsive
+    first one), then from where they left the state the last n again in
+    chunks of ``k`` (the step captured as
+    one CUDA graph on each rank, its loop copies masked: an IF node's
+    body takes no NCCL collective) with the launches counted on the
+    device (``_kernels.count_on_device``: every launch, and those whose
+    results the masked copies kept).  Returns
+    the single steps' stats, collectives and launches (as
+    ``_p15_steps``), each run's ms/step (host clock, synchronized), the
+    chunks' stats and device counts, and whether this rank's state came
+    out bit for bit as the single steps left it."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from petibm_tpu_torch import _kernels
+    from petibm_tpu_torch.parallel import counters, reset_counters
+    from petibm_tpu_torch.solvers.chunk import ChunkRunner
+
+    cuda = solver.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n = k * ((steps - 1) // k)
+    if cuda:
+        _reset_counts()
+    for _ in range(steps - n):
+        solver.advance()
+    start = (pytree.tree_map(torch.clone, solver.state), solver.ite,
+             solver.t)
+    n0 = len(solver.stats_history)
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        solver.advance()
+    sync()
+    single_ms = (time.perf_counter() - t0) * 1e3 / n
+    comm = counters()
+    launches = _counts() if cuda else {}
+    single_state = solver.state
+    single = solver.stats_history[n0:]
+
+    solver.state, solver.ite, solver.t = start
+    solver.steps_per_dispatch = k
+    runner = solver._chunk = ChunkRunner(solver)
+    if cuda:
+        # the graph captured with the counters beside its kernels; the
+        # warm-up step's launches zeroed after it
+        _kernels.count_on_device(solver.device)
+    sync()
+    t0 = time.perf_counter()
+    runner.prepare()
+    sync()
+    prepare_s = time.perf_counter() - t0
+    if cuda:
+        _kernels.zero_device_launch_counts()
+        _reset_counts()
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n // k):
+        solver.advance_chunk()
+    sync()
+    chunk_ms = (time.perf_counter() - t0) * 1e3 / n
+    chunk_comm = counters()
+    hist = solver.stats_history
+    out = {"stats": [{key: float(v) for key, v in s.items() if key != "ite"}
+                     for s in hist[:n0 + n]],
+           "chunk_stats": [{key: float(v) for key, v in s.items()
+                            if key != "ite"} for s in hist[n0 + n:]],
+           "single_stats": [{key: float(v) for key, v in s.items()
+                             if key != "ite"} for s in single],
+           "ms": single_ms, "chunk_ms": chunk_ms, "prepare_s": prepare_s,
+           "comm": comm, "chunk_comm": chunk_comm, "launches": launches,
+           "chunk_host_launches": _counts() if cuda else {},
+           "overflows": solver.chunk_overflows, "masked": runner.masked,
+           "caps": list(runner.caps),
+           "sites": [site.kind for site in runner.sites],
+           "same_bits": all(torch.equal(a, b) for a, b in zip(
+               pytree.tree_leaves(single_state),
+               pytree.tree_leaves(solver.state)))}
+    if cuda:
+        out["chunk_launches"] = _by_kernel(_kernels.device_launch_counts())
+        out["chunk_launches_kept"] = _by_kernel(
+            _kernels.device_launch_counts(kept=True))
+        _kernels.count_on_device(None)
+    solver._chunk = None
+    return out
+
+
 def _p15_fields(solver) -> dict:
     from petibm_tpu_torch.convert import state_to_numpy
 
@@ -3215,11 +3328,14 @@ def phase15_rank(spec_path: str, rank: int) -> None:
             "coordinator": f"localhost:{spec['port']}",
             "numProcesses": spec["world"], "processId": rank}
         solver = _p15_solver(cfg, spec["device"], cell["solver"])
-        run = _p15_steps(solver, cell["steps"])
+        if cell.get("chunk"):
+            run = _p15_chunked(solver, cell["steps"], cell["chunk"])
+        else:
+            run = _p15_steps(solver, cell["steps"])
         fields = _p15_fields(solver)
         solver.close()
-        report[cell["name"]] = {k: run[k] for k in ("ms", "comm",
-                                                    "launches", "stats")}
+        report[cell["name"]] = {k: v for k, v in run.items()
+                                if k not in ("probes",)}
         report[cell["name"]]["sweeps"] = _p15_sweeps(solver)
         mg = getattr(solver, "poisson_mg", None)
         report[cell["name"]]["mg_levels"] = [
@@ -3311,6 +3427,56 @@ def _p15_iters(dec: list, ref: list) -> tuple:
     return 1.0 - len(differ) / len(ref), differ
 
 
+def _p15_chunk_record(name: str, k: int, reports: list,
+                      failures: list) -> dict:
+    """A chunked cell's ranks (``_p15_chunked``): each rank's state bit
+    for bit as its single steps left it, the chunks' stats equal to the
+    single steps', no overflow, no launch outside the graph, and on the
+    card the launches each rank's graph kept (masked copies) equal to
+    what its chunk stats imply; its ms/step chunked beside single."""
+    runs = [r[name] for r in reports]
+    rec = {"k": k, "same_bits_ranks": [r["same_bits"] for r in runs],
+           "ms_per_step_single_ranks": [r["ms"] for r in runs],
+           "ms_per_step_chunked_ranks": [r["chunk_ms"] for r in runs],
+           "prepare_s_ranks": [r["prepare_s"] for r in runs],
+           "masked": runs[0]["masked"], "caps": runs[0]["caps"],
+           "sites": runs[0]["sites"],
+           "overflows_ranks": [r["overflows"] for r in runs],
+           "stats_diff": max(_stats_diff(r["single_stats"],
+                                         r["chunk_stats"]) for r in runs),
+           "chunk_collectives_rank0": runs[0]["chunk_comm"]}
+    if not all(rec["same_bits_ranks"]) or rec["stats_diff"] != 0.0:
+        failures.append(f"{name}: chunked differs from the single steps "
+                        f"(bits {rec['same_bits_ranks']}, stats "
+                        f"{rec['stats_diff']})")
+    if any(rec["overflows_ranks"]):
+        failures.append(f"{name}: a chunk overflowed "
+                        f"{rec['overflows_ranks']}")
+    if DEVICE.startswith("cuda"):
+        rec["rank_graph_launches"] = [r["chunk_launches"] for r in runs]
+        rec["rank_graph_launches_kept"] = [r["chunk_launches_kept"]
+                                           for r in runs]
+        rec["rank_kept_implied"] = [
+            _p15_implied(*r["sweeps"], r["chunk_stats"]) for r in runs]
+        host = [r["chunk_host_launches"] for r in runs]
+        if any(any(v for v in h.values()) for h in host):
+            failures.append(f"{name}: launches outside the graph {host}")
+        if rec["rank_graph_launches_kept"] != rec["rank_kept_implied"]:
+            failures.append(
+                f"{name}: the graphs kept {rec['rank_graph_launches_kept']}"
+                f" launches, the chunk stats imply "
+                f"{rec['rank_kept_implied']}")
+    print(f"phase 15 {name} chunked, k {k}: ms/step single "
+          f"{rec['ms_per_step_single_ranks']}, chunked "
+          f"{rec['ms_per_step_chunked_ranks']} (per rank; loop copies "
+          f"{'masked' if rec['masked'] else 'guarded'}, caps "
+          f"{rec['caps']}), bit-equal "
+          f"{rec['same_bits_ranks']}, graph launches "
+          f"{rec.get('rank_graph_launches')}, kept "
+          f"{rec.get('rank_graph_launches_kept')}")
+    return rec
+
+
 def phase15_distributed(tmp: str, card: str) -> None:
     """The decomposed step (``parameters.sharding``; ``parallel/``): two
     ranks on the one card, processes of this script, each from the same
@@ -3336,7 +3502,13 @@ def phase15_distributed(tmp: str, card: str) -> None:
     false``, coupled and moving variants, the 24x20x16 sphere on [2, 1,
     1] with the FDM and with ``fdm: false``, the cylinder with the
     windowed engine, ``fdm.repartition: false`` and the two probes, and
-    the moving cylinder on the windowed engine.  Prints the backend,
+    the moving cylinder on the windowed engine.  The flagship on [1, 2]
+    (11 steps) and its ``fdm: false`` (3 steps) also run chunked
+    (``_p15_chunked``: after a spin-up step, 10 and 2 steps again in
+    chunks of 5 and 2, each rank's graph with its loop copies masked),
+    each rank's state bit-equal to its single steps, the MG cell's K4/K5
+    counted on the card inside the graphs as the chunk's stats imply
+    (``_p15_chunk_record``).  Prints the backend,
     the FDM core, ms/step of each rank beside the single rank's (two
     ranks share one card: not a scaling number), and the halo
     exchanges, all-reduces, all-to-alls and reduce-scatters a step with
@@ -3358,12 +3530,13 @@ def phase15_distributed(tmp: str, card: str) -> None:
     for name, func, shape, steps, dtype, kind, extra in P15_CELLS:
         extra = dict(extra)
         probes = extra.pop("probes", None)
+        chunk = extra.pop("chunk", None)
         cfg = funcs[func](os.path.join(out, name), **dict(
             extra, nt=steps, dtype=dtype))
         if probes:
             cfg["probes"] = probes
         cells.append({"name": name, "config": cfg, "shape": shape,
-                      "steps": steps, "solver": kind})
+                      "steps": steps, "solver": kind, "chunk": chunk})
     spec = {"world": 2, "device": DEVICE, "out": out,
             "cells": json.loads(json.dumps(cells))}
     # the backend follows the device (multihost.maybe_initialize)
@@ -3451,6 +3624,9 @@ def phase15_distributed(tmp: str, card: str) -> None:
                "tolerance": tol,
                "p_iters": [int(s["p_iters"]) for s in ref["stats"]],
                "card": card}
+        if cell["chunk"]:
+            rec["chunk"] = _p15_chunk_record(name, cell["chunk"], reports,
+                                             failures)
         print(json.dumps({"distributed": rec}))
         if DEVICE.startswith("cuda") and launches != implied:
             failures.append(f"{name}: the ranks launched {launches}, their "

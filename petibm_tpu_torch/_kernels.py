@@ -181,8 +181,11 @@ def count_on_device(device=None) -> None:
     then adds one to its counter's entry of a device tensor on the stream
     it launched on, which a CUDA graph's capture records beside the
     kernel: a replay counts the launches it makes, in an IF node's body
-    only where the body runs.  A graph captured while this is on writes
-    into the tensor; capture it again once this is off."""
+    only where the body runs.  Inside a masked body (``loops.masked``,
+    whose copies all run) a second tensor, ``kept``, adds the body's
+    predicate: the launches whose results the step keeps.  A graph
+    captured while this is on writes into the tensors; capture it again
+    once this is off."""
     _ON_DEVICE.clear()
     if device is None:
         return
@@ -193,11 +196,20 @@ def count_on_device(device=None) -> None:
     _ON_DEVICE["names"] = list(counters)
     _ON_DEVICE["counts"] = torch.zeros(len(counters), dtype=torch.int64,
                                        device=device)
+    _ON_DEVICE["kept"] = torch.zeros_like(_ON_DEVICE["counts"])
 
 
-def device_launch_counts() -> dict:
-    """The device counters of ``count_on_device``, by kernel (one read)."""
-    counts = _ON_DEVICE["counts"].tolist()
+def zero_device_launch_counts() -> None:
+    """Set the device counters of ``count_on_device`` to 0 in place: a
+    graph captured while they were on goes on counting into them."""
+    _ON_DEVICE["counts"].zero_()
+    _ON_DEVICE["kept"].zero_()
+
+
+def device_launch_counts(kept: bool = False) -> dict:
+    """The device counters of ``count_on_device``, by kernel (one read):
+    every launch, or with ``kept`` those whose results were kept."""
+    counts = _ON_DEVICE["kept" if kept else "counts"].tolist()
     return dict(zip(_ON_DEVICE["names"], counts))
 
 
@@ -208,6 +220,10 @@ def count_launch(wrapper, attr: str = "launches") -> None:
     nothing, so the host counts none; the graph's replays do not enter
     the wrapper."""
     if _ON_DEVICE:
-        _ON_DEVICE["counts"][_ON_DEVICE["index"][id(wrapper), attr]].add_(1)
+        from .linalg.loops import MASK
+
+        i = _ON_DEVICE["index"][id(wrapper), attr]
+        _ON_DEVICE["counts"][i].add_(1)
+        _ON_DEVICE["kept"][i].add_(MASK[-1].to(torch.int64) if MASK else 1)
     if not torch.cuda.is_current_stream_capturing():
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)

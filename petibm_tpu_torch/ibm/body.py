@@ -9,8 +9,7 @@ forces are dense (nPts, dim) arrays — small enough to replicate per device,
 with spreading/interpolation doing the cross-shard work.
 
 Copy of ``petibm_tpu/ibm/body.py`` (held equal to the original by
-tests/test_torch_host.py) on its numpy paths only, without the original's
-optional g++ ``native`` helpers.
+tests/test_torch_host.py).
 """
 
 from __future__ import annotations
@@ -25,7 +24,13 @@ from ..types import Field
 
 def read_lagrangian_points(path: str) -> np.ndarray:
     """ASCII body file: first line nPts, then one coordinate row per point
-    (reference: io.cpp:23-128 readLagrangianPoints)."""
+    (reference: io.cpp:23-128 readLagrangianPoints).  Parses through the
+    native hostcore when available (large 3D bodies are 10^5-10^6 rows)."""
+    from .. import native
+
+    coords = native.read_lagrangian_points(path) if native.available() else None
+    if coords is not None:
+        return coords
     with open(path) as fh:
         first = fh.readline().split()
         if len(first) != 1:
@@ -46,7 +51,11 @@ def read_lagrangian_points(path: str) -> np.ndarray:
 def write_lagrangian_points(path: str, coords: np.ndarray) -> None:
     """Body point file writer (reference: singlebodypoints.cpp:238-290
     writeBody; note writeBody omits the count line)."""
+    from .. import native
+
     coords = np.ascontiguousarray(coords, dtype=np.float64)
+    if native.available() and native.write_lagrangian_points(path, coords):
+        return
     with open(path, "w") as fh:
         for row in np.asarray(coords):
             fh.write("\t".join(f"{v:10.8e}" for v in row) + "\n")
@@ -72,6 +81,8 @@ class SingleBody:
         """Owning pressure-cell index per point per direction via binary
         search on the vertex gridlines (reference:
         singlebodypoints.cpp:95-120 updateMeshIdx)."""
+        from .. import native
+
         out = np.empty((self.n_pts, self.dim), dtype=np.int32)
         for d in range(self.dim):
             verts = mesh.coord(Field.VERTEX, d)
@@ -81,7 +92,10 @@ class SingleBody:
                 raise ValueError(
                     f"body {self.name}: coordinate outside domain in "
                     f"direction {d}")
-            out[:, d] = np.searchsorted(verts, c, side="right") - 1
+            idx = native.search_cells(verts, c) if native.available() else None
+            if idx is None:
+                idx = np.searchsorted(verts, c, side="right") - 1
+            out[:, d] = idx
         return out
 
 

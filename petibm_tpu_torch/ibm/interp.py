@@ -196,10 +196,13 @@ class WindowedDeltaOp(DeltaOp):
 
     Two choices differ from the JAX engine and change only which exact
     zeros enter a sum:
-    - the factor rows span only the window box, the gridlines
-      ``lo[d]:hi[d]`` the body's windows touch (read once per
-      ``windows`` call), not the whole grid line: every product outside
-      the box is a zero;
+    - a stationary body's factor rows span only the window box, the
+      gridlines ``lo[d]:hi[d]`` its windows touch (read once, at setup),
+      not the whole grid line: every product outside the box is a zero.
+      A moving body's rows span the whole grid line, as the JAX engine's
+      do (``windows(X, whole=True)``): no step reads its box to the host
+      and no shape changes from step to step, so a chunk of steps
+      captures it;
     - the chunk budget is the card's (``_chunk_budget``), not the TPU's
       128 MB; chunking changes only the order in which H sums its chunks.
     The banded reductions the solvers share (diag(E B1 H) from
@@ -242,14 +245,20 @@ class WindowedDeltaOp(DeltaOp):
         return tuple(slice(lo[d] - org[d], hi[d] - org[d])
                      for d in reversed(range(self.dim)))
 
-    def windows(self, X) -> dict:
+    def windows(self, X, whole: bool = False) -> dict:
         """{c: {"idx", "sd", "sv": [per-dir (N, K)], "lo", "hi": [per-dir
         int]}}: the JAX engine's keys, and the window box of each
-        component on the host (one read)."""
+        component on the host: the gridlines the windows touch (one read),
+        or with ``whole`` each direction's whole grid line (``lo`` 0,
+        ``hi`` n; no read: a moving body's, the same in every step)."""
         weights = self._window_weights(X)
-        ends = torch.stack([torch.stack([idx.min(), idx.max()])
-                            for dirs in weights.values()
-                            for idx, _ in dirs]).tolist()
+        if whole:
+            ends = [[0, self.n[c][d] - 1] for c, dirs in weights.items()
+                    for d in range(len(dirs))]
+        else:
+            ends = torch.stack([torch.stack([idx.min(), idx.max()])
+                                for dirs in weights.values()
+                                for idx, _ in dirs]).tolist()
         out, k = {}, 0
         for c, dirs in weights.items():
             ent = {"idx": [], "sd": [], "sv": [], "lo": [], "hi": []}

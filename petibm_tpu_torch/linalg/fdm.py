@@ -773,7 +773,7 @@ def make_fdm_solver(fdm, A, opts: dict, reduce=None):
             it.add_(1)
             pred.copy_(more())
 
-        loops.loop("refine", body, pred, maxiter)
+        loops.loop("refine", body, pred, maxiter, (x, r, prev, rn, it))
         return SolveResult(x=x, iters=it, residual=rn, converged=rn <= tol)
 
     return solve

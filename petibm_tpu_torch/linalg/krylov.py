@@ -157,7 +157,7 @@ def cg(A, b, x0, M=None, atol=1e-6, rtol=0.0, maxiter=10000,
         it.add_(1)
         pred.copy_((rr > tol2) & (it < maxiter))
 
-    loops.loop("cg", body, pred, maxiter)
+    loops.loop("cg", body, pred, maxiter, (x, r, p, rz, rr, it))
     res = torch.sqrt(rr)
     return SolveResult(x=x, iters=it, residual=res, converged=res <= tol)
 
@@ -209,7 +209,8 @@ def bicgstab(A, b, x0, M=None, atol=1e-6, rtol=0.0,
         it.add_(1)
         pred.copy_((rr > tol2) & (it < maxiter))
 
-    loops.loop("bicgstab", body, pred, maxiter)
+    loops.loop("bicgstab", body, pred, maxiter,
+               (x, r, p, v, rho, alpha, omega, rr, it))
     res = _norm(r, reduce)
     # the recurrence rr can disagree with the exact norm by cancellation
     # right at the tolerance boundary; either passing counts as converged

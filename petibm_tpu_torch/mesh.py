@@ -15,8 +15,7 @@ disappears: an (i, j, k) tuple indexes the array directly, and distribution
 is done by sharding the dense arrays over a ``jax.sharding.Mesh``.
 
 Copy of ``petibm_tpu/mesh.py`` (held equal to the original by
-tests/test_torch_host.py) on its numpy path only: the original's optional
-g++ ``native`` helper for ``stretch_grid`` has this numpy twin.
+tests/test_torch_host.py).
 """
 
 from __future__ import annotations
@@ -37,6 +36,12 @@ def stretch_grid(begin: float, end: float, n: int, ratio: float) -> np.ndarray:
     """
     if n <= 0:
         raise ValueError(f"sub-domain must have at least 1 cell, got {n}")
+    from . import native
+
+    if native.available():
+        out = native.stretch_grid(begin, end, n, ratio)
+        if out is not None:
+            return out
     if abs(ratio - 1.0) <= 1e-12:
         return np.full(n, (end - begin) / n, dtype=np.float64)
     h0 = (end - begin) * (ratio - 1.0) / (ratio**n - 1.0)

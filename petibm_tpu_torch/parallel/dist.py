@@ -250,9 +250,11 @@ class _Blocks:
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a decomposed field over the whole grid (one
         all-reduce of its sum and its point count)."""
+        # the count by a fill kernel, not a host copy: a CUDA graph
+        # captures it
         both = torch.stack([torch.sum(x),
-                            torch.tensor(float(x.numel()), dtype=x.dtype,
-                                         device=x.device)])
+                            torch.full((), float(x.numel()), dtype=x.dtype,
+                                       device=x.device)])
         both = self.allreduce_sum(both)
         return both[0] / both[1]
 

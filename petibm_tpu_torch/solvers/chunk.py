@@ -30,6 +30,24 @@ A capture launches nothing, so the kernel wrappers' host counters count
 no launch there (``_kernels.count_launch``), and a replay does not enter
 the wrappers: a graph captured while ``_kernels.count_on_device`` is on
 counts its replays' launches on the card.
+
+On a decomposed run (``solver.part``) every rank runs its own chunk of
+the same step, in lockstep through the step's collectives:
+
+- every loop predicate comes from a replicated reduction, so all ranks
+  take the same branch; the caps (the largest any rank's warm-up asks
+  for) and the overflow flags (any rank's) are agreed over the group, so
+  every rank captures the same collectives and all rerun together;
+- on the card, an IF node's body takes no NCCL collective
+  (``scripts/probe_nccl_graph_if.py``), so every copy of a loop body is
+  captured at the graph's top level and masked (``loops.masked``,
+  ``masks_loops``): the results are bit for bit those of skipped bodies,
+  at the cost of running every copy.  The warm-up step runs the step's
+  collectives first, so NCCL's communicators (the layer groups', the
+  point-to-point pairs') exist before the capture;
+- a replay enters no collective's Python, so the collective counters
+  of ``parallel/dist.py`` count none: the capture's count is one step's
+  (every copy runs in every replay) and a chunk adds it k times.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..linalg import loops
+from ..parallel import dist as pdist
 from ..utils import graphs
 
 #: the fewest copies of a loop's body a capture lays out
@@ -94,6 +113,14 @@ def scalar_stats(stats: dict) -> dict:
     return {k: v for k, v in stats.items() if v.dim() == 0}
 
 
+def masks_loops(solver) -> bool:
+    """Whether the chunk runs its loops' copies masked (``loops.masked``)
+    rather than under IF nodes (on the CPU: ``if bool(pred):``): a
+    decomposed run on the card, whose loop bodies hold NCCL
+    collectives."""
+    return solver.part is not None and solver.device.type == "cuda"
+
+
 def _write_back(static: list, new: list) -> None:
     """Copy the step's new state into the static buffers; an output that
     shares memory with another buffer is copied out first, so no copy
@@ -121,6 +148,21 @@ class ChunkRunner:
         self.graph = None
         #: the capture's numbers: seconds, nodes, memory, caps
         self.info: dict = {}
+        self.masked = masks_loops(solver)
+        #: one step's collectives (``parallel/dist.py`` COUNTERS), as the
+        #: capture counted them: a replay adds them on the card
+        self.step_comm: dict = {}
+
+    def _agree(self, values: list) -> list:
+        """The largest of every rank's ``values`` (ints) over the process
+        group (each rank's own without one): one host round trip."""
+        if self.solver.part is None or not values:
+            return list(values)
+        import torch.distributed as dist
+
+        t = torch.tensor(values, dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t.tolist()
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -142,9 +184,10 @@ class ChunkRunner:
         with self._side(), loops.use(driver):
             _, stats = self.solver._step_fn(state)
         self.sites = driver.sites
-        self.caps = [1 if s.kind == "cond"
-                     else min(s.maxiter, max(MIN_CAP, 2 * s.iterations))
-                     for s in self.sites]
+        self.caps = self._agree(
+            [1 if s.kind == "cond"
+             else min(s.maxiter, max(MIN_CAP, 2 * s.iterations))
+             for s in self.sites])
         # the rows outlive a replay: allocated before any capture (a
         # graph reuses the memory of what it freed before an allocation)
         self.layout = StatsLayout(stats)
@@ -187,12 +230,24 @@ class ChunkRunner:
             torch.cuda.reset_peak_memory_stats(dev)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             pool = torch.cuda.graph_pool_handle()
-            driver = loops.GuardedDriver(self.caps, graphs.IfNodes(dev),
-                                         graphs.capturing_graph_nodes)
+            driver = (loops.GuardedDriver(self.caps, loops.masked)
+                      if self.masked else
+                      loops.GuardedDriver(self.caps, graphs.IfNodes(dev),
+                                          graphs.capturing_graph_nodes))
+            before = pdist.counters()
             t0 = time.perf_counter()
             with graphs.capture(graph, pool, self.stream):
                 self._step_into_static(driver)
             t1 = time.perf_counter()
+            # what the capture counted is one replay's: taken back here,
+            # added per replay by ``run``
+            after = pdist.counters()
+            self.step_comm = {k: [after[k]["calls"] - v["calls"],
+                                  after[k]["bytes"] - v["bytes"]]
+                              for k, v in before.items()}
+            for k, (calls, nbytes) in self.step_comm.items():
+                pdist.COUNTERS[k][0] -= calls
+                pdist.COUNTERS[k][1] -= nbytes
             graph.instantiate()
             torch.cuda.synchronize(dev)
             top = graphs.graph_nodes(graph.raw_cuda_graph())
@@ -225,13 +280,17 @@ class ChunkRunner:
                     self.graph.replay()
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
+            for k, (calls, nbytes) in self.step_comm.items():
+                pdist.COUNTERS[k][0] += self.k * calls
+                pdist.COUNTERS[k][1] += self.k * nbytes
         else:
+            guard = loops.masked if self.masked else loops.cpu_guard
             for _ in range(self.k):
-                self._step_into_static(
-                    loops.GuardedDriver(self.caps, loops.cpu_guard))
+                self._step_into_static(loops.GuardedDriver(self.caps, guard))
         rows = self.rows.cpu().numpy()  # the chunk's one host read
         width = self.layout.width
-        overflow = rows[:, width:].any(axis=0)
+        overflow = np.array(self._agree(
+            rows[:, width:].any(axis=0).astype(np.int64).tolist()), bool)
         if overflow.any():
             self.caps = [min(site.maxiter, 2 * cap) if over else cap
                          for cap, site, over in zip(self.caps, self.sites,

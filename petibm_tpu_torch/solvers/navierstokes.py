@@ -42,8 +42,10 @@ tensors until the flush (``stats_history`` converts them in one read).
 ``stepsPerDispatch: k`` > 1 runs k steps a host round trip
 (``advance_chunk``; ``solvers/chunk.py``): on the card the step is
 captured once as a CUDA graph whose loops are capped unrolls of guarded
-bodies (CUDA IF nodes) and replayed k times, with one host read at the
-chunk's end; on the CPU the same guarded step runs k times.  ``run()``
+bodies (CUDA IF nodes; on a decomposed run, whose loop bodies hold NCCL
+collectives, every copy runs with its writes masked by the predicate)
+and replayed k times, with one host read at the chunk's end; on the CPU
+the same guarded step runs k times.  ``run()``
 cuts chunks at host events (save, restart, probe, the end) as the JAX
 package does (``_steps_to_host_event``, navierstokes.py:746-755,
 934-952).  A loop that overflows its cap is rerun through the host
@@ -81,14 +83,12 @@ package's gates, navierstokes.py:237, 266, 388, 411).  The delta engines
 contract and spread on the rank's block (``ibm/interp.py``) and the
 probes read their boxes and corners from the blocks that hold them
 (``io/probes.py``).  Output, iteration logs and restarts go through
-gather and scatter, and only rank 0 writes.  A decomposed run refuses
-``stepsPerDispatch`` > 1 (ROADMAP item 19b-6).
+gather and scatter, and only rank 0 writes.  Chunks of steps run on the
+ranks as on one device.
 
-Configurations this port does not cover raise ``NotImplementedError``:
-an ``mg.dtype`` that the V-cycle's kernels have no instances of, a moving
-body on the windowed delta engine under ``stepsPerDispatch`` > 1 (ROADMAP
-item 20c), and on a decomposed run a chunk of steps; nothing is
-substituted silently.
+The one configuration this port does not cover, an ``mg.dtype`` that the
+V-cycle's kernels have no instances of, raises ``NotImplementedError``
+(the JAX package refuses it too); nothing is substituted silently.
 """
 
 from __future__ import annotations
@@ -132,10 +132,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 #: the V-cycle's dtypes (``mg.dtype``): the solver's, or bfloat16, the
 #: mixed-precision V-cycle
 _MG_DTYPES = dict(_DTYPES, bfloat16=torch.bfloat16)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def check_supported(config: dict) -> None:
@@ -220,7 +216,6 @@ class NavierStokesSolver:
         self.part = None
         self.grid = self.mesh
         if self.sharding_mesh is not None:
-            self._check_decomposed(config)
             self.part = Partition(self.mesh, self.sharding_mesh)
             self.grid = LocalMesh(self.part)
         #: only rank 0 writes files
@@ -309,14 +304,6 @@ class NavierStokesSolver:
         """The full array of the rank's tensor of ``field`` (every rank
         takes part in a decomposed run)."""
         return x if self.part is None else self.part.gather(x, field)
-
-    def _check_decomposed(self, config: dict) -> None:
-        """Refuse what a decomposed run does not cover yet: a chunk of
-        steps (ROADMAP item 19b-6)."""
-        params = config.get("parameters", {})
-        if int(params.get("stepsPerDispatch", 1)) > 1:
-            raise _not_ported("stepsPerDispatch > 1 on a decomposed run",
-                              "ROADMAP item 19b-6")
 
     def _diag_layout(self, leaves) -> dict:
         """``extract_diagonal``'s keywords on the rank's block: its global

@@ -53,12 +53,6 @@ from .decoupledibpm import DecoupledIBPMSolver, blocks_apply
 class RigidKinematicsSolver(DecoupledIBPMSolver):
     def _extra_init(self, config: dict) -> None:
         super()._extra_init(config)
-        if self.delta.windowed and self.steps_per_dispatch > 1:
-            # each step reads its window box to the host, and the box
-            # sets tensor shapes: no graph holds that step
-            raise NotImplementedError(
-                "a moving body on the windowed delta engine under "
-                "stepsPerDispatch > 1 is not ported yet (ROADMAP item 20c)")
         self.coords0 = self._tensor(self.bodies.all_coords())
         self.state["t"] = self._tensor(self.t)
         self._kinematics = [node.get("kinematics")
@@ -104,7 +98,8 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
                 res.converged.copy_(
                     _norm(rhsf - blocks_apply(mats, df)) <= tol)
 
-            loops.cond(fallback, dense_solve)
+            loops.cond(fallback, dense_solve,
+                       (res.x, res.iters, res.residual, res.converged))
             res.fallback = fallback
             return res
 
@@ -176,7 +171,12 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
         return dict(state, t=state["t"] + self.dt)
 
     def _windows(self, state):
-        full = self.delta.windows(self.set_coordinates(state["t"]))
+        X = self.set_coordinates(state["t"])
+        # the windowed engine's box is the whole grid (JAX's span): the
+        # step reads nothing to the host and keeps its shapes, so a
+        # chunk of steps captures it
+        full = (self.delta.windows(X, whole=True) if self.delta.windowed
+                else self.delta.windows(X))
         return full, self.delta.local_windows(full)
 
     def _body_velocity(self, state):

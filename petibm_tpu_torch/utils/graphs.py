@@ -42,8 +42,9 @@ def _check(err: int, what: str) -> None:
 
 class IfNodes:
     """The guards of one capture (``capture``) on ``device``:
-    ``guard(pred)`` is a context manager whose block goes into a new IF
-    node's body."""
+    ``guard(pred, carries)`` is a context manager whose block goes into a
+    new IF node's body (``carries`` unread: a skipped body writes
+    nothing)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -63,7 +64,7 @@ class IfNodes:
         self._end.argtypes = [ctypes.c_void_p]
 
     @contextlib.contextmanager
-    def __call__(self, pred: torch.Tensor):
+    def __call__(self, pred: torch.Tensor, carries=()):
         if pred.dtype != torch.bool or not pred.is_cuda:
             raise ValueError("an IF node's predicate is a bool on the "
                              "capture's device")

@@ -19,7 +19,8 @@ doubles the caps; a divergence inside a chunk aborts at the flush naming
 its step (as JAX's does); the moving body (both branches of the force
 solve, ``fallbacks`` equal), the coupled IBPM, the pinned pressure and
 MG-CG (float32, and the bfloat16 V-cycle) chunked equal their single
-steps at tolerance 0; a windowed moving body with k > 1 raises; the
+steps at tolerance 0; a windowed moving body (walled and y-periodic)
+chunked equals its single steps and the JAX package's chunked run; the
 launches the engine reconstructs from its capture pass and the rows
 equal the wrappers' calls, and those the stats imply.
 
@@ -334,7 +335,7 @@ def test_guarded_cond_runs_where_pred_holds():
     for flag, want in ((False, 0.0), (True, 1.0), (False, 1.0)):
         driver = loops.GuardedDriver([1], loops.cpu_guard)
         with loops.use(driver):
-            loops.cond(torch.tensor(flag), lambda: x.add_(1.0))
+            loops.cond(torch.tensor(flag), lambda: x.add_(1.0), (x,))
         assert [s.kind for s in driver.sites] == ["cond"]
         assert torch.equal(x, torch.full((3,), want, dtype=torch.float64))
 
@@ -442,13 +443,71 @@ def test_more_solvers_chunked_equal_single(case, tmp_path):
         assert "cond" in [s.kind for s in chunked._chunk.sites]
 
 
-def test_windowed_moving_body_refuses_chunks(tmp_path):
-    cfg = moving(tmp_path, "w", deltaEngine="windowed", stepsPerDispatch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20c"):
-        RigidKinematicsSolver(cfg, device="cpu")
-    # one step a dispatch still runs it
-    RigidKinematicsSolver(moving(tmp_path, "w1", deltaEngine="windowed"),
-                          device="cpu").close()
+#: the windowed moving cylinders: the solves to 1e-12, so that the two
+#: packages part by rounding alone
+TIGHT = {"velocitySolver": {"type": "CPU", "atol": 1e-12},
+         "poissonSolver": {"type": "CPU", "atol": 1e-12},
+         "forcesSolver": {"type": "CPU", "atol": 1e-12, "max_it": 1000}}
+
+
+def moving_windowed(tmp_path, name, yperiodic=False, **params):
+    cfg = moving(tmp_path, name, deltaEngine="windowed", **TIGHT, **params)
+    if yperiodic:
+        for bc in cfg["flow"]["boundaryConditions"]:
+            if bc["location"] in ("yMinus", "yPlus"):
+                bc["u"] = ["PERIODIC", 0.0]
+                bc["v"] = ["PERIODIC", 0.0]
+    return cfg
+
+
+@pytest.mark.parametrize("yperiodic", [False, True])
+def test_windowed_moving_body_chunked(yperiodic, tmp_path):
+    """A moving body on the windowed delta engine in chunks of 4 (its
+    window box the whole grid, read by no step): the 32^2 oscillating
+    cylinder, walled and y-periodic, equals its single steps bit for bit
+    and is within 1e-12 of its fields' maxima of the JAX package's
+    chunked run (``lax.scan``), every ``_iters``/``_ok`` stat (and
+    ``fallback`` where the force solve has one) equal per step."""
+    import jax
+
+    from petibm_tpu.solvers.rigidkinematics import (
+        RigidKinematicsSolver as JaxSolver)
+
+    def make(tmp_path, name, **params):
+        return moving_windowed(tmp_path, name, yperiodic, **params)
+
+    single, chunked = chunked_pair(tmp_path, RigidKinematicsSolver, make)
+    assert chunked.delta.windowed and chunked._chunk is not None
+    assert chunked.chunk_overflows == 0
+    assert_same_run(single, chunked)
+    win = chunked._windows(chunked.state)[0]
+    assert all(w["lo"] == [0, 0] and w["hi"] == chunked.delta.n[c]
+               for c, w in win.items())
+
+    jsolver = JaxSolver(make(tmp_path, "jax", nt=8, nsave=8, nrestart=8,
+                             stepsPerDispatch=4))
+    assert jsolver.delta.windowed and jsolver._chunk_fn is not None
+    state, stats = jsolver.state, []
+    for _ in range(2):
+        state, s = jsolver._chunk_fn(state)
+        s = jax.device_get(s)
+        stats += [{k: v[j] for k, v in s.items() if np.ndim(v) == 1}
+                  for j in range(4)]
+    state = jax.device_get(state)
+    jsolver.close()
+    want = dict(state["q"], p=state["p"], f=state["f"])
+    got = dict(chunked.state["q"], p=chunked.state["p"],
+               f=chunked.state["f"])
+    for key, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
+                                   atol=1e-12 * np.abs(w).max(), err_msg=key)
+    keys = [k for k in stats[0]
+            if k.endswith(("_iters", "_ok")) or k == "fallback"]
+    assert "f_iters" in keys
+    for key in keys:
+        assert [h[key] for h in chunked.stats_history] == \
+            [s[key].item() for s in stats], key
 
 
 def _counting(monkeypatch, module, name):

@@ -347,6 +347,169 @@ def test_xdmf_copy_matches_original(tmp_path, dim):
     assert open(a).read() == open(b).read()
 
 
+#: the port's copies of host modules -> their originals (paths in the repo)
+COPIES = {
+    "petibm_tpu_torch/native/__init__.py": "petibm_tpu/native/__init__.py",
+    "petibm_tpu_torch/native/hostcore.cpp": "petibm_tpu/native/hostcore.cpp",
+    "petibm_tpu_torch/mesh.py": "petibm_tpu/mesh.py",
+    "petibm_tpu_torch/ibm/body.py": "petibm_tpu/ibm/body.py",
+}
+
+
+def _without_copy_note(text: str) -> str:
+    """A copy's text without the paragraph of its module docstring that
+    names its original ("Copy of ``petibm_tpu/...``")."""
+    at = text.find("\n\nCopy of ``petibm_tpu/")
+    if at < 0:
+        return text
+    end = text.index('"""', at)
+    return text[:at] + "\n" + text[end:]
+
+
+@pytest.mark.parametrize("copy", sorted(COPIES))
+def test_native_and_host_copies_equal_originals(copy):
+    """The native hostcore and the modules that call it are copies: each
+    equals its original but for the docstring paragraph that names it
+    (the C++ source byte for byte)."""
+    with open(os.path.join(REPO, copy)) as fh:
+        got = fh.read()
+    with open(os.path.join(REPO, COPIES[copy])) as fh:
+        want = fh.read()
+    if copy.endswith(".py"):
+        assert f"Copy of ``{COPIES[copy]}``" in got
+        got = _without_copy_note(got)
+    assert got == want
+
+
+@pytest.fixture(scope="module")
+def sphere_body(tmp_path_factory):
+    """A large 3D body: scripts/make_sphere_body.py's sphere at ds 0.01
+    (31 416 points), as the refined sphere of chip_smoke.py's phase 12
+    takes one."""
+    path = tmp_path_factory.mktemp("sphere") / "sphere.body"
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "scripts", "make_sphere_body.py"),
+                    str(path), "--ds", "0.01"], check=True,
+                   capture_output=True, timeout=120)
+    return path
+
+
+def _fallback(monkeypatch, *modules):
+    """The numpy fallbacks: ``native.available()`` false in ``modules``."""
+    for mod in modules:
+        monkeypatch.setattr(mod, "available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["stretch_grid", "read_lagrangian_points",
+                                   "write_lagrangian_points",
+                                   "search_cells"])
+def test_native_entries_match_jax_and_fallback(entry, tmp_path, sphere_body,
+                                              monkeypatch):
+    """Each hostcore entry of the port, called through the module that
+    uses it, gives the JAX package's native output bit for bit, and the
+    port's numpy fallback gives the same (a 2D body and the large 3D
+    sphere among the inputs); ``stretch_grid``'s fallback to 1e-12, as
+    the original's two paths agree."""
+    import petibm_tpu.native as jnative
+    import petibm_tpu_torch.native as tnative
+
+    assert tnative.available() and jnative.available()
+    small = tmp_path / "small.body"
+    _write_body(small, 37)
+    if entry == "stretch_grid":
+        args = [(0.0, 2.0, 10, 1.1), (-15.0, -0.6, 120, 0.975),
+                (0.6, 15.0, 210, 1.02), (0.0, 1.0, 7, 1.0)]
+
+        def run(mesh):
+            return [mesh.stretch_grid(*a) for a in args]
+
+        want = [tnative.stretch_grid(*a) for a in args]
+        for a, w in zip(args, want):
+            np.testing.assert_array_equal(jnative.stretch_grid(*a), w)
+    elif entry == "read_lagrangian_points":
+        def run(body):
+            return [body.read_lagrangian_points(str(p))
+                    for p in (small, sphere_body)]
+
+        want = [tnative.read_lagrangian_points(str(p))
+                for p in (small, sphere_body)]
+        assert want[1].shape == (31416, 3)
+    elif entry == "write_lagrangian_points":
+        coords = [tbody.read_lagrangian_points(str(p))
+                  for p in (small, sphere_body)]
+        counter = iter(range(100))
+
+        def run(body):
+            out = []
+            for c in coords:
+                path = tmp_path / f"w{next(counter)}.body"
+                body.write_lagrangian_points(str(path), c)
+                out.append(path.read_text())
+            return out
+
+        want = []
+        for c in coords:
+            path = tmp_path / f"n{next(counter)}.body"
+            assert tnative.write_lagrangian_points(str(path), c)
+            want.append(path.read_text())
+    else:
+        cfg = cylinder_config()
+        sphere = tbody.read_lagrangian_points(str(sphere_body))
+        pts = {2: np.random.default_rng(3).uniform(-14.9, 14.9, (500, 2)),
+               3: sphere * 0.9 + 0.5}
+        meshes = {2: cfg, 3: sphere_body_mesh()}
+
+        def run(body):
+            out = []
+            for dim in (2, 3):
+                mesh = (tmesh if body is tbody else jmesh).StaggeredMesh(
+                    meshes[dim])
+                out.append(body.SingleBody("b", pts[dim], dim)
+                           .mesh_idx(mesh))
+            return out
+
+        want = []
+        for dim in (2, 3):
+            mesh = tmesh.StaggeredMesh(meshes[dim])
+            want.append(np.stack(
+                [tnative.search_cells(mesh.coord(tmesh.Field.VERTEX, d),
+                                      pts[dim][:, d]) for d in range(dim)],
+                axis=1))
+    mod = tmesh if entry == "stretch_grid" else tbody
+    jmod = jmesh if entry == "stretch_grid" else jbody
+    got_native, got_jax = run(mod), run(jmod)
+    _fallback(monkeypatch, tnative)
+    got_numpy = run(mod)
+    for w, a, j, f in zip(want, got_native, got_jax, got_numpy):
+        if isinstance(w, str):
+            assert a == j == w
+            # the fallback formats as the native writer does
+            assert f == w
+        else:
+            np.testing.assert_array_equal(a, w)
+            np.testing.assert_array_equal(j, w)
+            if entry == "stretch_grid":
+                # numpy's and the C++ loop's products round apart in the
+                # last bit (the original's own two paths)
+                _close(f, w)
+            else:
+                np.testing.assert_array_equal(f, w)
+
+
+def sphere_body_mesh() -> dict:
+    """A 3D stretched box around the unit sphere of ``sphere_body``
+    (shifted by 0.5): 40 x 36 x 32 cells."""
+    return {"mesh": [
+        {"direction": d, "start": -1.0, "subDomains": [
+            {"end": 0.0, "cells": n // 2, "stretchRatio": 0.97},
+            {"end": 2.0, "cells": n - n // 2, "stretchRatio": 1.03}]}
+        for d, n in (("x", 40), ("y", 36), ("z", 32))],
+        "flow": {"nu": 0.01, "boundaryConditions": [
+            {"location": d + side, "u": ["DIRICHLET", 0.0],
+             "v": ["DIRICHLET", 0.0], "w": ["DIRICHLET", 0.0]}
+            for d in "xyz" for side in ("Minus", "Plus")]}}
+
+
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import petibm_tpu_torch, petibm_tpu_torch.solvers.decoupledibpm, "
@@ -366,7 +529,9 @@ def test_port_imports_no_jax():
             "petibm_tpu_torch.cli.vorticity, petibm_tpu_torch.cli.common, "
             "petibm_tpu_torch.utils.profiling, petibm_tpu_torch.parallel, "
             "petibm_tpu_torch.parallel.dist, "
-            "petibm_tpu_torch.parallel.multihost\n"
+            "petibm_tpu_torch.parallel.multihost, "
+            "petibm_tpu_torch.native, petibm_tpu_torch.mesh, "
+            "petibm_tpu_torch.ibm.body\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'petibm_tpu.')) or m == 'petibm_tpu')\n"
             "assert not bad, bad\n"

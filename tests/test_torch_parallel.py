@@ -3,12 +3,14 @@ processes over gloo, held to the JAX package.
 
 Twins of ``tests/test_parallel.py`` and ``tests/test_multihost.py``: the
 ranks are processes of this file (``python test_torch_parallel.py <job>
-<rank> <world> <port> <out>``, one torch thread each), started once per
-job by a module fixture with a time limit, so a hang fails its tests and
-not the suite.  Rank 0 writes what the ranks computed (fields gathered,
-stats per step, the layout and FDM checks) to ``<out>``; the tests read
-it and run the JAX package's single-device solver in this process on the
-same configurations.
+<rank> <world> <port> <out>``, one torch thread each), started once by a
+module fixture (``RankJob``).  Rank 0 publishes each result in ``<out>``
+as soon as it is known (the layout and FDM checks, then each case's
+fields gathered and stats per step), and each test waits for the one file
+it reads, so a slow or failed case fails its own tests.  The job's time
+limit guards against a hang, not against a slow machine.  The tests run
+the JAX package's single-device solver in this process on the same
+configurations.
 
 - job ``four`` (4 ranks): ``mesh_from_config`` (a 3-axis shape among
   them); scatter, gather and the
@@ -18,24 +20,25 @@ same configurations.
   sizes, FFTs on decomposed axes); the cavity, the 2D cylinder, the 3D
   sphere, a 16^3 TGV (BiCGStab + Jacobi momentum solve), and the pinned
   pressure on the cavity and a periodic TGV2D, on [2, 2];
-- job ``two`` (2 ranks): what ROADMAP item 19b leaves out
-  (``stepsPerDispatch`` > 1, item 19b-6) raises ``NotImplementedError``
-  naming it (the V-cycle, the coupled IBPM and the moving body run
-  decomposed: ``test_torch_parallel_mg.py``; the 3-axis mesh,
-  ``fdm.repartition: false``, the windowed engine and the probes:
-  ``test_torch_parallel_3axis.py``);
+- the V-cycle, the coupled IBPM and the moving body decomposed:
+  ``test_torch_parallel_mg.py``; the 3-axis mesh, ``fdm.repartition:
+  false``, the windowed engine and the probes:
+  ``test_torch_parallel_3axis.py``; chunks of steps
+  (``stepsPerDispatch``) on the ranks: ``test_torch_parallel_chunked.py``;
 - the navierstokes CLI under ``torch.distributed.run`` on 2 processes
   against a single-process run: logs and rank 0's snapshot.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -48,8 +51,12 @@ if REPO not in sys.path:
 
 SHARDING = {"platform": "cpu"}
 MESH_SHAPES = ([2, 2], [1, 4], [4, 1])
-#: per-job time limits (s): a hang fails the job's tests
-TIMEOUT = {"four": 240, "two": 120}
+#: the job's time limit (s from its start): a guard against a hang, at
+#: least 4x the job's run on an idle machine (CHANGES.md), not a speed check
+TIMEOUT = 240
+#: how long a rank waits in one collective before it fails with an error
+#: (``init_process_group``'s timeout): a deadlock ends the ranks
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=180)
 
 
 # --- configurations (twins of tests/test_parallel.py's) ---------------------
@@ -294,21 +301,6 @@ FDM_GRIDS = {
                         "xyz"),
 }
 
-#: what a decomposed run still refuses: a chunk of steps (ROADMAP item
-#: 19b-6); the 3-axis mesh, ``fdm.repartition: false``, the windowed
-#: engine and the probes run (``test_torch_parallel_3axis.py``)
-REFUSED = {
-    "steps_per_dispatch": "navierstokes.NavierStokesSolver",
-}
-
-
-def _refused_config(name, tmpdir):
-    cfg = cavity_config(tmpdir, sharding=dict(SHARDING, nDevices=2))
-    if name == "steps_per_dispatch":
-        cfg["parameters"]["stepsPerDispatch"] = 2
-    return cfg
-
-
 # --- the rank processes ----------------------------------------------------
 def _layout_checks(part, mesh, seed):
     """Scatter -> gather round trips and the halo of every field and
@@ -454,38 +446,47 @@ def _job_four(rank, out):
             for solve, err in _fdm_checks(Partition(mesh, pm), mesh, cfg,
                                           seed=11).items():
                 res["fdm"][f"{tag}-{gname}-{solve}"] = err
-    arrays = {name: _run_case(name, os.path.join(out, f"{name}-{rank}"))
-              for name in CASES}
     if rank == 0:
-        with open(os.path.join(out, "four.json"), "w") as fh:
-            json.dump(res, fh)
-        for name, arr in arrays.items():
-            np.savez(os.path.join(out, f"{name}.npz"), **arr)
+        publish_json(out, "four.json", res)
+    for name in CASES:
+        arr = _run_case(name, os.path.join(out, f"{name}-{rank}"))
+        if rank == 0:
+            publish_npz(out, f"{name}.npz", arr)
 
 
-def _job_two(rank, out):
-    res = {}
-    for name, cls in REFUSED.items():
-        try:
-            _solver_class(cls, "petibm_tpu_torch")(
-                _refused_config(name, os.path.join(out, f"{name}-{rank}")),
-                device="cpu")
-            res[name] = ["no error", ""]
-        except Exception as err:  # the test reads what was raised
-            res[name] = [type(err).__name__, str(err)]
-    with open(os.path.join(out, f"two-{rank}.json"), "w") as fh:
-        json.dump(res, fh)
+def init_ranks(rank: int, world: int, port: int) -> None:
+    """Join the job's gloo group: one torch thread, and a collective that
+    waits ``COLLECTIVE_TIMEOUT`` ends the rank with an error."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=COLLECTIVE_TIMEOUT)
+
+
+def publish_json(out, name: str, obj) -> None:
+    """Write ``obj`` as ``<out>/<name>`` under a temporary name first, so
+    a reader never sees it half written."""
+    tmp = os.path.join(str(out), f".{name}.tmp")
+    with open(tmp, "w") as fh:
+        json.dump(obj, fh)
+    os.replace(tmp, os.path.join(str(out), name))
+
+
+def publish_npz(out, name: str, arrays: dict) -> None:
+    """``np.savez`` of ``arrays`` as ``<out>/<name>``, as ``publish_json``."""
+    tmp = os.path.join(str(out), f".{name}.tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, os.path.join(str(out), name))
 
 
 def _rank_main(argv) -> None:
     import torch.distributed as dist
 
     job, rank, world, port, out = argv
-    rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    {"four": _job_four, "two": _job_two}[job](rank, out)
+    init_ranks(int(rank), int(world), int(port))
+    {"four": _job_four}[job](int(rank), out)
     dist.destroy_process_group()
 
 
@@ -504,20 +505,10 @@ def _env() -> dict:
     return env
 
 
-def _launch(job: str, world: int, out) -> None:
-    _launch_job([os.path.abspath(__file__), job], world, out, TIMEOUT[job])
-
-
-def _launch_job(script: list, world: int, out, timeout: float) -> None:
-    """Run ``python <script...> <rank> <world> <port> <out>`` as ``world``
-    rank processes; a rank that fails or outlives ``timeout`` seconds
-    fails the caller."""
-    _wait_job(_start_job(script, world, out), timeout)
-
-
 def _start_job(script: list, world: int, out) -> list:
-    """Start the rank processes of ``_launch_job`` (each one's output in
-    ``<out>/rank<r>.log``) and return them without waiting."""
+    """Start ``python <script...> <rank> <world> <port> <out>`` as
+    ``world`` rank processes (each one's output in ``<out>/rank<r>.log``)
+    and return them without waiting."""
     port = _free_port()
     procs = []
     for r in range(world):
@@ -529,52 +520,96 @@ def _start_job(script: list, world: int, out) -> list:
     return procs
 
 
-def _wait_job(procs: list, timeout: float) -> None:
-    """Wait for the rank processes of ``_start_job`` at most ``timeout``
-    seconds in all; a rank that failed or is still running fails the
-    caller (and is stopped)."""
-    import time
+def _log_tail(out, rank: int) -> str:
+    with open(os.path.join(str(out), f"rank{rank}.log")) as fh:
+        return fh.read()[-3000:]
 
-    errors, deadline = [], time.monotonic() + timeout
-    try:
-        for r, p in enumerate(procs):
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
-            except subprocess.TimeoutExpired:
-                errors.append(f"rank {r}: no end within {timeout} s")
-                continue
-            if p.returncode != 0:
-                with open(os.path.join(p.args[-1], f"rank{r}.log")) as fh:
-                    errors.append(f"rank {r} exited {p.returncode}:\n"
-                                  f"{fh.read()[-3000:]}")
-    finally:
-        for p in procs:
+
+class RankJob:
+    """A job's rank processes, started now (``_start_job``).  ``path(name)``
+    waits for the file ``name`` that rank 0 publishes in ``out``; it fails
+    with the log of the rank that died where a rank exits with an error,
+    with rank 0's log where the ranks end without the file, and with every
+    rank's log where the job outlives ``timeout`` seconds from its start
+    (the ranks are then stopped).  A file published before a failure
+    stays readable."""
+
+    def __init__(self, script: list, world: int, out, timeout: float):
+        self.out = out
+        self.timeout = timeout
+        self.deadline = time.monotonic() + timeout
+        self.procs = _start_job(script, world, out)
+
+    def check(self, name: str) -> None:
+        """Fail now where the file ``name`` is not there and a rank has
+        failed or the job has outlived its time limit: a test calls it
+        before its own long work, so a dead job costs the tests that read
+        it no more time."""
+        if (self.out / name).exists():
+            return
+        codes = [p.poll() for p in self.procs]
+        failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+        if failed:
+            self.stop()
+            raise AssertionError("\n".join(
+                f"rank {r} exited {codes[r]}:\n{_log_tail(self.out, r)}"
+                for r in failed))
+        if time.monotonic() > self.deadline:
+            self.stop()
+            raise AssertionError(
+                f"no {name} within {self.timeout} s of the job's start "
+                "(a hang):\n" + "\n".join(
+                    f"rank {r}:\n{_log_tail(self.out, r)}"
+                    for r in range(len(self.procs))))
+
+    def path(self, name: str):
+        path = self.out / name
+        while not path.exists():
+            self.check(name)
+            if (all(p.poll() == 0 for p in self.procs)
+                    and not path.exists()):
+                raise AssertionError(f"the ranks ended without {name}:\n"
+                                     f"{_log_tail(self.out, 0)}")
+            time.sleep(0.2)
+        return path
+
+    def json(self, name: str) -> dict:
+        with open(self.path(name)) as fh:
+            return json.load(fh)
+
+    def npz(self, name: str) -> dict:
+        return dict(np.load(self.path(name)))
+
+    def stop(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert not errors, "\n".join(errors)
+
+
+class _Four:
+    """Job ``four``'s results as the tests read them: ``four[key]`` from
+    ``four.json``, ``four.case(name)`` from the case's ``.npz``."""
+
+    def __init__(self, job: RankJob):
+        self.job = job
+        self._res = None
+
+    def __getitem__(self, key):
+        if self._res is None:
+            self._res = self.job.json("four.json")
+        return self._res[key]
+
+    def case(self, name: str) -> dict:
+        return self.job.npz(f"{name}.npz")
 
 
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
-    out = tmp_path_factory.mktemp("four_ranks")
-    _launch("four", 4, out)
-    with open(out / "four.json") as fh:
-        res = json.load(fh)
-    res["cases"] = {name: dict(np.load(out / f"{name}.npz"))
-                    for name in CASES}
-    return res
-
-
-@pytest.fixture(scope="module")
-def two(tmp_path_factory):
-    out = tmp_path_factory.mktemp("two_ranks")
-    _launch("two", 2, out)
-    res = []
-    for r in range(2):
-        with open(out / f"two-{r}.json") as fh:
-            res.append(json.load(fh))
-    return res
+    job = RankJob([os.path.abspath(__file__), "four"], 4,
+                  tmp_path_factory.mktemp("four_ranks"), TIMEOUT)
+    yield _Four(job)
+    job.stop()
 
 
 def test_mesh_from_config_single_process():
@@ -650,8 +685,9 @@ def test_decomposed_run_matches_jax_single(four, tmp_path, name):
     every step, and the step really exchanged halos, reduced and
     repartitioned."""
     _, _, steps, atol = CASES[name]
-    got = four["cases"][name]
+    four.job.check(f"{name}.npz")
     state, stats = _run_jax(name, tmp_path / "jax")
+    got = four.case(name)
     for key, want in state["q"].items():
         np.testing.assert_allclose(got[f"q_{key}"], np.asarray(want),
                                    rtol=0, atol=atol, err_msg=key)
@@ -669,18 +705,6 @@ def test_decomposed_run_matches_jax_single(four, tmp_path, name):
                      got["comm"]))
     assert calls["halo"] > 0 and calls["allreduce"] > 0
     assert calls["alltoall"] > 0 and calls["alltoall"] % 4 == 0
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_decomposed_refusals_name_item_19b(two, name):
-    """Under a 2-rank group each configuration ROADMAP item 19b leaves out
-    (``stepsPerDispatch`` > 1: item 19b-6) raises NotImplementedError
-    naming it, on both ranks: nothing runs on one rank or on the CPU by
-    itself."""
-    for res in two:
-        kind, msg = res[name]
-        assert kind == "NotImplementedError", (name, kind, msg)
-        assert "ROADMAP item 19b-6" in msg, msg
 
 
 def _write_case(directory, cfg):

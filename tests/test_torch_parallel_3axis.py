@@ -5,10 +5,11 @@ the port, on CPU processes over gloo, held to the JAX package.
 The ranks are processes of this file (``python
 test_torch_parallel_3axis.py <job> <rank> <world> <port> <out>``, one
 torch thread each).  Three jobs start together when the module's first
-test asks for them, each with a time limit, as in
-``test_torch_parallel.py``; rank 0 of each writes what the ranks
-computed to ``<out>``, and the tests run the JAX package in this process
-on the same configurations.  All in float64.
+test asks for them (``test_torch_parallel.RankJob``); rank 0 of each
+publishes what the ranks computed in ``<out>`` as each result is known
+(the checks, then each case), and each test waits for the file it reads.
+The tests run the JAX package in this process on the same
+configurations.  All in float64.
 
 - job ``eight`` ([2, 2, 2]): ``mesh_from_config`` and its errors; the
   scatter/gather round trips, face segments and halos of every field
@@ -47,12 +48,13 @@ for path in (REPO, HERE):
         sys.path.insert(0, path)
 
 from test_torch_parallel import (FDM_GRIDS, LAYOUT_GRIDS,  # noqa: E402
-                                 SHARDING, _fdm_checks, _grid,
-                                 _layout_checks, _start_job, _wait_job,
-                                 cavity_config, cylinder_config,
-                                 sphere_config)
+                                 SHARDING, RankJob, _fdm_checks, _grid,
+                                 _layout_checks, cavity_config,
+                                 cylinder_config, init_ranks, publish_json,
+                                 publish_npz, sphere_config)
 
-#: per-job time limits (s), from the jobs' start
+#: the jobs' time limit (s from their start): a guard against a hang, at
+#: least 4x the jobs' run on an idle machine (CHANGES.md)
 TIMEOUT = 200
 JOBS = {"eight": 8, "two": 2, "four": 4}
 #: the layout checks' meshes, per job
@@ -334,74 +336,62 @@ def _job(job, rank, out):
         shape = [2, 2, 2] if job == "eight" else [2, 1, 1]
         res["vcycle"] = _vcycle_checks(
             mesh_from_config(dict(SHARDING, shape=shape)), calls)
-    arrays = {name: _run_case(name, os.path.join(out, f"{name}-{rank}"),
-                              calls)
-              for name, spec in CASES.items() if spec[0] == job}
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, {
-        "vcycle": res["vcycle"],
-        "runs": {name: {"calls": arr["calls"].tolist(),
-                        "block": arr["block"].tolist(),
-                        "comm": arr["comm"].tolist()}
-                 for name, arr in arrays.items()}})
+    dist.all_gather_object(every, res["vcycle"])
     if rank == 0:
         res["ranks"] = every
-        with open(os.path.join(out, f"{job}.json"), "w") as fh:
-            json.dump(res, fh)
-        for name, arr in arrays.items():
-            np.savez(os.path.join(out, f"{name}.npz"), **arr)
+        publish_json(out, f"{job}.json", res)
+    for name, spec in CASES.items():
+        if spec[0] != job:
+            continue
+        arr = _run_case(name, os.path.join(out, f"{name}-{rank}"), calls)
+        dist.all_gather_object(every, {"calls": arr["calls"].tolist(),
+                                       "block": arr["block"].tolist(),
+                                       "comm": arr["comm"].tolist()})
+        if rank == 0:
+            arr["ranks"] = np.array(json.dumps(every))
+            publish_npz(out, f"{name}.npz", arr)
 
 
 def _rank_main(argv) -> None:
     import torch.distributed as dist
 
     job, rank, world, port, out = argv
-    rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    _job(job, rank, out)
+    init_ranks(int(rank), int(world), int(port))
+    _job(job, int(rank), out)
     dist.destroy_process_group()
 
 
 # --- the tests' side ---------------------------------------------------------
 class _Jobs:
-    """The three rank jobs, started together when the module's first test
-    asks for them; ``result(job)`` waits for one (at most ``TIMEOUT`` s
-    from the start) and reads what its rank 0 wrote."""
+    """The three rank jobs (``RankJob``), started together when the
+    module's first test asks for them; ``result(job)`` reads a job's
+    checks, ``case(name)`` a case's arrays with ``ranks``, every rank's
+    calls, block and collectives."""
 
     def __init__(self, root):
-        import time
-
-        self.deadline = time.monotonic() + TIMEOUT
-        self.out, self.procs, self.res = {}, {}, {}
+        self.jobs, self.res = {}, {}
         for job, world in JOBS.items():
-            self.out[job] = root / job
-            self.out[job].mkdir()
-            self.procs[job] = _start_job([os.path.abspath(__file__), job],
-                                         world, self.out[job])
+            (root / job).mkdir()
+            self.jobs[job] = RankJob([os.path.abspath(__file__), job], world,
+                                     root / job, TIMEOUT)
 
     def result(self, job: str) -> dict:
-        import time
-
         if job not in self.res:
-            _wait_job(self.procs[job],
-                      max(self.deadline - time.monotonic(), 1.0))
-            with open(self.out[job] / f"{job}.json") as fh:
-                res = json.load(fh)
-            res["cases"] = {name: dict(np.load(self.out[job] / f"{name}.npz"))
-                            for name, spec in CASES.items()
-                            if spec[0] == job}
-            res["dir"] = self.out[job]
-            self.res[job] = res
+            self.res[job] = self.jobs[job].json(f"{job}.json")
         return self.res[job]
 
+    def case(self, name: str) -> dict:
+        got = self.jobs[CASES[name][0]].npz(f"{name}.npz")
+        got["ranks"] = json.loads(str(got["ranks"]))
+        return got
+
+    def dir(self, job: str):
+        return self.jobs[job].out
+
     def stop(self) -> None:
-        for procs in self.procs.values():
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        for job in self.jobs.values():
+            job.stop()
 
 
 @pytest.fixture(scope="module")
@@ -458,7 +448,7 @@ def test_zcut_vcycle_matches_single(jobs, job, grid):
     z-periodic one on every rank."""
     res = jobs.result(job)
     for rank, every in enumerate(res["ranks"]):
-        ref = every["vcycle"][grid]
+        ref = every[grid]
         assert ref["err"] <= 1e-12, (rank, ref["err"])
         assert ref["ndec"] >= 2 and all(ref["z_cut"]), ref
         assert ref["block"] in ref["seen"], ref
@@ -516,9 +506,9 @@ def test_decomposed_run_matches_jax(jobs, tmp_path, name):
     [2, 2, 2] sphere's iterations also equal the JAX package's own
     [2, 2, 2] run's."""
     job, shape, _, _, _, atol = CASES[name]
+    jobs.jobs[job].check(f"{name}.npz")
     state, stats, _ = _run_jax(name, tmp_path / "single")
-    res = jobs.result(job)
-    got = res["cases"][name]
+    got = jobs.case(name)
     for key, want in state["q"].items():
         np.testing.assert_allclose(got[f"q_{key}"], np.asarray(want),
                                    rtol=0, atol=atol, err_msg=key)
@@ -534,8 +524,8 @@ def test_decomposed_run_matches_jax(jobs, tmp_path, name):
         np.testing.assert_array_equal(got[f"stat_{key}"],
                                       [s[key] for s in stats], err_msg=key)
     want_calls = _implied_calls(got)
-    for rank, every in enumerate(res["ranks"]):
-        assert every["runs"][name]["calls"] == want_calls, (rank, name)
+    for rank, every in enumerate(got["ranks"]):
+        assert every["calls"] == want_calls, (rank, name)
     if name == "sphere_2x2x2":
         _, sharded, _ = _run_jax(name, tmp_path / "sharded",
                                  dict(SHARDING, shape=[2, 2, 2]))
@@ -556,16 +546,15 @@ def test_fdm_core_follows_mesh_and_repartition(jobs):
     repartition the four-all-to-all core (four all-to-alls a solve, no
     reduce_scatter): by the core's type and the collectives of each
     run."""
-    four, eight = jobs.result("four"), jobs.result("eight")
-    for res, name in ((four, "cavity_2x1x2"), (four, "cavity_norepart"),
-                      (four, "cylinder_norepart"), (eight, "sphere_2x2x2")):
-        got = res["cases"][name]
+    for name in ("cavity_2x1x2", "cavity_norepart", "cylinder_norepart",
+                 "sphere_2x2x2"):
+        got = jobs.case(name)
         assert str(got["core"]) == "_ContractionCore", name
         comm = _comm(got)
         assert comm["alltoall"][0] == 0 and comm["reduce_scatter"][0] > 0, \
             (name, comm)
     for name in ("cylinder_windowed", "cavity_probes"):
-        got = four["cases"][name]
+        got = jobs.case(name)
         assert str(got["core"]) == "_ShardedTransformCore", name
         comm = _comm(got)
         assert comm["reduce_scatter"][0] == 0, (name, comm)
@@ -578,13 +567,12 @@ def test_no_whole_field_gather_for_probes_or_windowed(jobs):
     step gathers nothing) or for a probe (each monitor call of the four
     probes sends the volume boxes' parts alone: two gathers, fewer bytes
     than the two boxes hold, and fewer than one pressure block)."""
-    four = jobs.result("four")
     for name in ("cylinder_windowed", "oscillating_windowed"):
-        for rank, every in enumerate(four["ranks"]):
-            comm = dict(zip(sorted(four["cases"][name]["comm_keys"]),
-                            every["runs"][name]["comm"]))
+        got = jobs.case(name)
+        for rank, every in enumerate(got["ranks"]):
+            comm = dict(zip(sorted(got["comm_keys"]), every["comm"]))
             assert comm["gather"][0] == 0, (name, rank, comm)
-    got = four["cases"]["cavity_probes"]
+    got = jobs.case("cavity_probes")
     seen = got["probe_gather"]
     assert len(seen) == CASES["cavity_probes"][4]
     calls, nbytes = (int(v) for v in seen.max(axis=0))
@@ -600,14 +588,16 @@ def test_decomposed_probe_files_match_jax(jobs, tmp_path):
     within 1e-12 of the file's largest."""
     from test_torch_probes import assert_probe_files_match
 
+    jobs.jobs["four"].check("cavity_probes.npz")
     _, _, jax_out = _run_jax("cavity_probes", tmp_path / "single")
-    four = jobs.result("four")
-    rank0 = four["dir"] / "cavity_probes-0" / "output"
+    got = jobs.case("cavity_probes")  # the run is done
+    assert "p" in got
+    rank0 = jobs.dir("four") / "cavity_probes-0" / "output"
     for probe in PROBES:
         assert_probe_files_match(rank0 / probe["path"],
                                  os.path.join(jax_out, probe["path"]))
     for rank in range(1, JOBS["four"]):
-        other = four["dir"] / f"cavity_probes-{rank}" / "output"
+        other = jobs.dir("four") / f"cavity_probes-{rank}" / "output"
         assert not any((other / p["path"]).exists() for p in PROBES)
 
 

@@ -4,9 +4,11 @@ package.
 
 The ranks are processes of this file (``python test_torch_parallel_mg.py
 <rank> <world> <port> <out>``, one torch thread each), started once by a
-module fixture with a time limit, as in ``test_torch_parallel.py``.  Rank
-0 writes what the ranks computed to ``<out>``; the tests run the JAX
-package in this process on the same configurations.
+module fixture (``test_torch_parallel.RankJob``).  Rank 0 publishes what
+the ranks computed in ``<out>`` as each result is known: the V-cycle
+checks, the dot checks, then each case; each test waits for the file it
+reads.  The tests run the JAX package in this process on the same
+configurations.
 
 (a) One decomposed V-cycle (``PoissonMG.set_mesh``) against the
     single-rank one to 1e-12 in float64, on [2, 2], [1, 4] and [4, 1]:
@@ -36,7 +38,6 @@ package in this process on the same configurations.
 
 from __future__ import annotations
 
-import json
 import math
 import os
 import sys
@@ -51,12 +52,14 @@ for path in (REPO, HERE):
     if path not in sys.path:
         sys.path.insert(0, path)
 
-from test_torch_parallel import (MESH_SHAPES, SHARDING, _grid,  # noqa: E402
-                                 _start_job, _wait_job, cavity_config,
-                                 cylinder_config, tgv_config)
+from test_torch_parallel import (MESH_SHAPES, SHARDING, RankJob,  # noqa: E402
+                                 _grid, cavity_config, cylinder_config,
+                                 init_ranks, publish_json, publish_npz,
+                                 tgv_config)
 
-#: the rank job's time limit (s)
-TIMEOUT = 300
+#: the rank job's time limit (s from its start): a guard against a hang,
+#: at least 4x the job's run on an idle machine (CHANGES.md)
+TIMEOUT = 520
 #: the default consolidation threshold (JAX navierstokes.py:523-524)
 CONSOLIDATE = 4096
 
@@ -328,76 +331,46 @@ def _job(rank, out):
 
     from petibm_tpu_torch.parallel import ProcessMesh
 
-    res = {"vcycle": {}, "dot": {}}
-    for shape in MESH_SHAPES:
-        pm = ProcessMesh(shape)
-        tag = f"{shape[0]}x{shape[1]}"
-        res["vcycle"][tag] = _vcycle_checks(pm, seed=3)
-        res["dot"][tag] = _dot_check(pm)
-    calls = _count_calls()
-    arrays = {}
-    for name in CASES:
-        arrays[name] = _run_case(name, os.path.join(out, f"{name}-{rank}"),
-                                 calls)
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, {"vcycle": res["vcycle"], "calls": {
-        name: arr["calls"].tolist() for name, arr in arrays.items()}})
+    vcycle, dot = {}, {}
+    for shape in MESH_SHAPES:
+        vcycle[f"{shape[0]}x{shape[1]}"] = _vcycle_checks(
+            ProcessMesh(shape), seed=3)
+    dist.all_gather_object(every, vcycle)
     if rank == 0:
-        res["ranks"] = every
-        with open(os.path.join(out, "mg.json"), "w") as fh:
-            json.dump(res, fh)
-        for name, arr in arrays.items():
-            np.savez(os.path.join(out, f"{name}.npz"), **arr)
+        publish_json(out, "vcycle.json", {"ranks": every})
+    for shape in MESH_SHAPES:
+        dot[f"{shape[0]}x{shape[1]}"] = _dot_check(ProcessMesh(shape))
+    if rank == 0:
+        publish_json(out, "dot.json", dot)
+    calls = _count_calls()
+    for name in CASES:
+        arr = _run_case(name, os.path.join(out, f"{name}-{rank}"), calls)
+        dist.all_gather_object(every, arr["calls"].tolist())
+        if rank == 0:
+            arr["calls"] = np.array(every)
+            publish_npz(out, f"{name}.npz", arr)
 
 
 def _rank_main(argv) -> None:
     import torch.distributed as dist
 
     rank, world, port, out = argv
-    rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    _job(rank, out)
+    init_ranks(int(rank), int(world), int(port))
+    _job(int(rank), out)
     dist.destroy_process_group()
 
 
 # --- the tests' side ---------------------------------------------------------
-class _Ranks:
-    """The rank job, started when the module's first test asks for it;
-    ``result()`` waits for it (at most ``TIMEOUT`` s from the start) and
-    reads what rank 0 wrote.  The run tests take their JAX references
-    before they wait, so those runs overlap the ranks'."""
-
-    def __init__(self, out):
-        import time
-
-        self.out = out
-        self.deadline = time.monotonic() + TIMEOUT
-        self.procs = _start_job([os.path.abspath(__file__)], 4, out)
-        self.res = None
-
-    def result(self) -> dict:
-        import time
-
-        if self.res is None:
-            _wait_job(self.procs, max(self.deadline - time.monotonic(), 1.0))
-            with open(self.out / "mg.json") as fh:
-                res = json.load(fh)
-            res["cases"] = {name: dict(np.load(self.out / f"{name}.npz"))
-                            for name in CASES}
-            self.res = res
-        return self.res
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    job = _Ranks(tmp_path_factory.mktemp("mg_ranks"))
+    """The rank job, started when the module's first test asks for it:
+    before the run tests take their JAX references, so those overlap the
+    ranks' runs."""
+    job = RankJob([os.path.abspath(__file__)], 4,
+                  tmp_path_factory.mktemp("mg_ranks"), TIMEOUT)
     yield job
-    for p in job.procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    job.stop()
 
 
 def _run_jax(name, tmpdir, sharded: bool):
@@ -447,11 +420,11 @@ def test_decomposed_run_matches_jax(ranks, tmp_path, name):
     on every rank the sweep wrappers were called as the stats imply and
     K1-K3's never."""
     _, _, steps, bounds = CASES[name]
+    ranks.check(f"{name}.npz")
     state, stats = _run_jax(name, tmp_path / "single", sharded=False)
     if bounds["iters"] == "sharded":
         _, stats = _run_jax(name, tmp_path / "sharded", sharded=True)
-    res = ranks.result()
-    got = res["cases"][name]
+    got = ranks.npz(f"{name}.npz")
     fields = {f"q_{k}": v for k, v in state["q"].items()}
     fields["p"] = state["p"]
     for key, want in fields.items():
@@ -480,8 +453,8 @@ def test_decomposed_run_matches_jax(ranks, tmp_path, name):
             np.testing.assert_array_equal(got[f"stat_{key}"], want,
                                           err_msg=key)
     want_calls = _implied_calls(got)
-    for rank, every in enumerate(res["ranks"]):
-        assert every["calls"][name] == want_calls, (rank, name)
+    for rank, calls in enumerate(got["calls"]):
+        assert calls.tolist() == want_calls, (rank, name)
     if name.endswith("_c16"):
         # the fine levels really decompose
         assert int(got["sweeps"][2]) >= 2, name
@@ -516,11 +489,11 @@ def test_decomposed_vcycle_matches_single(ranks, shape, grid):
     holds its block of each level above the threshold whose blocks and
     pencils hold lines, and the whole level below; with no threshold at
     least two 2D levels stay decomposed."""
-    res = ranks.result()
+    every = ranks.json("vcycle.json")["ranks"]
     dy, dx = (int(v) for v in shape.split("x"))
     for cb in (0, CONSOLIDATE):
         key = f"{grid}-{cb}"
-        ref = res["vcycle"][shape][key]
+        ref = every[0][shape][key]
         assert ref["err"] <= 1e-12, (key, ref["err"])
         levels = ref["levels"]
         dim = len(levels[0])
@@ -529,8 +502,8 @@ def test_decomposed_vcycle_matches_single(ranks, shape, grid):
         assert ref["ndec"] == sum(b is not None for b in blocks)
         if cb == 0 and dim == 2 and shape == "2x2":
             assert ref["ndec"] >= 2
-        for rank, every in enumerate(res["ranks"]):
-            seen = every["vcycle"][shape][key]["seen"]
+        for rank, res in enumerate(every):
+            seen = res[shape][key]["seen"]
             iy, ix = divmod(rank, dx)
             coord = [ix, iy, 0][:dim]
             for lvl, full in enumerate(levels):
@@ -570,7 +543,7 @@ def test_composite_dot_counts_replicated_leaves_once():
 def test_decomposed_composite_dot_matches_single(ranks, shape):
     """(c) The {f, p} dot on the ranks (the forces replicated, the pressure
     decomposed) equals the single-rank dot to 1e-14."""
-    assert ranks.result()["dot"][shape]["err"] <= 1e-14
+    assert ranks.json("dot.json")[shape]["err"] <= 1e-14
 
 
 if __name__ == "__main__":
