@@ -12,13 +12,16 @@ Phases, in order (any failure raises and the script exits non-zero):
    (and ``graph_cond.cu``, phase 14's IF nodes), one nvcc per source,
    all at once, and print the registers and spills
    of the line kernels (K4/K5, K6/K7) and of K1, K2 and K3, instance by
-   instance (``ptxas -v``); an instance of a z march (K1's 3D path, K2,
-   K3) that spills fails the phase;
+   instance (``ptxas -v``); an instance of a march (K1's z march and
+   row march, K2, K3) that spills fails the phase;
 2. hold each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths, and time both beside the kernel's bound
    (bytes moved once over 3.35 TB/s, or operations over the card's peak)
-   (K1 and K2b both at the sphere's pressure shape, timed in turns);
-   time one PyTorch call computing K1's (at both of its shapes), K2a's
+   (K1 and K2b both at the sphere's pressure shape, timed in turns;
+   K1's 2D row march, its plan printed, in turns with its first design
+   at 450^2 and 512^2 in float32 and float64 and at 450^2 in bfloat16,
+   beside ``copy_`` of the field as the floor);
+   time one PyTorch call computing K1's (at its shapes), K2a's
    and K2b's function (``torch.sparse.mm`` on the operator assembled
    once as CSR; the port never calls it);
 3. run the 2D decoupled-IBPM cylinder (Re=200, 450^2 stretched grid,
@@ -201,10 +204,11 @@ KL_RMS, KL_MAX = 0.06, 0.12
 #: (csrc/graph_cond.cu: no TPU kernel's port)
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
                   "line_sweep", "tridiag_pcr", "graph_cond")
-#: the sources of a z march and the name of its kernel (csrc/march.cuh's
-#: zmarch; K3's own), none of whose instances may spill
-MARCH_SOURCES = {"poisson_separable": "zmarch", "zblocked_helmholtz": "zmarch",
-                 "convection3d": "convection3d_march"}
+#: the sources of a march and the names of its kernels (csrc/march.cuh's
+#: zmarch, K1's 2D rowmarch; K3's own), none of whose instances may spill
+MARCH_SOURCES = {"poisson_separable": ("zmarch", "rowmarch"),
+                 "zblocked_helmholtz": ("zmarch",),
+                 "convection3d": ("convection3d_march",)}
 DEVICE = "cuda"
 
 
@@ -548,13 +552,13 @@ def phase1_build() -> None:
                 name = line.split("Function properties for")[-1].strip()
             elif "spill" in line or "Used" in line:
                 print(f"ptxas {source} {name}: {line.strip()}")
-                if (MARCH_SOURCES.get(source, "?") in name
+                if (any(k in name for k in MARCH_SOURCES.get(source, ()))
                         and "spill" in line
                         and " 0 bytes spill stores, 0 bytes spill loads"
                         not in line):
                     spills.append(name)
     if spills:
-        raise AssertionError(f"z march instances spill: {spills}")
+        raise AssertionError(f"march instances spill: {spills}")
 
 
 def _mesh_and_bcs(cfg: dict):
@@ -746,20 +750,25 @@ def phase2_kernels(tmp: str) -> dict:
         applies = 60 if dtype == torch.float32 else 24
         tol = tols[dtype]
         # K1: the flagship's, the oscillating cylinder's and the sphere's
-        # pressure, bit for bit
+        # pressure, bit for bit; the 2D row march also beside its first
+        # design and the copy_ floor
         for name in ("450x450", "oscillating", "sphere"):
             mesh = meshes[name][0]
             level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
                                    device=cuda,
                                    scale=cases[name]["parameters"]["dt"])
             phi = randn(level.shape, dtype)
-            rec = _hold_k1(f"K1 {name} p {tuple(level.shape)} {tag}", level,
-                           phi, applies)
-            if dtype == torch.float32:
+            label = f"K1 {name} p {tuple(level.shape)} {tag}"
+            rec = _hold_k1(label, level, phi, applies)
+            if dtype == torch.float32 or name == "450x450":
                 _library(f"K1 {name} p {tag}", rec, _k1_csr(level), phi,
                          cs.poisson_apply_separable(phi, level), applies)
-                if name == "sphere":
-                    records["K1"] = rec
+            if (name, dtype) == ("sphere", torch.float32):
+                records["K1"] = rec
+            if name != "sphere":
+                _k1_beside_2d(label, phi, level, rec, applies)
+            if (name, dtype) == ("450x450", torch.float32):
+                k1_2d = rec
             if name == "sphere":
                 _k1_beside(f"K1 sphere p {tuple(level.shape)} {tag}", phi,
                            level, tol, applies)
@@ -875,6 +884,8 @@ def phase2_kernels(tmp: str) -> dict:
                               cuda_pcr.block_plan(shape, axis), rhs,
                               applies // 2)
         del mg, dl, diag, du
+    # K1's 2D row march (the main path's K1) at 450^2 in float32
+    records["K1"]["2d"] = {k: k1_2d[k] for k in _BF16_KEYS + _BESIDE_KEYS}
     _phase2_bf16(records, cases, meshes, randn)
     return records
 
@@ -968,6 +979,8 @@ def _phase2_bf16(records: dict, cases: dict, meshes: dict, randn) -> None:
                      tol=2.0 ** -5)
         if name == "sphere":
             keep("K1", rec)
+        else:
+            _k1_beside_2d(label, phi, level, rec, applies)
     for name in ("450x450", "sphere"):
         mesh = meshes[name][0]
         mg = PoissonMG(mesh.dxp, mesh.periodic, dtype=bf16, device=cuda,
@@ -1017,14 +1030,52 @@ def _hold_k1(label: str, level, phi, applies: int) -> dict:
 
     n = phi.numel()
     small = sum(t.numel() for t in level.c1d + level.w1d)
-    plan = (f" plan {tuple(cs.separable_plan_on_card(phi))}"
-            if phi.ndim == 3 else "")
+    plan = f" plan {tuple(cs.separable_plan_on_card(phi))}"
     return _hold(f"{label}{plan}",
                  lambda x: cs.poisson_apply_separable(x, level),
                  lambda x: cs.poisson_apply_separable_ref(x, level),
                  phi, 0.0, applies,
                  ((2 * n + small) * phi.element_size(),
                   (26 if phi.ndim == 3 else 15) * n, phi.dtype))
+
+
+#: the keys ``_k1_beside_2d`` adds to a record: the first design's and
+#: the copy_ floor's median ms per apply
+_BESIDE_KEYS = ("cells_ms", "copy_ms")
+
+
+def _k1_beside_2d(label: str, phi, level, rec: dict, applies: int) -> None:
+    """K1's 2D row march beside its first design (one thread per cell),
+    equal to the twin bit for bit, timed in turns (march, cells, cells,
+    march), and beside one floor: ``copy_`` of the field into another,
+    timed the same way, which moves the bytes of the bound (the field
+    read once, the output written once).  Adds the medians to ``rec``
+    (``_BESIDE_KEYS``)."""
+    import torch
+
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    if not torch.equal(cs.separable_launch_cells(phi, level),
+                       cs.poisson_apply_separable_ref(phi, level)):
+        raise AssertionError(f"{label}: the cell kernel differs from the "
+                             "twin")
+    out = torch.empty_like(phi)
+
+    def march(x):
+        return cs.poisson_apply_separable(x, level)
+
+    def cells(x):
+        return cs.separable_launch_cells(x, level)
+
+    times = [_time_ms(g, phi, applies)[0] for g in (march, cells, cells,
+                                                    march)]
+    copy_ms = _time_ms(lambda x: out.copy_(x), phi, applies)[0]
+    rec.update(cells_ms=statistics.median(times[1:3]), copy_ms=copy_ms)
+    print(f"{label}: row march {times[0] * 1e3:.2f}, {times[3] * 1e3:.2f} "
+          f"us; cell kernel {times[1] * 1e3:.2f}, {times[2] * 1e3:.2f} us; "
+          f"floor copy_ {copy_ms * 1e3:.2f} us (device, median per apply); "
+          f"bound {rec['bound_ms'] * 1e3:.2f} us; row march / copy_ "
+          f"{statistics.median((times[0], times[3])) / copy_ms:.3f}")
 
 
 def _hold_k3(label: str, mesh, bcs, q: dict, applies: int) -> dict:

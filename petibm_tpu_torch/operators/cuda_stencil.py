@@ -17,9 +17,12 @@ Counterpart of ``petibm_tpu/operators/pallas_stencil.py``.  Three kernels:
   (``make_cuda_convection``).
 
 K1's 3D path and K2 share one kernel design, the z march of
-``csrc/march.cuh``, and its launch plan (``launch_plan``); K3 marches
-its own tiles of three arrays (``convection_launch_plan``, on the same
-``plan_for_tile``).  Each wrapper
+``csrc/march.cuh``, and its launch plan (``launch_plan``); K1's 2D path
+is the row march of ``csrc/poisson_separable.cu`` (a block marches a
+band of columns up a chunk of rows, the x neighbours by warp shuffles),
+whose plan (``row_plan``) views the field as a z march of one-row planes;
+K3 marches its own tiles of three arrays (``convection_launch_plan``).
+All three plans cut the march axis with ``plan_for_tile``.  Each wrapper
 launches its kernel on a CUDA tensor (one more in its ``launches``
 counter) and calls its plain PyTorch twin (``*_ref``) on a CPU tensor;
 it never falls back from one to the other on failure.
@@ -66,19 +69,32 @@ class Plan(NamedTuple):
 TILES = ((64, 8, 2, 2), (32, 16, 4, 2), (32, 16, 4, 1))
 #: the most chunks the kernel's grid takes (its y extent)
 MAX_CHUNKS = 65535
+#: the row tiles (TX, 1, RY, VX) of K1's 2D row march (``ROW_TILES`` in
+#: ``csrc/poisson_separable.cu``): a band of TX columns, TX / VX threads
+#: (four warps) of VX columns each, marching RY rows at a time;
+#: ``row_plan`` takes the first whose vector the field takes, else the
+#: last (one column a thread)
+ROW_TILES = ((256, 1, 1, 2), (128, 1, 1, 1))
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def as_march(shape) -> tuple:
+    """The 3D shape a plan covers: a 3D shape itself, a 2D (ny, nx) as
+    (ny, 1, nx), ny planes of one row (K1's row march)."""
+    return (shape[0], 1, shape[1]) if len(shape) == 2 else tuple(shape)
+
+
 def grid(shape, plan: Plan) -> tuple:
-    """The blocks of ``plan`` on the 3D ``shape``: (tiles along x, tiles
-    along y, chunks along z); block (bx, by, bz) computes x in
-    [bx tx, bx tx + tx), y in [by ty, by ty + ty) and z in
-    [bz kz, bz kz + kz), each cut at the array's end.  The kernel's grid
-    is (tiles along x times tiles along y, chunks)."""
-    nz, ny, nx = shape
+    """The blocks of ``plan`` on the 3D ``shape`` (a 2D one through
+    ``as_march``): (tiles along x, tiles along y, chunks along z); block
+    (bx, by, bz) computes x in [bx tx, bx tx + tx), y in
+    [by ty, by ty + ty) and z in [bz kz, bz kz + kz), each cut at the
+    array's end.  The kernel's grid is (tiles along x times tiles along
+    y, chunks); the row march's is (bands, chunks)."""
+    nz, ny, nx = as_march(shape)
     return (_ceil(nx, plan.tx), _ceil(ny, plan.ty), _ceil(nz, plan.kz))
 
 
@@ -112,13 +128,43 @@ def launch_plan(shape, dtype, slots, align: int) -> Plan:
     return plan_for_tile(shape, tile, slots(tile))
 
 
+def row_plan_for_tile(shape, tile, slots: int) -> Plan:
+    """``plan_for_tile`` for K1's row march of the row ``tile`` (TX, 1, RY,
+    VX) on a field of the 2D ``shape`` (ny, nx): the field's groups of RY
+    rows taken as planes of one row, so that the chunks (a multiple of RY
+    rows, the last one shorter) fill one wave of ``slots`` blocks."""
+    ny, nx = shape
+    ry = tile[2]
+    plan = plan_for_tile((_ceil(ny, ry), 1, nx), tile, slots)
+    return plan._replace(kz=plan.kz * ry)
+
+
+def row_plan(shape, dtype, slots, align: int) -> Plan:
+    """The plan of K1's 2D row march for a field of the 2D ``shape`` (ny,
+    nx) and ``dtype`` whose data (and output) start at a multiple of
+    ``align`` bytes: the first tile of ``ROW_TILES`` whose vector of
+    ``vx`` values divides nx and ``align``, else the last; and
+    ``row_plan_for_tile``'s chunks of rows for ``slots(tile)`` blocks
+    held at once.  A ragged band (nx not a multiple of its width) idles
+    the warps past nx, so the width is not matched to nx."""
+    nx = shape[1]
+    size = torch.finfo(dtype).bits // 8
+    *first, last = ROW_TILES
+    tile = next((t for t in first if nx % t[3] == 0
+                 and align % (t[3] * size) == 0), last)
+    return row_plan_for_tile(shape, tile, slots(tile))
+
+
 def plan_error(shape, plan: Plan):
-    """Why K1's or K2's C entry refuses ``plan`` for the 3D ``shape`` (it
-    returns cudaErrorInvalidValue and the wrapper raises), or None when it
-    takes it: the conditions of ``check_march`` and ``launch_tile`` in
-    ``csrc/march.cuh``, but for one on the pointers: a vector tile also
-    needs f and out aligned to its vector."""
-    nz, ny, nx = shape
+    """Why K1's or K2's C entry refuses ``plan`` for the 3D ``shape``, or
+    K1's for the 2D one (it returns cudaErrorInvalidValue and the wrapper
+    raises), or None when it takes it: the conditions of ``check_march``
+    and ``launch_tile`` in ``csrc/march.cuh`` (a 2D field checked as its
+    ``as_march`` shape, its tile one of ``ROW_TILES``: ``launch_rows`` in
+    ``csrc/poisson_separable.cu``), but for one on the pointers: a vector
+    tile also needs f and out aligned to its vector."""
+    tiles = ROW_TILES if len(shape) == 2 else TILES
+    nz, ny, nx = as_march(shape)
     if min(shape) < 0:
         return "a negative extent"
     if min(shape) == 0:
@@ -127,7 +173,7 @@ def plan_error(shape, plan: Plan):
         return "2^31 cells or more (32-bit offsets)"
     if plan.kz < 1 or _ceil(nz, plan.kz) > MAX_CHUNKS:
         return f"chunks of no plane, or more than {MAX_CHUNKS} of them"
-    if tuple(plan[:4]) not in TILES:
+    if tuple(plan[:4]) not in tiles:
         return f"no instance of the tile {tuple(plan[:4])}"
     if nx % plan.vx:
         return f"a vector of {plan.vx} columns for an x extent of {nx}"
@@ -160,13 +206,13 @@ def _resident(source: str, entry: str, device, dtype, head: tuple,
 _RESIDENT: dict = {}
 
 
-def _plan_on_card(f: torch.Tensor, slots) -> Plan:
-    """``launch_plan`` for the CUDA field ``f`` (its output comes from
-    ``torch.empty_like``, aligned to at least 256 bytes) with
-    ``slots(tile)`` blocks held at once."""
+def _plan_on_card(f: torch.Tensor, slots, plan=None) -> Plan:
+    """``plan`` (``launch_plan`` unless given) for the CUDA field ``f``
+    (its output comes from ``torch.empty_like``, aligned to at least 256
+    bytes) with ``slots(tile)`` blocks held at once."""
     ptr_f = f.data_ptr()
-    return launch_plan(f.shape, f.dtype, slots,
-                       (ptr_f & -ptr_f) if ptr_f else 256)
+    return (plan or launch_plan)(f.shape, f.dtype, slots,
+                                 (ptr_f & -ptr_f) if ptr_f else 256)
 
 
 # ----------------------------------------------------------------------
@@ -211,21 +257,20 @@ def _check_k1(phi: torch.Tensor, level: Level) -> None:
 
 
 def separable_resident_blocks(device, dtype, tile) -> int:
-    """The blocks of K1's march instance of ``tile`` (``dtype``) that
-    ``device`` holds at once (``_resident``)."""
+    """The blocks of K1's instance of ``tile`` (``dtype``), a z-march tile
+    or a row tile of ``ROW_TILES``, that ``device`` holds at once
+    (``_resident``; the C entry tells the two by ty = 1)."""
     return _resident("poisson_separable", "poisson_apply_separable_resident",
                      device, dtype, (), tile)
 
 
 def separable_plan_on_card(phi: torch.Tensor) -> Plan:
-    """The plan ``poisson_apply_separable`` launches for the 3D CUDA field
-    ``phi``: ``launch_plan`` with K1's own resident blocks."""
+    """The plan ``poisson_apply_separable`` launches for the CUDA field
+    ``phi``: ``launch_plan`` in 3D, ``row_plan`` in 2D, with K1's own
+    resident blocks (asked of the card once per instance and cached, so
+    a step's warm-up asks before any graph capture)."""
     return _plan_on_card(phi, lambda tile: separable_resident_blocks(
-        phi.device, phi.dtype, tile))
-
-
-#: the plan arguments of a 2D launch, which the C entry does not read
-_NO_PLAN = (0, 0, 0, 0, 0)
+        phi.device, phi.dtype, tile), row_plan if phi.ndim == 2 else None)
 
 
 def _call_k1(entry: str, phi, level: Level, plan_args: tuple):
@@ -242,26 +287,24 @@ def _call_k1(entry: str, phi, level: Level, plan_args: tuple):
                  ptr(w[1]), ptr(c[2]), ptr(w[2]), *shape, phi.ndim,
                  *plan_args, stream(phi.device))
     if err != 0:
-        why = (plan_error(shape, Plan(*plan_args))
-               if phi.ndim == 3 and plan_args else None)
+        why = plan_error(phi.shape, Plan(*plan_args)) if plan_args else None
         raise RuntimeError(f"K1 launch failed with CUDA error {err}"
                            + (f": {why}" if why else ""))
     return out
 
 
-def separable_launch(phi, level: Level, plan: Plan | None):
+def separable_launch(phi, level: Level, plan: Plan):
     """One launch of K1 on CUDA tensors that ``poisson_apply_separable``
-    has checked: the 3D march with ``plan``, or the 2D cell kernel
-    (``plan`` None); counts nothing (the wrapper does).  Raises when the C
-    entry refuses the plan, naming ``plan_error``'s reason."""
-    return _call_k1("poisson_apply_separable", phi, level,
-                    _NO_PLAN if plan is None else tuple(plan))
+    has checked, with ``plan``: the 3D z march or the 2D row march; counts
+    nothing (the wrapper does).  Raises when the C entry refuses the plan,
+    naming ``plan_error``'s reason."""
+    return _call_k1("poisson_apply_separable", phi, level, tuple(plan))
 
 
 def separable_launch_cells(phi, level: Level):
     """One launch of the one-thread-a-cell kernel in 2D or 3D (the first
-    3D design), kept to be timed beside the march; counts nothing, and no
-    solver calls it."""
+    design of both paths), kept to be timed beside the marches; counts
+    nothing, and no solver calls it."""
     return _call_k1("poisson_apply_separable_cells", phi, level, ())
 
 
@@ -269,16 +312,15 @@ def poisson_apply_separable(phi: torch.Tensor, level: Level) -> torch.Tensor:
     """K1: the separable apply of the negated Poisson operator -D B1 G.
 
     A CUDA ``phi`` launches the kernel on the current stream (one more in
-    ``poisson_apply_separable.launches``): in 3D the march with
-    ``separable_plan_on_card``'s plan, in 2D one thread a cell.  A CPU
-    ``phi`` runs the plain twin.  Raises on shapes, dtypes or devices the
-    kernel does not take, and when the launch reports an error."""
+    ``poisson_apply_separable.launches``) with ``separable_plan_on_card``'s
+    plan: the z march in 3D, the row march in 2D.  A CPU ``phi`` runs the
+    plain twin.  Raises on shapes, dtypes or devices the kernel does not
+    take, and when the launch reports an error."""
     _check_k1(phi, level)
     if phi.device.type == "cpu":
         return poisson_apply_separable_ref(phi, level)
     check_launchable("K1", phi)
-    out = separable_launch(phi, level, separable_plan_on_card(phi)
-                           if phi.ndim == 3 else None)
+    out = separable_launch(phi, level, separable_plan_on_card(phi))
     count_launch(poisson_apply_separable)
     return out
 

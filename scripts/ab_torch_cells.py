@@ -1,7 +1,7 @@
-"""The 3D cells of ``chip_smoke.py`` and the stencil kernels K1, K2 and
-K3 on two checkouts of the repository in turns on one card: ms per step,
-device ms per step and the iteration counts of each cell, and the device
-time of each kernel at its main shapes.
+"""Cells of ``chip_smoke.py`` and the stencil kernels K1, K2 and K3 on
+two checkouts of the repository in turns on one card: ms per step,
+device ms per step, K1's device time per step and the iteration counts
+of each cell, and the device time of each kernel at its main shapes.
 
 Run on a machine with a CUDA card, from the repository root, with the
 other checkout unpacked in a directory (for example ``git archive`` of
@@ -13,8 +13,10 @@ the parent commit into ``parent_check/``):
 
 Cells (``--cells``, all by default): the 256^3 TGV with the FDM pressure
 solve (``tgv_fdm``, phase 6) and with the multigrid-preconditioned CG
-one (``tgv_mg``, phase 8), and the 160x130x130 sphere likewise
-(``sphere_fdm``, phase 5; ``sphere_mg``, phase 8).  Each run is a
+one (``tgv_mg``, phase 8), the 160x130x130 sphere likewise
+(``sphere_fdm``, phase 5; ``sphere_mg``, phase 8), and the 450^2
+flagship likewise (``flagship_fdm``, phase 3; ``flagship_mg``, phase 8:
+K1's 2D path 2 + p_iters times a step, or twice a V-cycle).  Each run is a
 process of its own that imports ``chip_smoke`` and ``petibm_tpu_torch``
 from its checkout (so each builds and runs its own kernels), in the
 order parent, change, change, parent.  A run first times K1 (the
@@ -27,8 +29,8 @@ apply) and hashes K1's and K2's results (the same seeded inputs in every
 run: their bits must not differ between the checkouts); then
 runs each cell for its steps (``--steps``), times the steps after the
 first (host clock, synchronised), then profiles ``--profile`` more steps
-with torch.profiler (device ms per step: the device-side events only),
-and checks that every solve converged and, on the TGV, that the kinetic
+with torch.profiler (device ms per step: the device-side events only;
+K1's device µs per step: its kernels' events, any design), and checks that every solve converged and, on the TGV, that the kinetic
 energy did not grow over the run.  Prints the card's name and power
 limit first, a JSON line per run, and the medians of each checkout's
 two runs (the MG-CG cells also with device ms per V-cycle: their device
@@ -52,7 +54,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: cell: (case, extra parameters, steps)
 CELLS = {"tgv_fdm": ("tgv", {}, 20), "tgv_mg": ("tgv", {"fdm": False}, 10),
          "sphere_fdm": ("sphere", {}, 30),
-         "sphere_mg": ("sphere", {"fdm": False}, 10)}
+         "sphere_mg": ("sphere", {"fdm": False}, 10),
+         "flagship_fdm": ("flagship", {}, 30),
+         "flagship_mg": ("flagship", {"fdm": False}, 10)}
+#: parts of the names of K1's kernels in a profile: the 2D row march, the
+#: z march of its Body, the one-thread-a-cell kernel
+K1_KERNELS = ("rowmarch", "SeparableBody", "poisson_apply_separable_kernel")
 
 
 def _energy(q: dict) -> float:
@@ -65,9 +72,10 @@ def _solver(tmp: str, cell: str):
     from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
 
     case, params, _ = CELLS[cell]
-    if case == "sphere":
-        return DecoupledIBPMSolver(chip_smoke.sphere_config(
-            os.path.join(tmp, cell), nt=1, **params), device="cuda")
+    if case in ("sphere", "flagship"):
+        make = getattr(chip_smoke, f"{case}_config")
+        return DecoupledIBPMSolver(make(os.path.join(tmp, cell), nt=1,
+                                        **params), device="cuda")
     solver = NavierStokesSolver(chip_smoke.tgv3d_config(
         os.path.join(tmp, cell), nt=1, **params), device="cuda")
     chip_smoke.tgv3d_initial_state(solver)
@@ -95,8 +103,11 @@ def _cell(tmp: str, cell: str, nsteps: int, profile_steps: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         solver.run()
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    k1_us = sum(e.self_device_time_total for e in events
+                if any(k in e.key for k in K1_KERNELS))
     energies.append(_energy(solver.state["q"]))
     solver.close()
     hist = solver.stats_history
@@ -105,6 +116,7 @@ def _cell(tmp: str, cell: str, nsteps: int, profile_steps: int) -> dict:
     window = [s["p_iters"] for s in hist[-profile_steps:]]
     device_ms = device_us / profile_steps / 1e3
     rec = {"ms_step": wall * 1e3, "device_ms_step": device_ms,
+           "k1_device_us_step": k1_us / profile_steps,
            "window_p_iters": window,
            # one V-cycle per CG iteration and one more (MG-CG only)
            "device_ms_vcycle": device_ms / (statistics.mean(window) + 1),
@@ -254,10 +266,12 @@ def main(argv=None) -> int:
             device = [r[cell]["device_ms_step"] for r in recs]
             vcycle = [round(r[cell]["device_ms_vcycle"], 3) for r in recs]
             window = [r[cell]["window_p_iters"] for r in recs]
+            k1 = [r[cell]["k1_device_us_step"] for r in recs]
             print(f"{label} {cell}: ms/step {statistics.median(wall):.3f} "
                   f"(runs {wall[0]:.3f}, {wall[1]:.3f}), device ms/step "
                   f"{statistics.median(device):.3f} (runs {device[0]:.3f}, "
-                  f"{device[1]:.3f}); v_iters {recs[0][cell]['v_iters']}, "
+                  f"{device[1]:.3f}), K1 device us/step (runs {k1[0]:.2f}, "
+                  f"{k1[1]:.2f}); v_iters {recs[0][cell]['v_iters']}, "
                   f"p_iters {recs[0][cell]['p_iters']}"
                   + ("" if not cell.endswith("_mg") else
                      f"; profile window p_iters {window}, device ms per "

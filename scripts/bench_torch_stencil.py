@@ -4,13 +4,15 @@ z planes), and K3, the convection's own z march of three arrays
 (``csrc/convection3d.cu``), at the main paths' shapes: the launch plan
 against other tiles and chunk lengths, against the first design (one
 thread per cell; K1 and K2), and against variants of the source, to set
-the plans and show what bounds the kernels; and K1's 2D path against the
-floor of a launch.
+the plans and show what bounds the kernels; and K1's 2D path, the row
+march, against its other plans, its first design and the floors of a
+launch.
 
 Run on a machine with a CUDA card, from the repository root:
 
-    python3 scripts/bench_torch_stencil.py         # K3, then K1 and K2
+    python3 scripts/bench_torch_stencil.py         # K3, K1 and K2, K1 2D
     python3 scripts/bench_torch_stencil.py --k3    # K3 alone
+    python3 scripts/bench_torch_stencil.py --k1-2d # K1 2D alone (~2 min)
 
 Shapes: K2 at the 256^3 TGV's velocity (K2a) and periodic, scaled
 pressure (K2b), and the sphere's u, v and w (K2a, 160x130x130 cells) in
@@ -58,10 +60,23 @@ Every run that keeps the bits is held to the twin at tolerance 0 first
 (``fma`` and ``nohalo`` report their difference); then the pair is timed
 in turns (plan, other, other, plan; median device time per apply, CUDA
 events), each beside the bound (f read once and out written once at
-3.35 TB/s).  Last, K1's 2D path at the flagship's 450^2 pressure in
-turns with ``torch.mul(f, 2)`` at that shape and an empty kernel's
-launch: the floor an apply of 1.6 MB is measured against.  Prints the
-card's name and power limit first.
+3.35 TB/s).
+
+Last, K1's 2D path (the row march of ``csrc/poisson_separable.cu``) at
+the flagship's 450^2 pressure in float32, float64 and bfloat16 and at the
+oscillating cylinder's 512^2 in float32: the plan (``cuda_stencil.
+row_plan``) against every row tile (``cuda_stencil.ROW_TILES`` and
+``EXTRA_ROW_TILES``, built by the variant ``rowtiles``) with its own
+one-wave plan and with chunks of ``ROW_CHUNKS`` rows, the cell kernel
+(the first design, ``poisson_apply_separable_cells``), the ``fma``
+variant, and three floors: ``copy_`` of the field into another (the
+same bytes read and written), ``torch.mul(f, 2)`` and an empty kernel's
+launch.  Each run that keeps the bits equals the twin first; then every
+candidate is timed in one sweep and in the same sweep reversed (median
+device time per apply).  Then the SASS of both designs' instances
+(``cuobjdump -sass``): instructions by kind, and those of the loop that
+computes a cell (a row of VX cells a thread in the march).  Prints
+the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -131,6 +146,22 @@ K3_VARIANTS = {
 }
 #: chunk lengths timed beside the plan's, with every tile
 CHUNKS = (8, 16, 32, 64)
+#: K1's 2D row tiles (TX, RY, VX) the plan does not take, built by the
+#: variant ``rowtiles``: four warps of two columns or of one a thread
+#: marching two or four rows at a time, eight warps of two columns (one,
+#: two, four rows), two warps of two columns (one, four rows) and one warp
+#: of one column
+EXTRA_ROW_TILES = ((256, 2, 2), (256, 4, 2), (128, 2, 1), (128, 4, 1),
+                   (512, 1, 2), (512, 2, 2), (512, 4, 2), (128, 1, 2),
+                   (128, 4, 2), (32, 1, 1))
+#: K1's 2D variants: substitutions in its own source
+ROW_VARIANTS = {"rowtiles": ([(
+    "#define ROW_TILES(X) X(256, 1, 2) X(128, 1, 1)",
+    "#define ROW_TILES(X) X(256, 1, 2) X(128, 1, 1) "
+    + " ".join(f"X{t}" for t in EXTRA_ROW_TILES))], None)}
+#: rows a chunk timed with every row tile (those a multiple of its RY),
+#: beside each one's own plan
+ROW_CHUNKS = (1, 2, 4, 8, 16)
 
 EMPTY_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -159,9 +190,10 @@ def _variant(tmp: Path, name: str) -> dict:
     path}."""
     from petibm_tpu_torch import _kernels
 
-    subs, flags = {**VARIANTS, **K3_VARIANTS}[name]
-    sources, edited = ((K3,), f"{K3}.cu") if name in K3_VARIANTS \
-        else (SOURCES, HEADER)
+    subs, flags = {**VARIANTS, **K3_VARIANTS, **ROW_VARIANTS}[name]
+    sources, edited = (((K3,), f"{K3}.cu") if name in K3_VARIANTS else
+                       (("poisson_separable",), "poisson_separable.cu")
+                       if name in ROW_VARIANTS else (SOURCES, HEADER))
     src = tmp / name
     shutil.copytree(_kernels._CSRC, src)
     path = src / edited
@@ -548,46 +580,191 @@ def _bench_k3(label: str, ext, inv_dl, libs: dict, tag: str) -> None:
           f"{flushed[1]:.2f}, {flushed[2]:.2f} us", flush=True)
 
 
-def _floor_2d(tmp: str, empty) -> None:
-    """K1's 2D path (one thread a cell) at the flagship's 450^2 pressure
-    in turns with torch.mul(f, 2) at that shape and an empty kernel's
-    launch, the floor of a launch that moves 1.6 MB."""
+def _cases_2d(tmp: str) -> list:
+    """(label, phi, level) of K1's 2D path: the flagship's 450^2 pressure
+    in float32, float64 and bfloat16, the oscillating cylinder's 512^2 in
+    float32."""
     import torch
 
     import chip_smoke
     from petibm_tpu_torch.linalg.mg import poisson_level0
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, make, dtypes in (
+            ("450x450", chip_smoke.flagship_config,
+             (torch.float32, torch.float64, torch.bfloat16)),
+            ("oscillating", chip_smoke.oscillating_config, (torch.float32,))):
+        cfg = make(os.path.join(tmp, f"k1_2d_{name}"))
+        mesh = chip_smoke._mesh_and_bcs(cfg)[0]
+        for dtype in dtypes:
+            level = poisson_level0(mesh.dxp, mesh.periodic, dtype=dtype,
+                                   device="cuda",
+                                   scale=cfg["parameters"]["dt"])
+            phi = torch.randn(tuple(level.shape), generator=gen,
+                              device="cuda", dtype=dtype)
+            cases.append((f"K1 2D {name} {tuple(phi.shape)} "
+                          f"{str(dtype)[6:]}", phi, level))
+    return cases
+
+
+def _row_candidates(phi, libs) -> list:
+    """(name, variant, plan) of every row tile that takes ``phi`` (a
+    vector tile: nx a multiple of its vector), each with its own one-wave
+    plan and with chunks of ``ROW_CHUNKS`` rows."""
     from petibm_tpu_torch.operators import cuda_stencil as cs
 
-    cfg = chip_smoke.flagship_config(os.path.join(tmp, "k1_2d"))
-    mesh = chip_smoke._mesh_and_bcs(cfg)[0]
-    level = poisson_level0(mesh.dxp, mesh.periodic, dtype=torch.float32,
-                           device="cuda", scale=cfg["parameters"]["dt"])
-    phi = torch.randn(tuple(level.shape), device="cuda",
-                      generator=torch.Generator(device="cuda").manual_seed(0))
-    if not torch.equal(cs.poisson_apply_separable(phi, level),
-                       cs.poisson_apply_separable_ref(phi, level)):
-        raise AssertionError("K1 2D differs from the twin")
+    shape = cs.as_march(tuple(phi.shape))
+    out = []
+    for variant, tiles in (("shipped", cs.ROW_TILES), (
+            "rowtiles", tuple((t[0], 1, t[1], t[2])
+                              for t in EXTRA_ROW_TILES))):
+        for tile in tiles:
+            if shape[2] % tile[3]:
+                continue
+            slots = _with_library(
+                "poisson_separable", libs["poisson_separable", variant],
+                lambda: cs.separable_resident_blocks(phi.device, phi.dtype,
+                                                     tile))
+            wave = cs.row_plan_for_tile(tuple(phi.shape), tile, slots)
+            for plan in dict.fromkeys(
+                    [wave] + [cs.Plan(*tile, ky) for ky in ROW_CHUNKS
+                              if ky % tile[2] == 0]):
+                tag = " (one wave)" if plan == wave else ""
+                out.append((f"{plan.tx} ry {plan.ry} vx {plan.vx} ky "
+                            f"{plan.kz}{tag}"
+                            + ("" if variant == "shipped"
+                               else f" ({variant}, {slots} resident)"),
+                            variant, plan))
+    return out
 
-    def k1(x):
-        return cs.poisson_apply_separable(x, level)
 
-    def mul(x):
-        return torch.mul(x, 2.0)
+def _bench_2d(tmp: str, libs: dict, empty) -> None:
+    """K1's 2D row march against its candidates and floors (the module
+    docstring's last paragraph), case by case."""
+    import torch
 
-    order = (("K1 2D", k1), ("torch.mul(f, 2)", mul), ("empty kernel", empty))
-    times = {name: [] for name, _ in order}
-    for name, fn in order + order[::-1]:
-        times[name].append(chip_smoke._time_ms(fn, phi, 200)[0] * 1e3)
-    med = {name: statistics.median(t) for name, t in times.items()}
-    bound_us = 2 * phi.numel() * 4 / chip_smoke.HBM_BYTES_PER_S * 1e6
-    print(f"K1 2D {tuple(phi.shape)} float32 (bound {bound_us:.2f} us): "
-          + "; ".join(f"{name} " + ", ".join(f"{t:.2f}" for t in ts) + " us"
-                      for name, ts in times.items())
-          + f" (device, median per apply); K1 2D / torch.mul "
-          f"{med['K1 2D'] / med['torch.mul(f, 2)']:.3f}, K1 2D / empty "
-          f"{med['K1 2D'] / med['empty kernel']:.3f}; within 1.5x of the "
-          f"floor (torch.mul): "
-          f"{med['K1 2D'] <= 1.5 * med['torch.mul(f, 2)']}", flush=True)
+    import chip_smoke
+    from petibm_tpu_torch import _kernels
+    from petibm_tpu_torch.operators import cuda_stencil as cs
+
+    source = "poisson_separable"
+    shipped = libs[source, "shipped"]
+    for label, phi, level in _cases_2d(tmp):
+        _kernels._LIBS[source] = shipped
+        cs._RESIDENT.clear()
+        plan = cs.separable_plan_on_card(phi)
+        want = cs.poisson_apply_separable_ref(phi, level)
+        bound_us = (2 * phi.numel() * phi.element_size()
+                    / chip_smoke.HBM_BYTES_PER_S * 1e6)
+
+        def launch(variant, fn):
+            lib = libs[source, variant]
+
+            def run(x):
+                _kernels._LIBS[source] = lib
+                return fn(x)
+            return run
+
+        copy_out = torch.empty_like(phi)
+        runs = [(f"plan {plan.tx} ry {plan.ry} vx {plan.vx} ky {plan.kz}",
+                 launch("shipped", lambda x: cs.poisson_apply_separable(
+                     x, level)), True),
+                ("cell kernel", launch("shipped", lambda x: cs.
+                                       separable_launch_cells(x, level)), True)]
+        runs += [(name, launch(variant, lambda x, p=p: cs.separable_launch(
+            x, level, p)), True)
+            for name, variant, p in _row_candidates(phi, libs) if p != plan]
+        runs += [("fma variant, the plan", launch("fma", lambda x: cs.
+                                                  separable_launch(x, level,
+                                                                   plan)),
+                  False),
+                 ("floor: copy_", lambda x: copy_out.copy_(x), None),
+                 ("floor: torch.mul(f, 2)", lambda x: torch.mul(x, 2.0),
+                  None),
+                 ("floor: empty kernel", empty, None)]
+        for name, run, exact in runs:
+            if exact is None:
+                continue
+            err = float((run(phi).double() - want.double()).abs().max())
+            if exact and err != 0.0:
+                raise AssertionError(f"{label}: {name} differs from the twin "
+                                     f"by {err}")
+            if not exact:
+                print(f"{label}: {name}: max|diff| from the twin {err:.3e}",
+                      flush=True)
+        times = {name: [] for name, _, _ in runs}
+        for name, run, _ in runs + runs[::-1]:
+            times[name].append(chip_smoke._time_ms(run, phi, 100)[0] * 1e3)
+        med = {name: statistics.median(t) for name, t in times.items()}
+        print(f"{label} (bound {bound_us:.2f} us, plan {tuple(plan)}): device "
+              "us per apply, a sweep and the sweep reversed:", flush=True)
+        for name, ts in sorted(times.items(), key=lambda kv: med[kv[0]]):
+            print(f"  {name}: {ts[0]:.2f}, {ts[1]:.2f} (share "
+                  f"{bound_us / med[name]:.3f})", flush=True)
+        kernels = [n for n, _, e in runs if e]
+        best = min(kernels, key=med.get)
+        print(f"{label}: fastest kernel run {best} {med[best]:.2f} us; the "
+              f"plan {med[runs[0][0]]:.2f} us; the cell kernel "
+              f"{med['cell kernel']:.2f} us; plan / copy_ "
+              f"{med[runs[0][0]] / med['floor: copy_']:.3f}", flush=True)
+    _kernels._LIBS[source] = shipped
+    _sass_2d()
+
+
+#: SASS mnemonics counted by kind
+SASS_KINDS = {"global loads": ("LDG",), "global stores": ("STG",),
+              "shuffles": ("SHFL",),
+              "float ops": ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA"),
+              "division helpers": ("I2F", "F2I", "MUFU", "IABS"),
+              "calls": ("CALL",), "branches": ("BRA",)}
+#: the 2D designs' instances (parts of their mangled names): every row
+#: march, and the cell kernel with DIM = 2
+SASS_2D = (("rowmarch",), ("poisson_apply_separable_kernel", "Li2EEEv"))
+
+
+def _sass_2d() -> None:
+    """The instances of both 2D designs in the shipped library's SASS
+    (``cuobjdump -sass``): instructions by kind over each function
+    and over the widest backward branch's span (the cell kernel's
+    grid-stride loop: one cell a thread and pass, and the subroutine it
+    calls for 64-bit division; the march's row loop: VX cells a thread
+    and row, unrolled as the compiler chose).  Their SASS goes beside the
+    library, to ``build/torch_kernels/<library>.2d.sass.txt``."""
+    import re
+
+    from petibm_tpu_torch import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    path, _ = _kernels.build("poisson_separable")
+    text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    kept = []
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if not any(all(k in name for k in keys) for keys in SASS_2D):
+            continue
+        kept.append("Function : " + func)
+        ins = re.findall(r"/\*([0-9a-f]{4})\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)([^;]*);", func)
+        addr = [int(a, 16) for a, _, _, _ in ins]
+        ops = [op for _, _, op, _ in ins]
+        span = (0, 0)
+        for k, (_, _, op, rest) in enumerate(ins):
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and target:
+                to = int(target.group(1), 16)
+                if to < addr[k] and to in addr and \
+                        k + 1 - addr.index(to) > span[1] - span[0]:
+                    span = (addr.index(to), k + 1)
+
+        def kinds(seq):
+            return ", ".join(f"{kind} {sum(o.split('.')[0] in m or o in m for o in seq)}"
+                             for kind, m in SASS_KINDS.items())
+        print(f"SASS {name}: {len(ops)} instructions ({kinds(ops)}); the "
+              f"widest loop {span[1] - span[0]} ({kinds(ops[span[0]:span[1]])})",
+              flush=True)
+    path.with_suffix(".2d.sass.txt").write_text("\n".join(kept))
 
 
 def main() -> int:
@@ -602,7 +779,9 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = {(s, "shipped"): _kernels.library(s) for s in SOURCES + (K3,)}
-        variants = [*VARIANTS, *K3_VARIANTS]
+        only_2d = "--k1-2d" in sys.argv[1:]
+        variants = (["fma", *ROW_VARIANTS] if only_2d else
+                    [*VARIANTS, *K3_VARIANTS, *ROW_VARIANTS])
         with ThreadPoolExecutor(len(variants) + 1) as pool:
             empty = pool.submit(_empty_kernel, Path(tmp))
             built = pool.map(lambda v: (v, _variant(Path(tmp), v)), variants)
@@ -610,6 +789,9 @@ def main() -> int:
                 for source, so in paths.items():
                     libs[source, name] = ctypes.CDLL(str(so))
             empty = empty.result()
+        if only_2d:
+            _bench_2d(tmp, libs, empty)
+            return 0
         for dtype in (torch.float32, torch.float64):
             for label, ext, inv_dl in _k3_cases(tmp, dtype):
                 _bench_k3(label, ext, inv_dl, libs, str(dtype)[6:])
@@ -618,7 +800,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             for case in _cases(tmp, dtype):
                 _bench(case, libs, str(dtype)[6:])
-        _floor_2d(tmp, empty)
+        _bench_2d(tmp, libs, empty)
     return 0
 
 

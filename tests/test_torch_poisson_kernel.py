@@ -2,15 +2,18 @@
 [12, 10, 32] stretched grids: the port's level-0 factors against
 PoissonMG's finest level, the plain twin against the Pallas kernel in
 interpret mode and the JAX -A_poisson closure (float64, 1e-12), the
-wrapper's CPU dispatch, and the launch plan of the 3D path (the z march
-of ``csrc/march.cuh``, shared with K2): its grid covers every cell once
-at ragged, one-plane, short and the sphere's shapes, it takes a vector
-tile where nx and the alignment allow, and ``plan_error`` names what the
-C entry refuses.  On a card the kernel is held to its twin bit for bit
-(2D, and in 3D every plan a shape admits, ragged tiles and chunks, walls
-with nonzero face coefficients, float32 and float64, and a field between
-NaN planes), the first 3D design (one thread per cell) too, and the C
-entry's refusals to ``plan_error``.
+wrapper's CPU dispatch, and the launch plans of the 3D path (the z march
+of ``csrc/march.cuh``, shared with K2) and of the 2D path (the row march
+of ``csrc/poisson_separable.cu``, ``row_plan``): each grid covers every
+cell once at ragged, one-plane (one-row, one-column), short and the main
+paths' shapes for every resident-block count of ``SLOTS``, each plan
+takes a vector tile where nx and the alignment allow, and ``plan_error``
+names what the C entry refuses in 2D and in 3D.  On a card the kernel is
+held to its twin bit for bit (in 2D and 3D every plan a shape admits,
+ragged bands, tiles and chunks, walls with nonzero face coefficients,
+float32 and float64, bfloat16 in 2D, and a field between NaN planes or
+rows), the first designs (one thread per cell) too, the wrapper's one
+launch a call, and the C entry's refusals to ``plan_error``.
 
 The JAX side is imported inside the tests that use it, so the card-only
 tests also run where jax is not installed:
@@ -254,6 +257,92 @@ def test_plan_error_names_what_the_c_entry_refuses(name):
     assert (cs.plan_error(shape, good) is None) == (name != "2^31 cells")
 
 
+# (ny, nx) of K1's 2D plan: bands ragged against both row tiles, one row,
+# one column, and the flagship's and the oscillating cylinder's pressure
+ROW_SHAPES = {"ragged_band": (17, 45), "ragged_wide": (37, 300),
+              "one_row": (1, 96), "one_column": (40, 1), "32x32": (32, 32),
+              "450x450": (450, 450), "512x512": (512, 512)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ROW_SHAPES))
+def test_row_plan_covers_every_cell_once(name, dtype, monkeypatch):
+    shape = ROW_SHAPES[name]
+    ny, nx = shape
+    for slots in SLOTS:
+        plan = _plan(shape, dtype, slots, monkeypatch)
+        assert tuple(plan[:4]) in cs.ROW_TILES
+        assert cs.plan_error(shape, plan) is None
+        bands, rows, chunks = cs.grid(shape, plan)
+        assert rows == 1
+        assert (bands - 1) * plan.tx < nx <= bands * plan.tx
+        assert (chunks - 1) * plan.kz < ny <= chunks * plan.kz
+        # chunks of whole groups of the tile's ry rows
+        groups, per_chunk = _ceil(ny, plan.ry), plan.kz // plan.ry
+        assert plan.kz % plan.ry == 0
+        if bands > slots:  # a row's bands alone overfill the card
+            assert per_chunk == groups
+        else:  # one wave, with as many blocks as that allows
+            assert bands * chunks <= slots
+            assert (per_chunk == 1
+                    or bands * _ceil(groups, per_chunk - 1) > slots)
+        # cell by cell: every block non-empty, every cell in one block
+        hits = np.zeros(shape, np.uint8)
+        for bx, by in itertools.product(range(bands), range(chunks)):
+            block = hits[by * plan.kz:(by + 1) * plan.kz,
+                         bx * plan.tx:(bx + 1) * plan.tx]
+            assert block.size > 0
+            block += 1
+        assert (hits == 1).all()
+
+
+# (shape, dtype, the field's offset in values from an aligned address,
+# the row tile the plan takes)
+ROW_VECTOR_CASES = {
+    "450_vector": ((450, 450), torch.float32, 0, cs.ROW_TILES[0]),
+    "450_f64": ((450, 450), torch.float64, 0, cs.ROW_TILES[0]),
+    "450_bf16": ((450, 450), torch.bfloat16, 0, cs.ROW_TILES[0]),
+    "odd_nx": ((450, 451), torch.float32, 0, cs.ROW_TILES[-1]),
+    "misaligned": ((512, 512), torch.float32, 1, cs.ROW_TILES[-1]),
+    "misaligned_bf16": ((450, 450), torch.bfloat16, 1, cs.ROW_TILES[-1]),
+    "one_column": ((40, 1), torch.float64, 0, cs.ROW_TILES[-1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_VECTOR_CASES))
+def test_row_plan_takes_a_vector_where_it_fits(name, monkeypatch):
+    shape, dtype, offset, tile = ROW_VECTOR_CASES[name]
+    plan = _plan(shape, dtype, 2112, monkeypatch, offset)
+    assert tuple(plan[:4]) == tile
+    assert cs.plan_error(shape, plan) is None
+
+
+# (2D shape, plan) that the C entry refuses, and the words of plan_error's
+# reason
+K1_BAD_ROW_PLANS = {
+    "a z-march tile": ((8, 8), cs.Plan(*cs.TILES[0], 1), "instance"),
+    "no row instance": ((8, 64), cs.Plan(64, 1, 1, 2, 1), "instance"),
+    "vector past nx": ((8, 45), cs.Plan(*cs.ROW_TILES[0], 1), "vector"),
+    "no chunk": ((8, 8), cs.Plan(*cs.ROW_TILES[1], 0), "chunks"),
+    "row chunks": ((65536, 3), cs.Plan(*cs.ROW_TILES[1], 1), "chunks"),
+    "2^31 cells": ((65536, 32768), cs.Plan(*cs.ROW_TILES[0], 2), "2^31"),
+    "negative": ((8, -1), cs.Plan(*cs.ROW_TILES[1], 1), "negative"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_BAD_ROW_PLANS))
+def test_plan_error_names_what_the_c_entry_refuses_in_2d(name):
+    shape, plan, words = K1_BAD_ROW_PLANS[name]
+    assert words in cs.plan_error(shape, plan)
+    if min(shape) < 0:
+        return
+    # the plan the wrapper would take for the shape is refused only for
+    # 2^31 cells or more, which no plan takes
+    good = cs.row_plan(shape, torch.float32, lambda tile: 2112, 256)
+    assert (cs.plan_error(shape, good) is None) == (name != "2^31 cells")
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
@@ -326,6 +415,114 @@ def test_cuda_march_equals_twin_on_every_plan(dtype):
             assert torch.equal(got, want), (shape, plan)
 
 
+#: 2D shapes on the card: those of test_cuda_2d_kernel_equals_twin, then
+#: bands ragged against both row tiles, one row, one column and 512^2
+CARD_ROW_SHAPES = [(1, 1), (2, 3), (3, 2), (37, 129), (450, 450), (1, 130),
+                   (130, 1), (5, 64), (9, 450), (17, 257), (3, 258),
+                   (512, 512)]
+
+
+def _row_plans(phi):
+    """The wrapper's plan, and every row tile the field admits (a vector
+    tile: nx a multiple of its vector, phi aligned to it) with chunks of
+    1, 2, 3 rows, one row short of ny, ny and more than ny."""
+    ny = phi.shape[0]
+    plans = {cs.separable_plan_on_card(phi)}
+    for tile in cs.ROW_TILES:
+        vx = tile[3]
+        if phi.shape[1] % vx or phi.data_ptr() % (vx * phi.element_size()):
+            continue
+        plans |= {cs.Plan(*tile, ky)
+                  for ky in (1, 2, 3, max(ny - 1, 1), ny, ny + 5)}
+    return sorted(plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_cuda_row_march_equals_twin_on_every_plan(dtype):
+    _cuda_or_skip()
+    for seed, shape in enumerate(CARD_ROW_SHAPES):
+        level, phi = _random_level(shape, dtype, seed)
+        want = cs.poisson_apply_separable_ref(phi, level)
+        for plan in _row_plans(phi):
+            got = cs.separable_launch(phi, level, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_cuda_row_march_reads_nothing_outside_the_field(dtype):
+    """phi is a contiguous slice of a buffer whose rows before and after
+    it hold NaN: a read past a wall would put NaN in the result."""
+    _cuda_or_skip()
+    for seed, shape in enumerate([(1, 1), (3, 2), (1, 130), (130, 1),
+                                  (17, 257), (450, 450)]):
+        level, phi = _random_level(shape, dtype, seed)
+        ny, nx = shape
+        buf = torch.full((ny + 4, nx), float("nan"), dtype=dtype,
+                         device="cuda")
+        buf[2:-2] = phi
+        inner = buf[2:-2]
+        assert inner.is_contiguous()
+        want = cs.poisson_apply_separable_ref(phi, level)
+        for plan in _row_plans(inner):
+            got = cs.separable_launch(inner, level, plan)
+            torch.cuda.synchronize()
+            assert not bool(got.isnan().any()), (shape, plan)
+            assert torch.equal(got, want), (shape, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_cuda_2d_wrapper_counts_one_launch_of_the_row_march(dtype):
+    """The wrapper launches the row march with ``row_plan``'s plan (a row
+    tile, one wave of the card's resident blocks at 450^2), one launch in
+    its counter a call."""
+    _cuda_or_skip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tile in cs.ROW_TILES:
+        slots = cs.separable_resident_blocks("cuda", dtype, tile)
+        assert slots >= sms and slots % sms == 0
+    level, phi = _random_level((450, 450), dtype, 7)
+    plan = cs.separable_plan_on_card(phi)
+    assert tuple(plan[:4]) == cs.ROW_TILES[0]
+    bands, _, chunks = cs.grid(phi.shape, plan)
+    assert bands * chunks <= cs.separable_resident_blocks("cuda", dtype,
+                                                          plan[:4])
+    before = cs.poisson_apply_separable.launches
+    got = cs.poisson_apply_separable(phi, level)
+    torch.cuda.synchronize()
+    assert cs.poisson_apply_separable.launches == before + 1
+    assert torch.equal(got, cs.separable_launch(phi, level, plan))
+    assert torch.equal(got, cs.poisson_apply_separable_ref(phi, level))
+
+
+@pytest.mark.cuda
+def test_cuda_c_entry_refuses_what_plan_error_names_in_2d():
+    _cuda_or_skip()
+    for name, (shape, plan, words) in sorted(K1_BAD_ROW_PLANS.items()):
+        if name in ("2^31 cells", "negative"):
+            continue  # 8 GB, and no such tensor; the CPU test holds these
+        level, phi = _random_level(shape, torch.float32, 0)
+        with pytest.raises(RuntimeError, match=words):
+            cs.separable_launch(phi, level, plan)
+    # plan_error cannot see the pointers: a vector tile on a field that
+    # starts one value past an aligned address is refused by the C entry
+    level, phi = _random_level((16, 64), torch.float32, 1)
+    buf = torch.zeros(phi.numel() + 1, dtype=phi.dtype, device="cuda")
+    inner = buf[1:].view(phi.shape)
+    inner.copy_(phi)
+    plan = cs.Plan(*cs.ROW_TILES[0], 1)
+    assert cs.plan_error(inner.shape, plan) is None
+    with pytest.raises(RuntimeError):
+        cs.separable_launch(inner, level, plan)
+    assert tuple(cs.separable_plan_on_card(inner)[:4]) == cs.ROW_TILES[-1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_2d_kernel_equals_twin(dtype):
@@ -362,10 +559,11 @@ def test_cuda_march_reads_nothing_outside_the_field(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 def test_cuda_cell_kernel_matches_twin(dtype):
-    """The first 3D design (one thread per cell), kept to be timed beside
-    the march, built without FMA contraction as the march is."""
+    """The first designs (one thread per cell), kept to be timed beside
+    the marches, built without FMA contraction as the marches are."""
     _cuda_or_skip()
     for seed, shape in enumerate([(1, 2, 3), (7, 17, 65), (40, 37, 129),
                                   (37, 129)]):
