@@ -83,11 +83,20 @@ def build(name: str) -> tuple[Path, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use: a
+    span ``kernels.<name>`` in the store whose span is open
+    (``utils/timers.py``), and its counters ``kernels.builds`` and
+    ``kernels.build_s`` where nvcc ran."""
     lib = _LIBS.get(name)
     if lib is None:
-        path, _ = build(name)
-        lib = ctypes.CDLL(str(path))
+        from .utils import timers
+
+        with timers.span(f"kernels.{name}"):
+            path, seconds = build(name)
+            lib = ctypes.CDLL(str(path))
+            if seconds > 0.0:
+                timers.add("kernels.builds", 1)
+                timers.add("kernels.build_s", seconds)
         _LIBS[name] = lib
     return lib
 

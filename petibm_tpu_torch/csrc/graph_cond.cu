@@ -1,6 +1,7 @@
 // Conditional IF nodes in a CUDA graph that a stream is capturing: the
 // guard of the chunked step's loop bodies (petibm_tpu_torch/utils/graphs.py
-// IfNodes, linalg/loops.py GuardedDriver).
+// IfNodes, linalg/loops.py GuardedDriver); and the device stamps of a
+// traced step (utils/stamps.py), which a capture records as graph nodes.
 //
 // PyTorch 2.11 exposes no conditional node (its CUDAGraph has no
 // begin_capture_to_if_node), so the port adds one the way the CUDA
@@ -74,4 +75,100 @@ extern "C" int graph_if_begin(void* stream, const bool* pred, void* child,
 extern "C" int graph_if_end(void* child) {
   cudaGraph_t body;
   return cudaStreamEndCapture(static_cast<cudaStream_t>(child), &body);
+}
+
+// ---------------------------------------------------------------------
+// Device stamps (utils/stamps.py).  Each is a one-thread kernel that reads
+// the card's nanosecond clock %globaltimer and writes it, less `base` (a
+// reading taken when tracing was switched on), as a float64 into row *j of
+// a (rows, width) float64 buffer: the chunk's stats rows, so a chunk still
+// makes one host read.  *j is read when the kernel runs, so a graph replay
+// writes the row of its own step.  No launch synchronises.
+
+namespace {
+
+__device__ __forceinline__ double clock_since(unsigned long long base) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  return static_cast<double>(static_cast<long long>(now - base));
+}
+
+// mode 0: rows[*j][col] = t; mode 1 (a step's first stamp): the same, and
+// the three V-cycle columns at `aux` set to 0
+__global__ void step_stamp(double* rows, const long long* j, int width,
+                           int col, int aux, unsigned long long base,
+                           int mode) {
+  double* row = rows + (*j) * static_cast<long long>(width);
+  row[col] = clock_since(base);
+  if (mode == 1) row[aux] = row[aux + 1] = row[aux + 2] = 0.0;
+}
+
+// mode 0 (open): rows[*j][col] = t; mode 1 (close): rows[*j][col + 1] +=
+// keep * (t - rows[*j][col]), rows[*j][col + 2] += keep, keep 1 or the
+// masked copy's predicate *kept (null: 1)
+__global__ void vcycle_stamp(double* rows, const long long* j, int width,
+                             int col, unsigned long long base, int mode,
+                             const bool* kept) {
+  double* row = rows + (*j) * static_cast<long long>(width);
+  double t = clock_since(base);
+  if (mode == 0) {
+    row[col] = t;
+    return;
+  }
+  double keep = (kept == nullptr || *kept) ? 1.0 : 0.0;
+  row[col + 1] += keep * (t - row[col]);
+  row[col + 2] += keep;
+}
+
+__global__ void read_clock(long long* out) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  *out = static_cast<long long>(now);
+}
+
+// the smallest and the largest step of %globaltimer over `n` changes
+__global__ void clock_steps(long long* out, int n) {
+  unsigned long long prev, now;
+  long long lo = -1, hi = 0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(prev));
+  for (int i = 0; i < n; ++i) {
+    do {
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    } while (now == prev);
+    long long d = static_cast<long long>(now - prev);
+    if (lo < 0 || d < lo) lo = d;
+    if (d > hi) hi = d;
+    prev = now;
+  }
+  out[0] = lo;
+  out[1] = hi;
+}
+
+}  // namespace
+
+extern "C" int graph_step_stamp(void* stream, double* rows,
+                                const long long* j, int width, int col,
+                                int aux, unsigned long long base, int mode) {
+  step_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, j, width, col, aux, base, mode);
+  return cudaGetLastError();
+}
+
+extern "C" int graph_vcycle_stamp(void* stream, double* rows,
+                                  const long long* j, int width, int col,
+                                  unsigned long long base, int mode,
+                                  const bool* kept) {
+  vcycle_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, j, width, col, base, mode, kept);
+  return cudaGetLastError();
+}
+
+extern "C" int graph_read_clock(void* stream, long long* out) {
+  read_clock<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out);
+  return cudaGetLastError();
+}
+
+extern "C" int graph_clock_steps(void* stream, long long* out, int n) {
+  clock_steps<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return cudaGetLastError();
 }

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..types import Field
+from ..utils import stamps
 from .cuda_pcr import pcr, pcr_ref
 from .cuda_sweep import fused_sweep, fused_sweep_ref, sweep_aux
 
@@ -509,13 +510,16 @@ class PoissonMG:
     def cycle(self, r):
         """One V-cycle from level 0 on the rank's tensor: the whole field,
         or the rank's pressure block of a decomposed run (a level 0 at or
-        below the threshold gathered, cycled whole and cut back)."""
-        if self.part is None:
-            return self.vcycle(0, r)
-        if self.blocks:
-            return self._block_vcycle(0, r)
-        full = self.vcycle(0, self.part.gather(r, Field.P))
-        return full[self.part.block(Field.P)].contiguous()
+        below the threshold gathered, cycled whole and cut back).  A
+        traced step stamps its device time and count
+        (``utils/stamps.py``)."""
+        with stamps.vcycle():
+            if self.part is None:
+                return self.vcycle(0, r)
+            if self.blocks:
+                return self._block_vcycle(0, r)
+            full = self.vcycle(0, self.part.gather(r, Field.P))
+            return full[self.part.block(Field.P)].contiguous()
 
     def restrict(self, lvl: int, r):
         """Conservative child-sum onto level lvl+1."""

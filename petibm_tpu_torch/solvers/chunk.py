@@ -26,6 +26,15 @@ start), the k steps run through the host driver, the caps of the loops
 that overflowed double and the step is captured again
 (``chunk_overflows``).
 
+With tracing on (``trace``; ``solver.trace_spans``) a second graph is
+captured beside the plain one: the same step with its device stamps
+(``utils/stamps.py``), sharing the static buffers and ``j``, its stats
+rows ``stamps.Layout.width`` columns wider to hold them, so a chunk still
+makes one host read.  Switching tracing off goes back to the plain graph,
+which is kept as it was captured.  A chunk's host spans (``chunk.copy_in``,
+``chunk.replay``, ``chunk.read``, ``chunk.unpack``; ``chunk.capture`` with
+``warmup``, ``capture`` and ``instantiate``) go to ``solver.timers``.
+
 A capture launches nothing, so the kernel wrappers' host counters count
 no launch there (``_kernels.count_launch``), and a replay does not enter
 the wrappers: a graph captured while ``_kernels.count_on_device`` is on
@@ -53,7 +62,7 @@ the same step, in lockstep through the step's collectives:
 from __future__ import annotations
 
 import contextlib
-import time
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,7 +70,8 @@ from torch.utils import _pytree as pytree
 
 from ..linalg import loops
 from ..parallel import dist as pdist
-from ..utils import graphs
+from ..utils import graphs, stamps
+from ..utils.timers import StampBlock
 
 #: the fewest copies of a loop's body a capture lays out
 MIN_CAP = 4
@@ -146,8 +156,14 @@ class ChunkRunner:
         #: the step's loops and branches, as its warm-up ran them
         self.sites: list[loops.Site] = []
         self.graph = None
-        #: the capture's numbers: seconds, nodes, memory, caps
+        #: the capture's numbers: nodes, memory, caps
         self.info: dict = {}
+        #: whether chunks run the stamped step (``trace``), and its graph
+        #: and rows while they do
+        self.tracing = False
+        self.traced: Traced | None = None
+        #: the chunk's stats rows (``prepare``)
+        self.rows: torch.Tensor | None = None
         self.masked = masks_loops(solver)
         #: one step's collectives (``parallel/dist.py`` COUNTERS), as the
         #: capture counted them: a replay adds them on the card
@@ -178,10 +194,10 @@ class ChunkRunner:
 
     def prepare(self) -> None:
         """Warm-up, caps, capture (the module docstring's steps 1-3)."""
-        t0 = time.perf_counter()
         state = pytree.tree_map(torch.clone, self.solver.state)
         driver = loops.HostDriver(record=True)
-        with self._side(), loops.use(driver):
+        with (self.solver.timers.stage("warmup"), self._side(),
+              loops.use(driver)):
             _, stats = self.solver._step_fn(state)
         self.sites = driver.sites
         self.caps = self._agree(
@@ -194,14 +210,15 @@ class ChunkRunner:
         self.rows = torch.empty(
             (self.k, self.layout.width + len(self.sites)),
             dtype=torch.float64, device=self.device)
-        self.info["warmup_s"] = time.perf_counter() - t0
         self.capture()
 
-    def _step_into_static(self, driver) -> None:
+    def _step_into_static(self, driver, rows: torch.Tensor,
+                          st: stamps.Stamps | None = None) -> None:
         """One step from the static buffers back into them, its row into
-        ``rows[j]``; ``j += 1``."""
+        ``rows[j]`` (the stamped step's ``rows`` wider, its stamps in the
+        extra columns, ``st``); ``j += 1``."""
         state = pytree.tree_unflatten(self.static, self.spec)
-        with loops.use(driver):
+        with loops.use(driver), stamps.use(st):
             new_state, stats = self.solver._step_fn(state)
         new, spec = pytree.tree_flatten(new_state)
         if spec != self.spec:
@@ -214,89 +231,153 @@ class ChunkRunner:
                          torch.stack(overflow).to(torch.float64)])
         if row.numel() != self.rows.shape[1]:
             raise RuntimeError("the step's stats changed their layout")
-        self.rows.index_copy_(0, self.j, row.unsqueeze(0))
+        out = rows if rows is self.rows else rows.narrow(1, 0, row.numel())
+        out.index_copy_(0, self.j, row.unsqueeze(0))
+        if st is not None:
+            st.end()
         self.j.add_(1)
 
     def capture(self) -> None:
-        """The static buffers and, on the card, the step's graph."""
+        """The static buffers and, on the card, the step's graph; with
+        tracing on, the stamped step's too."""
         leaves, self.spec = pytree.tree_flatten(self.solver.state)
         self.static = [t.clone() for t in leaves]
         self.j = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.graph = None
+        self.traced = None
         if self.cuda:
-            dev = self.device
-            torch.cuda.synchronize(dev)
-            mem0 = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            pool = torch.cuda.graph_pool_handle()
-            driver = (loops.GuardedDriver(self.caps, loops.masked)
-                      if self.masked else
-                      loops.GuardedDriver(self.caps, graphs.IfNodes(dev),
-                                          graphs.capturing_graph_nodes))
-            before = pdist.counters()
-            t0 = time.perf_counter()
+            self.graph, info = self._graph(self.rows)
+            self.info.update(info)
+        self.info["caps"] = list(self.caps)
+        if self.tracing:
+            self._capture_traced()
+
+    def _graph(self, rows: torch.Tensor, st=None) -> tuple:
+        """The step captured as a CUDA graph writing ``rows`` (stamped by
+        ``st``): the instantiated graph and its nodes and memory."""
+        timers = self.solver.timers
+        dev = self.device
+        torch.cuda.synchronize(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        pool = torch.cuda.graph_pool_handle()
+        driver = (loops.GuardedDriver(self.caps, loops.masked)
+                  if self.masked else
+                  loops.GuardedDriver(self.caps, graphs.IfNodes(dev),
+                                      graphs.capturing_graph_nodes))
+        before = pdist.counters()
+        with timers.stage("capture"):
             with graphs.capture(graph, pool, self.stream):
-                self._step_into_static(driver)
-            t1 = time.perf_counter()
-            # what the capture counted is one replay's: taken back here,
-            # added per replay by ``run``
-            after = pdist.counters()
-            self.step_comm = {k: [after[k]["calls"] - v["calls"],
-                                  after[k]["bytes"] - v["bytes"]]
-                              for k, v in before.items()}
-            for k, (calls, nbytes) in self.step_comm.items():
-                pdist.COUNTERS[k][0] -= calls
-                pdist.COUNTERS[k][1] -= nbytes
+                self._step_into_static(driver, rows, st)
+        # what the capture counted is one replay's: taken back here,
+        # added per replay by ``run``
+        after = pdist.counters()
+        self.step_comm = {k: [after[k]["calls"] - v["calls"],
+                              after[k]["bytes"] - v["bytes"]]
+                          for k, v in before.items()}
+        for k, (calls, nbytes) in self.step_comm.items():
+            pdist.COUNTERS[k][0] -= calls
+            pdist.COUNTERS[k][1] -= nbytes
+        with timers.stage("instantiate"):
             graph.instantiate()
             torch.cuda.synchronize(dev)
-            top = graphs.graph_nodes(graph.raw_cuda_graph())
-            self.graph = graph
-            self.info.update(
-                capture_s=t1 - t0, instantiate_s=time.perf_counter() - t1,
-                top_nodes=top, nodes=top + sum(s.cap * s.body_nodes
-                                               for s in driver.sites),
-                peak_bytes=torch.cuda.max_memory_allocated(dev) - mem0,
-                held_bytes=torch.cuda.memory_allocated(dev) - mem0)
-        self.info["caps"] = list(self.caps)
+        top = graphs.graph_nodes(graph.raw_cuda_graph())
+        return graph, dict(
+            top_nodes=top, nodes=top + sum(s.cap * s.body_nodes
+                                           for s in driver.sites),
+            peak_bytes=torch.cuda.max_memory_allocated(dev) - mem0,
+            held_bytes=torch.cuda.memory_allocated(dev) - mem0)
+
+    # ------------------------------------------------------------------
+    def trace(self, on: bool) -> None:
+        """Run the stamped step from the next chunk on (``on``), its graph
+        captured now; or go back to the plain graph, the stamped one
+        dropped."""
+        self.tracing = bool(on)
+        if not on:
+            self.traced = None
+        elif self.traced is None and self.rows is not None:
+            self._capture_traced()
+
+    def _capture_traced(self) -> None:
+        """The stamped step's rows (the plain rows' columns, then the
+        stamps') and, on the card, its graph."""
+        layout = self.solver.stamp_layout
+        width = self.rows.shape[1]
+        rows = torch.zeros((self.k, width + layout.width),
+                           dtype=torch.float64, device=self.device)
+        st = stamps.Stamps(layout, rows, width, self.j,
+                           self.solver.timers.clock)
+        graph, info = (self._graph(rows, st) if self.cuda else (None, {}))
+        self.traced = Traced(graph, rows, st, info)
 
     # ------------------------------------------------------------------
     def run(self):
         """k steps from the solver's state.  Returns the k stats dicts,
         or None where a loop overflowed (the solver's state is then
         unchanged)."""
-        leaves, spec = pytree.tree_flatten(self.solver.state)
-        if spec != self.spec:
-            raise RuntimeError("the solver's state changed its structure "
-                               "since the capture")
-        for s, v in zip(self.static, leaves):
-            s.copy_(v)
-        self.j.zero_()
-        if self.cuda:
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+        timers = self.solver.timers
+        chunk_span = timers.current_span()
+        traced = self.traced if self.tracing else None
+        graph, rows = ((self.graph, self.rows) if traced is None
+                       else (traced.graph, traced.rows))
+        with timers.stage("chunk.copy_in"):
+            leaves, spec = pytree.tree_flatten(self.solver.state)
+            if spec != self.spec:
+                raise RuntimeError("the solver's state changed its "
+                                   "structure since the capture")
+            for s, v in zip(self.static, leaves):
+                s.copy_(v)
+            self.j.zero_()
+        with timers.stage("chunk.replay"):
+            if self.cuda:
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(self.k):
+                        graph.replay()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                for k, (calls, nbytes) in self.step_comm.items():
+                    pdist.COUNTERS[k][0] += self.k * calls
+                    pdist.COUNTERS[k][1] += self.k * nbytes
+            else:
+                guard = loops.masked if self.masked else loops.cpu_guard
+                st = None if traced is None else traced.stamps
                 for _ in range(self.k):
-                    self.graph.replay()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            for k, (calls, nbytes) in self.step_comm.items():
-                pdist.COUNTERS[k][0] += self.k * calls
-                pdist.COUNTERS[k][1] += self.k * nbytes
-        else:
-            guard = loops.masked if self.masked else loops.cpu_guard
-            for _ in range(self.k):
-                self._step_into_static(loops.GuardedDriver(self.caps, guard))
-        rows = self.rows.cpu().numpy()  # the chunk's one host read
-        width = self.layout.width
-        overflow = np.array(self._agree(
-            rows[:, width:].any(axis=0).astype(np.int64).tolist()), bool)
-        if overflow.any():
-            self.caps = [min(site.maxiter, 2 * cap) if over else cap
-                         for cap, site, over in zip(self.caps, self.sites,
-                                                    overflow)]
-            return None
-        self.solver.state = pytree.tree_unflatten(
-            [t.clone() for t in self.static], self.spec)
-        return [self.layout.unpack(r) for r in rows[:, :width]]
+                    self._step_into_static(
+                        loops.GuardedDriver(self.caps, guard), rows, st)
+        with timers.stage("chunk.read"):
+            host = rows.cpu().numpy()  # the chunk's one host read
+        with timers.stage("chunk.unpack"):
+            width = self.layout.width
+            ends = width + len(self.sites)
+            overflow = np.array(self._agree(
+                host[:, width:ends].any(axis=0).astype(np.int64).tolist()),
+                bool)
+            if overflow.any():
+                self.caps = [min(site.maxiter, 2 * cap) if over else cap
+                             for cap, site, over in zip(self.caps,
+                                                        self.sites,
+                                                        overflow)]
+                return None
+            if traced is not None:
+                timers.keep_stamps(StampBlock(
+                    chunk_span, self.solver.ite + 1,
+                    traced.stamps.layout.names, host[:, ends:].copy()))
+            self.solver.state = pytree.tree_unflatten(
+                [t.clone() for t in self.static], self.spec)
+            return [self.layout.unpack(r) for r in host[:, :width]]
+
+
+@dataclasses.dataclass
+class Traced:
+    """The stamped step of a chunk runner: its graph (None on the CPU),
+    its rows and stamps, and the capture's nodes and memory."""
+
+    graph: object
+    rows: torch.Tensor
+    stamps: stamps.Stamps
+    info: dict
 

@@ -112,7 +112,8 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         """The dense E B1 H blocks at the body's first coordinates and
         their inverse (JAX decoupledibpm.py:88-95, 150-155)."""
         mats = dense_ebnh_blocks(self._full_windows, self.mesh.dim, self.dt)
-        return mats, BlockInverse(mats, self.dtype, self.device)
+        with self.timers.stage("forces.invert"):
+            return mats, BlockInverse(mats, self.dtype, self.device)
 
     def _make_force_solver(self, fopts: dict) -> None:
         """The force solve, as the JAX package chooses it: the dense one

@@ -93,6 +93,7 @@ V-cycle's kernels have no instances of, raises ``NotImplementedError``
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -122,8 +123,9 @@ from ..parallel.dist import (GroupSum, LocalMesh, Partition,
 from ..parallel.multihost import local_rank, maybe_initialize
 from ..timeintegration import create_time_integration
 from ..types import Field
+from ..utils import stamps
 from ..utils.profiling import chain_phases
-from ..utils.timers import StageTimers
+from ..utils.timers import StageTimers, StampBlock
 from .chunk import ChunkRunner, StatsLayout, scalar_stats
 
 VEL_NAMES = ("u", "v", "w")
@@ -263,7 +265,8 @@ class NavierStokesSolver:
                                    for _ in range(self.diff_ti.n_explicit))
 
         self._create_operators(config)
-        self._create_solvers(config)
+        with self.timers.stage("solvers"):
+            self._create_solvers(config)
         self._extra_init(config)
         self._create_probes(config)
         self._step_fn = self._build_step()
@@ -703,29 +706,87 @@ class NavierStokesSolver:
         return profile_stages(self, steps=steps, warmup=warmup, path=path)
 
     # ------------------------------------------------------------------
+    @functools.cached_property
+    def stamp_layout(self) -> stamps.Layout:
+        """The columns of a traced step's device stamps: one after each
+        phase of ``_profile_phases``."""
+        return stamps.Layout([name for name, _ in self._profile_phases()])
+
+    def trace_spans(self, on: bool = True) -> None:
+        """Switch tracing on or off (``utils/timers.py``,
+        ``utils/stamps.py``).  On: the card's clock put on the host's,
+        the span records and device stamps kept from now on, and a chunked
+        run's stamped step captured beside the plain one.  Off: the
+        aggregates alone, and chunks replay the plain graph captured
+        before, which was kept as it was."""
+        if bool(on) == self.timers.tracing:
+            return
+        if on:
+            with self.timers.stage("trace_spans"):
+                with self.timers.stage("calibrate"):
+                    clock = stamps.Clock.calibrate(self.device)
+                self.timers.start_tracing(clock)
+                if self._chunk is not None:
+                    self._chunk.trace(True)
+            return
+        self.timers.stop_tracing()
+        if self._chunk is not None:
+            self._chunk.trace(False)
+
     def advance(self) -> None:
         self.t += self.dt
         self.ite += 1
-        with self.timers.stage("step"):
-            self.state, stats = self._step_fn(self.state)
+        timers = self.timers
+        with timers.stage("step"):
+            if not timers.tracing:
+                self.state, stats = self._step_fn(self.state)
+            else:
+                st = stamps.Stamps.one_row(self.stamp_layout, timers.clock,
+                                           self.device)
+                with stamps.use(st):
+                    self.state, stats = self._step_fn(self.state)
+                    st.end()
+                timers.keep_stamps(StampBlock(timers.current_span(),
+                                              self.ite, st.layout.names,
+                                              st.rows))
         self._record_stats(self.ite, stats, 1)
+
+    def _device_allocs(self):
+        """The caching allocator's allocations from the driver so far
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        stats = torch.cuda.memory_stats_as_nested_dict(self.device)
+        return stats["num_device_alloc"]
 
     def advance_chunk(self) -> None:
         """Advance ``steps_per_dispatch`` steps in one host round trip
-        (JAX ``navierstokes.py:729-738``; ``solvers/chunk.py``)."""
+        (JAX ``navierstokes.py:729-738``; ``solvers/chunk.py``), in the
+        span ``chunk``; while tracing, its counter ``device_allocs``."""
+        timers = self.timers
+        with timers.stage("chunk"):
+            allocs = self._device_allocs() if timers.tracing else None
+            self._advance_chunk()
+            if allocs is not None:
+                timers.add("device_allocs", self._device_allocs() - allocs)
+
+    def _advance_chunk(self) -> None:
         k = self.steps_per_dispatch
         if self._chunk is None:
-            self._chunk = ChunkRunner(self)
-            self._chunk.prepare()
-        with self.timers.stage("step"):
-            stats = self._chunk.run()
+            with self.timers.stage("chunk.capture"):
+                self._chunk = ChunkRunner(self)
+                self._chunk.trace(self.timers.tracing)
+                self._chunk.prepare()
+        stats = self._chunk.run()
         if stats is None:
             # a loop overflowed its cap: the k steps through the host
             # driver, then the step captured again with the caps doubled
             self.chunk_overflows += 1
-            for _ in range(k):
-                self.advance()
-            self._chunk.capture()
+            with self.timers.stage("chunk.rerun"):
+                for _ in range(k):
+                    self.advance()
+                with self.timers.stage("chunk.capture"):
+                    self._chunk.capture()
             return
         self.t += k * self.dt
         self.ite += k

@@ -6,7 +6,7 @@ chaining the phases for 3 steps equals 3 production steps bit for bit on
 the CPU; the phase names are the JAX package's; ``profile_stages`` leaves
 the solver's state alone and writes the JAX package's table;
 ``--profile-stages 2`` through the Navier-Stokes CLI prints and writes
-it; ``trace`` writes a Chrome trace of the step.
+it.
 """
 
 import numpy as np
@@ -128,20 +128,3 @@ def test_profile_stages_cli(tmp_path, capsys):
                  "solvePoisson", "update", "_total", "_fused"):
         assert f"{name}:" in out
     assert (tmp_path / "output" / "logs" / "stages-2.txt").is_file()
-
-
-def test_trace_writes_chrome_trace(tmp_path):
-    """``trace`` records the production step with ``torch.profiler`` and
-    leaves the solver's state alone."""
-    import json
-
-    from petibm_tpu_torch.utils.profiling import trace
-
-    solver = _make("navierstokes", tmp_path)
-    before = [x.clone() for x in _leaves(solver.state)]
-    path = trace(solver, str(tmp_path / "trace"), steps=2)
-    events = json.load(open(path))["traceEvents"]
-    assert any("aten::" in str(e.get("name", "")) for e in events)
-    for x, y in zip(_leaves(solver.state), before):
-        assert torch.equal(x, y)
-    solver.close()
