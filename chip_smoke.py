@@ -8,10 +8,11 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 0. require CUDA; print the torch/CUDA versions and the card's name and
    power limit;
-1. build the hand-written kernels K1-K7 from ``petibm_tpu_torch/csrc``
-   (and ``graph_cond.cu``, phase 14's IF nodes), one nvcc per source,
-   all at once, and print the registers and spills
-   of the line kernels (K4/K5, K6/K7) and of K1, K2 and K3, instance by
+1. build the hand-written kernels K1-K7 and the delta engine's E and H
+   from ``petibm_tpu_torch/csrc`` (and ``graph_cond.cu``, phase 14's IF
+   nodes), one nvcc per source, all at once, and print the registers and
+   spills of the line kernels (K4/K5, K6/K7), of E and H, and of K1, K2
+   and K3, instance by
    instance (``ptxas -v``); an instance of a march (K1's z march and
    row march, K2, K3) that spills fails the phase;
 2. hold each kernel against its plain PyTorch twin on the card at the
@@ -156,6 +157,15 @@ Phases, in order (any failure raises and the script exits non-zero):
    rank's state bit-equal to its single steps, K4/K5 counted on the
    card inside the graphs.
 
+16. E and H of the factor delta engine (``ibm/cuda_delta.py``) at the
+   benchmark's sphere and cylinder shapes in float32 and float64: each
+   kernel bit-equal to its plain twin on the card (H as the step's u + dt
+   H f, twice bit-equal), timed beside its bound (the window cells once),
+   its twin and the dense factor-row matmuls it replaced
+   (``library_ms``); one ``{"delta": ...}`` JSON line.  Alone:
+   ``python -c "import chip_smoke, tempfile;
+   chip_smoke.phase16_delta(tempfile.mkdtemp())"``.
+
 A kernel wrapper counts a launch where it launches its kernel: on the
 host outside a CUDA graph's capture, and on the card too while
 ``count_on_device`` is on, which a graph captures beside the kernel
@@ -201,9 +211,10 @@ KL_RE550 = os.path.join(REPO, "examples", "data", "koumoutsakos_leonard_"
 #: rms and the largest deviation of Cd(t) from the K&L curve, t in [0.5, 3]
 KL_RMS, KL_MAX = 0.06, 0.12
 #: the hand kernels' sources, and the IF-node helper of the chunked step
-#: (csrc/graph_cond.cu: no TPU kernel's port)
+#: and the delta engine's E and H (csrc/graph_cond.cu, csrc/delta_ops.cu:
+#: no TPU kernel's port)
 KERNEL_SOURCES = ("poisson_separable", "zblocked_helmholtz", "convection3d",
-                  "line_sweep", "tridiag_pcr", "graph_cond")
+                  "line_sweep", "tridiag_pcr", "graph_cond", "delta_ops")
 #: the sources of a march and the names of its kernels (csrc/march.cuh's
 #: zmarch, K1's 2D rowmarch; K3's own), none of whose instances may spill
 MARCH_SOURCES = {"poisson_separable": ("zmarch", "rowmarch"),
@@ -541,7 +552,7 @@ def phase1_build() -> None:
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
     # registers and spills, instance by instance (ptxas -v)
     spills = []
-    for source in ("line_sweep", "tridiag_pcr", *MARCH_SOURCES):
+    for source in ("line_sweep", "tridiag_pcr", "delta_ops", *MARCH_SOURCES):
         log = _kernels.BUILD_LOGS.get(source)
         if log is None:
             print(f"{source} was already built: no ptxas report")
@@ -3699,6 +3710,160 @@ def phase15_distributed(tmp: str, card: str) -> None:
         raise AssertionError("phase 15: " + "; ".join(failures))
 
 
+#: the benchmark's configurations E and H are held at (benchmark/configs):
+#: the sphere (160x130x130, 1963 points) and the cylinder (450^2, 314)
+DELTA_SHAPES = ("sphere3d_re300", "cylinder2d_re200")
+
+
+def _delta_case(name: str, dtype):
+    """The benchmark configuration's delta engine, windows, random fields
+    and forces on the card (numpy seed 7)."""
+    import numpy as np
+    import torch
+
+    from petibm_tpu_torch.ibm.body import read_lagrangian_points
+    from petibm_tpu_torch.ibm.interp import make_delta_op
+    from petibm_tpu_torch.mesh import StaggeredMesh
+    from petibm_tpu_torch.types import Field
+
+    configs = os.path.join(REPO, "benchmark", "configs")
+    with open(os.path.join(configs, f"{name}.json")) as fh:
+        cfg = json.load(fh)
+    mesh = StaggeredMesh(cfg)
+    X = read_lagrangian_points(os.path.join(configs, cfg["body"]))
+    op = make_delta_op(mesh, n_pts=X.shape[0], dtype=dtype, device=DEVICE)
+    win = op.windows(torch.as_tensor(X, dtype=dtype, device=DEVICE))
+    rng = np.random.default_rng(7)
+    fields = [torch.as_tensor(rng.standard_normal(mesh.shape(Field(c))),
+                              dtype=dtype, device=DEVICE)
+              for c in range(mesh.dim)]
+    f = torch.as_tensor(rng.standard_normal((X.shape[0], mesh.dim)),
+                        dtype=dtype, device=DEVICE)
+    return op, win, fields, f
+
+
+def _window_cells(win: dict, shapes: list) -> int:
+    """Distinct cells the windows touch, over the components: the cells E
+    must read and H must read and write."""
+    import torch
+
+    total = 0
+    for c, shape in enumerate(shapes):
+        idx = win[c]["idx"].long()
+        if len(shape) == 3:
+            lin = ((idx[2][:, :, None, None] * shape[1]
+                    + idx[1][:, None, :, None]) * shape[2]
+                   + idx[0][:, None, None, :])
+        else:
+            lin = idx[1][:, :, None] * shape[1] + idx[0][:, None, :]
+        total += int(torch.unique(lin).numel())
+    return total
+
+
+def phase16_delta(tmp: str) -> dict:
+    """E and H of the factor delta engine (``ibm/cuda_delta.py``) at the
+    benchmark's sphere and cylinder shapes, float32 (the benchmark's) and
+    float64: each kernel against its plain twin on the card bit for bit
+    (H as the step's fold, u + dt H f, in place), H twice bit-equal; then
+    each timed (device median per call, ``_time_ms``) beside its bound
+    (the window cells read, and for H written, once; the windows and
+    forces read once), the twin and today's dense factor-row matmuls
+    (``interpolate_rows`` / ``spread_rows`` + the add, ``library_ms``:
+    the port no longer calls them undecomposed, held to the kernel to
+    1e-5 relative in float32, 1e-12 in float64).  One ``{"delta": ...}``
+    JSON line."""
+    import torch
+
+    from petibm_tpu_torch.ibm import cuda_delta
+
+    dt = 0.005
+    records = {}
+    for name in DELTA_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            op, win, fields, f = _delta_case(name, dtype)
+            label = f"{name} {str(dtype)[6:]}"
+            size = fields[0].element_size()
+            n_pts, dim = f.shape
+            K = win[0]["idx"].shape[-1]
+            cells = _window_cells(win, [x.shape for x in fields])
+            windows = dim * dim * n_pts * K * (4 + size)
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+
+            # E: kernel, twin, library
+            got = cuda_delta.interpolate(fields, win)
+            want = cuda_delta.interpolate_ref(fields, win)
+            lib = op.interpolate_rows(dict(zip("uvw", fields)), win)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} E: kernel != twin")
+            lib_rel = _rel_err(lib, got)
+            if not lib_rel <= tol:
+                raise AssertionError(f"{label} E: library rel {lib_rel}")
+            work = (cells * size + windows + n_pts * dim * size,
+                    3 * dim * n_pts * K ** dim, dtype)
+            rec_e = _time_delta(
+                f"{label} E", lambda a: cuda_delta.interpolate(a, win),
+                lambda a: cuda_delta.interpolate_ref(a, win),
+                lambda a: op.interpolate_rows(dict(zip("uvw", a)), win),
+                fields, work)
+            rec_e["library_rel"] = lib_rel
+
+            # H: u + dt H f in place, twice; the twin's; the library's
+            runs = []
+            for _ in range(2):
+                out = [x.clone() for x in fields]
+                cuda_delta.spread(f, win, out, dt)
+                runs.append(out)
+            twin = [x.clone() for x in fields]
+            cuda_delta.spread_ref(f, win, twin, dt)
+            alone = [torch.zeros_like(x) for x in fields]
+            cuda_delta.spread(f, win, alone)
+            lib = op.spread_rows(f, win)
+            torch.cuda.synchronize()
+            for a, b, t in zip(*runs, twin):
+                if not (torch.equal(a, b) and torch.equal(a, t)):
+                    raise AssertionError(f"{label} H: kernel runs or twin "
+                                         "differ")
+            lib_rel = max(_rel_err(lib[k], h) for k, h in zip("uvw", alone))
+            if not lib_rel <= tol:
+                raise AssertionError(f"{label} H: library rel {lib_rel}")
+            scratch = [x.clone() for x in fields]
+            work = (2 * cells * size + windows + n_pts * dim * size,
+                    4 * dim * n_pts * K ** dim, dtype)
+
+            def library(a):
+                h = op.spread_rows(f, win)
+                return [x + dt * h[k] for x, k in zip(a, "uvw")]
+
+            rec_h = _time_delta(
+                f"{label} H", lambda a: cuda_delta.spread(f, win, a, dt),
+                lambda a: cuda_delta.spread_ref(f, win, a, dt), library,
+                scratch, work)
+            rec_h["library_rel"] = lib_rel
+            records[label] = {"E": rec_e, "H": rec_h, "points": n_pts,
+                              "window_cells": cells}
+            del op, win, fields, f, runs, twin, alone, lib, scratch
+            torch.cuda.empty_cache()
+    print(json.dumps({"delta": records, "card": _smi()}))
+    return records
+
+
+def _time_delta(label: str, kernel, twin, library, arg, work) -> dict:
+    """A delta kernel timed beside its bound, its twin and the dense
+    factor-row matmuls it replaced, each on ``arg``."""
+    ms = _time_ms(kernel, arg)[0]
+    plain_ms = _time_ms(twin, arg, 20, batch=5, warm=3)[0]
+    library_ms = _time_ms(library, arg, 40, batch=5, warm=3)[0]
+    bound_ms, bound_by = _bound(*work)
+    print(f"{label}: kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}: {work[0] / 1e6:.2f} MB, {work[1] / 1e6:.2f} Mop), "
+          f"share {bound_ms / ms:.3f}; twin {plain_ms * 1e3:.2f} us; "
+          f"library (dense factor rows) {library_ms * 1e3:.2f} us "
+          f"(device, median per call)")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": library_ms}
+
+
 def main() -> int:
     import tempfile
 
@@ -3736,6 +3901,8 @@ def main() -> int:
         done(14)
         phase15_distributed(tmp, _smi())
         done(15)
+        phase16_delta(tmp)
+        done(16)
     # each main path's launches, counted from 0 just before it ran
     runs = ([counts_2d, counts_sphere, counts_tgv] + counts_mg
             + counts_coupled + counts_moving + counts_windowed

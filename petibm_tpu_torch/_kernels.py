@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: fma).  The builds report each kernel's registers and spills (ptxas -v).
 EXTRA_FLAGS = {name: ("--fmad=false", "-Xptxas", "-v")
                for name in ("line_sweep", "tridiag_pcr", "poisson_separable",
-                            "zblocked_helmholtz", "convection3d")}
+                            "zblocked_helmholtz", "convection3d",
+                            "delta_ops")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: the compiler's messages of each source built by this process
@@ -156,7 +157,10 @@ def check_dtype(name: str, t: torch.Tensor, bf16: bool = False) -> None:
 
 def _counters() -> dict:
     """Each kernel's launch counter: (module, wrapper, attribute); K2's
-    scaled launches (K2b) are counted again apart from all of K2's."""
+    scaled launches (K2b) are counted again apart from all of K2's; E and
+    H are the delta engine's interpolation and spreading (one launch does
+    every component)."""
+    from .ibm import cuda_delta
     from .linalg import cuda_pcr, cuda_sweep
     from .operators import cuda_stencil as cs
 
@@ -165,7 +169,9 @@ def _counters() -> dict:
             "K2 scaled": (cs, "zblocked_helmholtz_apply", "scaled_launches"),
             "K3": (cs, "convection3d_apply", "launches"),
             "K4/K5": (cuda_sweep, "fused_sweep", "launches"),
-            "K6/K7": (cuda_pcr, "pcr", "launches")}
+            "K6/K7": (cuda_pcr, "pcr", "launches"),
+            "E": (cuda_delta, "interpolate", "launches"),
+            "H": (cuda_delta, "spread", "launches")}
 
 
 def launch_counts() -> dict:

@@ -6,23 +6,31 @@ and ``make_delta_op`` :337; reference: createdelta.cpp:28-208,
 decoupledibpm.cpp:149-216).  The tensor-product delta is kept separated
 as per-direction banded factor matrices S_d of shape (nPts, n_d), each row
 holding one Lagrangian point's 1D kernel weights on its ±w gridline
-window.  Then
+window; the dense E B1 H blocks and the diagonal reductions read them.
+Beside them the windows keep the K forms, per component the (dim, N, K)
+gridlines ``idx`` and weights ``wd`` (delta) and ``wv`` (volume), and
+the window box; undecomposed, E and H are the hand kernels of
+``ibm/cuda_delta.py`` over the K^dim cells of each point's window (their
+plain twins on the CPU), and H adds into the array its caller adds it to
+(``spread``'s ``into``).
 
-  interpolation (2D):  E u = sum_x ( (S_y^vol @ u) * S_x^vol )
-  spreading (2D):      H f = (S_y^delta * f)^T @ S_x^delta
-
-as dense matmuls.  Above WINDOWED_THRESHOLD points ``auto`` picks
-``WindowedDeltaOp``, which keeps only the (N, K) window weights and
-expands them to factor rows chunk by chunk inside each apply.
+Above WINDOWED_THRESHOLD points ``auto`` picks ``WindowedDeltaOp``,
+which keeps only the (N, K) window weights and expands them to factor
+rows chunk by chunk inside each apply, with dense matmuls.
 
 Decomposed over a process group (``set_mesh``), each rank keeps the
 global windows and works on its block alone: the factor engine
 contracts its block's columns of the (N, n_d) factor rows
-(``local_windows``), the windowed engine the part of each window box
-inside its block (``WindowedDeltaOp._span``).  In both, E sums the
-ranks' partials (one all-reduce) and H writes the rank's block with no
-communication; the diagonal reductions (diag(E B1 H)) read the global
-windows, as undecomposed.
+(``local_windows``) as dense matmuls,
+
+  interpolation (2D):  E u = sum_x ( (S_y^vol @ u) * S_x^vol )
+  spreading (2D):      H f = (S_y^delta * f)^T @ S_x^delta,
+
+the windowed engine the part of each window box inside its block
+(``WindowedDeltaOp._span``).  In both, E sums the ranks' partials (one
+all-reduce) and H writes the rank's block with no communication; the
+diagonal reductions (diag(E B1 H)) read the global windows, as
+undecomposed.
 """
 
 from __future__ import annotations
@@ -32,9 +40,17 @@ import torch
 
 from ..mesh import StaggeredMesh
 from ..types import Field
+from . import cuda_delta
 from .delta import KERNELS
 
 VEL_NAMES = ("u", "v", "w")
+
+
+def _fold(h: dict, into: dict | None, scale: float | None) -> dict:
+    """into + scale * h, either left out where None."""
+    if scale is not None:
+        h = {k: scale * x for k, x in h.items()}
+    return h if into is None else {k: into[k] + h[k] for k in h}
 
 
 class DeltaOp:
@@ -115,14 +131,32 @@ class DeltaOp:
                                                 torch.zeros_like(w))))
         return out
 
-    def windows(self, X) -> dict:
-        """Banded factor matrices for all components:
-        {c: {"sd": [per-dir (N, n_d)], "sv": [per-dir (N, n_d)]}}; sd holds
-        the 1D delta weights, sv additionally the component cell widths
-        (prod over directions of sv = delta * cell volume, the E scaling)."""
+    def _boxes(self, weights: dict, whole: bool) -> list:
+        """(lo, hi) of each component's window box per direction, in
+        ``weights``' order: the gridlines the windows touch (one read to
+        the host), or with ``whole`` the whole grid line (no read)."""
+        if whole:
+            return [(0, self.n[c][d]) for c, dirs in weights.items()
+                    for d in range(len(dirs))]
+        ends = torch.stack([torch.stack([idx.min(), idx.max()])
+                            for dirs in weights.values()
+                            for idx, _ in dirs]).tolist()
+        return [(lo, hi + 1) for lo, hi in ends]
+
+    def windows(self, X, whole: bool = False) -> dict:
+        """Banded factor matrices and the K forms for all components:
+        {c: {"sd", "sv": [per-dir (N, n_d)], "idx", "wd", "wv": (dim, N,
+        K), "lo", "hi": [per-dir int]}}.  sd holds the 1D delta weights,
+        sv additionally the component cell widths (prod over directions
+        of sv = delta * cell volume, the E scaling); idx, wd and wv the
+        same per window slot (idx int32, direction x first); lo / hi the
+        window box (``_boxes``: ``whole`` for a moving body, whose step
+        reads nothing to the host)."""
+        weights = self._window_weights(X)
+        boxes = iter(self._boxes(weights, whole))
         out = {}
-        for c, dirs in self._window_weights(X).items():
-            sd_d, sv_d = [], []
+        for c, dirs in weights.items():
+            sd_d, sv_d, wv_d, box = [], [], [], []
             for d, (idx, w) in enumerate(dirs):
                 # the K window weights into banded (N, n) rows
                 sd = torch.zeros((idx.shape[0], self.n[c][d]),
@@ -130,7 +164,13 @@ class DeltaOp:
                                  device=self.device).scatter_add_(1, idx, w)
                 sd_d.append(sd)
                 sv_d.append(sd * self.dl[c][d][None, :])
-            out[c] = {"sd": sd_d, "sv": sv_d}
+                wv_d.append(w * self.dl[c][d][idx])
+                box.append(next(boxes))
+            out[c] = {"sd": sd_d, "sv": sv_d,
+                      "idx": torch.stack([i for i, _ in dirs]).to(torch.int32),
+                      "wd": torch.stack([w for _, w in dirs]),
+                      "wv": torch.stack(wv_d),
+                      "lo": [b[0] for b in box], "hi": [b[1] for b in box]}
         return out
 
     def set_mesh(self, part) -> None:
@@ -139,22 +179,42 @@ class DeltaOp:
         self.part = part
 
     def local_windows(self, win: dict) -> dict:
-        """The factor rows' columns of the rank's block (all of them when
-        undecomposed)."""
+        """The factor rows' columns of the rank's block (the windows
+        themselves when undecomposed)."""
         if self.part is None:
             return win
         out = {}
         for c, w in win.items():
             cols = [slice(*self.part.range(Field(c), d))
                     for d in range(self.dim)]
-            out[c] = {k: [m[:, cols[d]] for d, m in enumerate(v)]
-                      for k, v in w.items()}
+            out[c] = {k: [m[:, cols[d]] for d, m in enumerate(w[k])]
+                      for k in ("sd", "sv")}
         return out
 
     # ------------------------------------------------------------------
+    def _per_window(self, t: torch.Tensor) -> bool:
+        """E and H take the kernels over each window (``cuda_delta``):
+        undecomposed, and ``t`` not batched by ``torch.func.vmap`` (the
+        coupled solver's set-up-time Schur columns, which keep the dense
+        contraction of the factor rows)."""
+        return (self.part is None
+                and not torch._C._functorch.is_batchedtensor(t))
+
     def interpolate(self, q: dict, win: dict) -> torch.Tensor:
         """E u: volume-weighted interpolation onto the Lagrangian points;
-        returns (N, dim), summed over the ranks of a decomposed run."""
+        returns (N, dim).  The kernel over each window
+        (``cuda_delta.interpolate``, ``_per_window``), else dense
+        matmuls of the factor rows (decomposed: the rank's columns,
+        summed over the ranks)."""
+        if self._per_window(q[VEL_NAMES[0]]):
+            return cuda_delta.interpolate(
+                [q[VEL_NAMES[c]] for c in range(self.dim)], win)
+        out = self.interpolate_rows(q, win)
+        return out if self.part is None else self.part.allreduce_sum(out)
+
+    def interpolate_rows(self, q: dict, win: dict) -> torch.Tensor:
+        """E u as dense matmuls of the (N, n_d) factor rows (the rank's
+        columns of a decomposed run: its partial sum)."""
         cols = []
         for c in range(self.dim):
             w = win[c]
@@ -165,12 +225,30 @@ class DeltaOp:
                 t = torch.einsum("pz,zyx->pyx", w["sv"][2], arr)
                 t = torch.einsum("py,pyx->px", w["sv"][1], t)
             cols.append(torch.sum(t * w["sv"][0], dim=1))
-        out = torch.stack(cols, dim=1)
-        return out if self.part is None else self.part.allreduce_sum(out)
+        return torch.stack(cols, dim=1)
 
-    def spread(self, f: torch.Tensor, win: dict) -> dict:
+    def spread(self, f: torch.Tensor, win: dict, into: dict | None = None,
+               scale: float | None = None) -> dict:
         """H f = Delta^T f: spread the (N, dim) Lagrangian forces onto the
-        grids; returns a velocity-space dict."""
+        grids; returns a velocity-space dict, ``into + scale * H f`` where
+        given (B_1 = dt I folds in as ``scale``).  The kernel adds over
+        each window box (``cuda_delta.spread``, ``_per_window``), into
+        ``into``'s arrays in place, else into zero grids; else dense
+        matmuls of the factor rows (decomposed: the rank's columns)."""
+        if self._per_window(f):
+            out = (dict(into) if into is not None else
+                   {VEL_NAMES[c]: torch.zeros(
+                       tuple(self.n[c][d] for d in reversed(range(self.dim))),
+                       dtype=self.dtype, device=self.device)
+                    for c in range(self.dim)})
+            cuda_delta.spread(f, win, [out[VEL_NAMES[c]]
+                                       for c in range(self.dim)], scale)
+            return out
+        return _fold(self.spread_rows(f, win), into, scale)
+
+    def spread_rows(self, f: torch.Tensor, win: dict) -> dict:
+        """H f as dense matmuls of the (N, n_d) factor rows (the rank's
+        block of a decomposed run)."""
         out = {}
         for c in range(self.dim):
             w = win[c]
@@ -252,23 +330,17 @@ class WindowedDeltaOp(DeltaOp):
         or with ``whole`` each direction's whole grid line (``lo`` 0,
         ``hi`` n; no read: a moving body's, the same in every step)."""
         weights = self._window_weights(X)
-        if whole:
-            ends = [[0, self.n[c][d] - 1] for c, dirs in weights.items()
-                    for d in range(len(dirs))]
-        else:
-            ends = torch.stack([torch.stack([idx.min(), idx.max()])
-                                for dirs in weights.values()
-                                for idx, _ in dirs]).tolist()
-        out, k = {}, 0
+        boxes = iter(self._boxes(weights, whole))
+        out = {}
         for c, dirs in weights.items():
             ent = {"idx": [], "sd": [], "sv": [], "lo": [], "hi": []}
             for d, (idx, w) in enumerate(dirs):
                 ent["idx"].append(idx)
                 ent["sd"].append(w)
                 ent["sv"].append(w * self.dl[c][d][idx])
-                ent["lo"].append(int(ends[k][0]))
-                ent["hi"].append(int(ends[k][1]) + 1)
-                k += 1
+                lo, hi = next(boxes)
+                ent["lo"].append(lo)
+                ent["hi"].append(hi)
             out[c] = ent
         return out
 
@@ -333,10 +405,12 @@ class WindowedDeltaOp(DeltaOp):
         out = torch.stack(cols, dim=1)
         return out if self.part is None else self.part.allreduce_sum(out)
 
-    def spread(self, f: torch.Tensor, win: dict) -> dict:
+    def spread(self, f: torch.Tensor, win: dict, into: dict | None = None,
+               scale: float | None = None) -> dict:
         """H f chunk by chunk on the window box (its part in the rank's
         block), the chunks summed in order, then placed in the
-        component's zero grid (the rank's block)."""
+        component's zero grid (the rank's block); ``into + scale * H f``
+        where given, as the factor engine's."""
         out = {}
         for c in range(self.dim):
             w = win[c]
@@ -358,7 +432,7 @@ class WindowedDeltaOp(DeltaOp):
                     g = torch.einsum("pzy,px->zyx", t, s[0])
                 acc = g if acc is None else acc + g
             full[self._local(c, lo, hi)] = acc
-        return out
+        return _fold(out, into, scale)
 
 
 def dense_ebnh_blocks(win: dict, dim: int, dt: float) -> list:

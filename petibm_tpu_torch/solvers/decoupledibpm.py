@@ -174,7 +174,8 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
         spread forces in the velocity RHS (decoupledibpm.cpp:245), the
         force system (:253-285) and the no-slip correction u** = u* +
         B_N H df (:288-299) after the momentum solve; f += df in the
-        update."""
+        update.  Both spreads add into the step's own rhs1 and u* (in
+        place on the factor engine undecomposed, ``DeltaOp.spread``)."""
         ns = dict(super()._profile_phases())
 
         def moveIB(ctx):
@@ -184,9 +185,8 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
 
         def rhsVelocity(ctx):
             rhs1, state = self._rhs_velocity(ctx["state"])
-            hf = self.delta.spread(state["f"], ctx["win"])
-            return dict(ctx, state=state,
-                        rhs1=tmap(lambda r, x: r + x, rhs1, hf))
+            return dict(ctx, state=state, rhs1=self.delta.spread(
+                state["f"], ctx["win"], into=rhs1))
 
         def rhsForces(ctx):
             rhsf = -self.delta.interpolate(ctx["ustar"], ctx["win"])
@@ -203,9 +203,13 @@ class DecoupledIBPMSolver(ForcesLogMixin, NavierStokesSolver):
             return dict(ctx, fsol=fsol, df=fsol.x)
 
         def applyNoSlip(ctx):
-            hdf = self.bn(self.delta.spread(ctx["df"], ctx["win"]))
-            return dict(ctx, ustar=tmap(lambda u, x: u + x, ctx["ustar"],
-                                        hdf))
+            if self.bn_order == 1:  # B_1 = dt I, folded into the spread
+                ustar = self.delta.spread(ctx["df"], ctx["win"],
+                                          into=ctx["ustar"], scale=self.dt)
+            else:
+                hdf = self.bn(self.delta.spread(ctx["df"], ctx["win"]))
+                ustar = tmap(lambda u, x: u + x, ctx["ustar"], hdf)
+            return dict(ctx, ustar=ustar)
 
         def update(ctx):
             ctx = ns["update"](ctx)

@@ -315,9 +315,8 @@ class IBPMSolver(ForcesLogMixin, NavierStokesSolver):
 
         def rhsVelocity(ctx):
             rhs1, state = self._rhs_velocity(ctx["state"])
-            hf = self.delta.spread(state["f"], self._win)
-            return dict(ctx, state=state,
-                        rhs1=tmap(lambda r, x: r + x, rhs1, hf))
+            return dict(ctx, state=state, rhs1=self.delta.spread(
+                state["f"], self._win, into=rhs1))
 
         def rhsPoisson(ctx):
             state, ustar = ctx["state"], ctx["ustar"]

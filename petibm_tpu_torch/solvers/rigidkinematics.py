@@ -172,11 +172,10 @@ class RigidKinematicsSolver(DecoupledIBPMSolver):
 
     def _windows(self, state):
         X = self.set_coordinates(state["t"])
-        # the windowed engine's box is the whole grid (JAX's span): the
-        # step reads nothing to the host and keeps its shapes, so a
-        # chunk of steps captures it
-        full = (self.delta.windows(X, whole=True) if self.delta.windowed
-                else self.delta.windows(X))
+        # the window box is the whole grid (JAX's span for the windowed
+        # engine): the step reads nothing to the host and keeps its
+        # shapes, so a chunk of steps captures it
+        full = self.delta.windows(X, whole=True)
         return full, self.delta.local_windows(full)
 
     def _body_velocity(self, state):

@@ -646,8 +646,9 @@ def test_cuda_chunk_replays_without_sync(tmp_path):
 @pytest.mark.cuda
 def test_cuda_chunk_counts_launches_on_device(tmp_path):
     """With ``count_on_device`` on, a replayed chunk counts K1's launches
-    on the card (2 + p_iters a step) while its wrappers' host counters,
-    and a capture's, stay 0."""
+    on the card (2 + p_iters a step), and the delta engine's E (1 a step)
+    and H (2 a step), while its wrappers' host counters, and a capture's,
+    stay 0."""
     _card()
     from petibm_tpu_torch import _kernels
 
@@ -669,5 +670,6 @@ def test_cuda_chunk_counts_launches_on_device(tmp_path):
     assert solver.chunk_overflows == 0
     hist = solver.stats_history[4:]
     assert counts == dict({k: 0 for k in counts},
-                          K1=sum(2 + h["p_iters"] for h in hist))
+                          K1=sum(2 + h["p_iters"] for h in hist),
+                          E=len(hist), H=2 * len(hist))
     solver.close()
