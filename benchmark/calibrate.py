@@ -9,9 +9,11 @@ to the drawn one, as ``run.py`` runs them), and the two checked chunks'
 gaps to the float64 reference: the program's readings (the lower ones).
 For the first ``--control-seeds`` seeds also the control's gaps: the
 reference in TF32 in the program's place on the same inputs (the upper
-readings).  Prints a JSON line a seed, then the largest program reading
-and the smallest control reading of each number.  The benchmark's own
-runs never run this.
+readings).  The reference is the one the cell's configuration names,
+found by the harness (``harness.resolve_reference``), so a new cell is
+calibrated with no edit here.  Prints a JSON line a seed, then the
+largest program reading and the smallest control reading of each number.
+The benchmark's own runs never run this.
 """
 
 from __future__ import annotations

@@ -10,24 +10,47 @@ fill a window and are traced.  Its correctness limits are in
 ``<benchmark>/limits/<cell>.json`` and each per-layer metric's reader in
 ``<benchmark>/metrics/<metric>.py``.
 
-The window drives the port's ``DecoupledIBPMSolver.run()`` chunk after
-chunk (``stepsPerDispatch`` steps a chunk, one host read each), timed by
-the host clock with the card synchronised at both ends.  Three chunks'
-outputs are then checked against ``reference/ibpm.py`` worked out in
-float64 on the card: the first chunk of the run and, once the window
-has closed, one more replay of the window's captured step from the same
-seeded start, both against the reference from that start; and a window
-chunk drawn from the seed, from the solver's own state before it (the
-reference cannot follow a whole run of thousands of steps: the wake
-amplifies any rounding).
+The configuration file names the rest:
+
+- ``solver``: the port's solver class, one of ``SOLVERS``;
+- ``reference``: ``"<module>.<Class>"`` under ``reference/``
+  (``ibpm.DecoupledIBPM`` where the key is absent);
+- ``body``: one stationary body's points file, or ``bodies``: the
+  solver's list as written, each ``file`` beside the configuration
+  (a moving body's ``kinematics`` with it), or neither: no body;
+- ``flow.initialVelocity`` and ``flow.initialPressure``: numbers or
+  expressions in x, y, z, t, nu (``inputs.py``).
+
+A reference class keeps this interface (``reference/__init__.py``):
+``Class(config, body, *, device, precision="float64"|"tf32")``, ``body``
+the ``body`` file's points or None; ``dim`` and ``lines[c][d].coord``,
+the coordinates of component c's points along direction d with a ghost
+at each end; ``initial_state(fields)`` (numpy leaves with the layout of
+the port's state for that solver, from velocity fields and ``p`` where
+given), ``load(host_state)`` and ``advance(state, k)``, whose state holds
+``q`` and ``p`` (and ``f`` with bodies) as tensors.
+
+The window drives the port solver's ``run()`` chunk after chunk
+(``stepsPerDispatch`` steps a chunk, one host read each), timed by the
+host clock with the card synchronised at both ends.  Three chunks'
+outputs are then checked against the reference worked out in float64 on
+the card: the first chunk of the run and, once the window has closed,
+one more replay of the window's captured step from the same seeded
+start, both against the reference from that start; and a window chunk
+drawn from the seed, from the solver's own state before it (the
+reference cannot follow a whole run of thousands of steps: the flow
+amplifies any rounding).  The fields compared are those both states
+hold; each needs its ``<field>_gap`` limit.
 """
 
 from __future__ import annotations
 
 import copy
 import gc
+import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import sys
@@ -37,15 +60,24 @@ import time
 import numpy as np
 
 from . import inputs
-from .reference.ibpm import DecoupledIBPM
 
 #: top-level module names a run may not hold once its window has closed:
 #: the JAX package and JAX itself
 FORBIDDEN = ("jax", "jaxlib", "flax", "petibm_tpu")
-#: the fields the check compares, each as its largest gap to the
-#: reference over the two checked chunks, relative to the reference's
-#: largest magnitude
+#: the fields the check compares where both states hold them, each as its
+#: largest gap to the reference over the checked chunks, relative to the
+#: reference's largest magnitude
 CHECKED = ("u", "v", "w", "p", "f")
+#: a configuration's ``solver``: the port's module and class
+SOLVERS = {
+    "decoupledibpm": ("decoupledibpm", "DecoupledIBPMSolver"),
+    "ibpm": ("ibpm", "IBPMSolver"),
+    "rigidkinematics": ("rigidkinematics", "RigidKinematicsSolver"),
+    "navierstokes": ("navierstokes", "NavierStokesSolver"),
+}
+#: the reference where a configuration names none
+DEFAULT_REFERENCE = "ibpm.DecoupledIBPM"
+_REFERENCE = re.compile(r"^([A-Za-z_]\w*)\.([A-Za-z_]\w*)$", re.ASCII)
 
 
 class CellError(RuntimeError):
@@ -103,16 +135,58 @@ class Cell:
                           if name in m.get("workloads", [name])]
         self.metrics_dir = os.path.join(base, "metrics")
 
+    def _beside(self, name: str) -> str:
+        return os.path.join(os.path.dirname(self.config_path), name)
+
     def body(self) -> tuple:
-        """The body file's path and its points."""
-        path = os.path.join(os.path.dirname(self.config_path),
-                            self.case["body"])
+        """The ``body`` file's path and its points; (None, None) where the
+        configuration has no ``body``."""
+        if "body" not in self.case:
+            return None, None
+        path = self._beside(self.case["body"])
+        if not os.path.isfile(path):
+            raise CellError(f"missing file {path}")
         with open(path) as fh:
             n = int(fh.readline())
             pts = np.loadtxt(fh, ndmin=2)
         if len(pts) != n:
             raise CellError(f"{path}: {len(pts)} points, its header says {n}")
         return path, pts
+
+    def bodies(self) -> list | None:
+        """The solver's ``bodies``: one stationary points body from
+        ``body``; ``bodies`` as written, each ``file`` beside the
+        configuration; None for neither."""
+        if "body" in self.case and "bodies" in self.case:
+            raise CellError(f"{self.config_path}: both body and bodies")
+        if "body" in self.case:
+            return [{"type": "points", "file": self.body()[0]}]
+        if "bodies" not in self.case:
+            return None
+        out = copy.deepcopy(self.case["bodies"])
+        for b in out:
+            if "file" in b:
+                b["file"] = self._beside(b["file"])
+                if not os.path.isfile(b["file"]):
+                    raise CellError(f"missing file {b['file']}")
+        return out
+
+    def solver_class(self):
+        """The port's solver class the configuration's ``solver`` names,
+        imported here."""
+        name = self.case.get("solver")
+        if name not in SOLVERS:
+            raise CellError(f"{self.config_path}: solver {name!r}; one of "
+                            + ", ".join(SOLVERS))
+        module, cls = SOLVERS[name]
+        mod = importlib.import_module(f"petibm_tpu_torch.solvers.{module}")
+        return getattr(mod, cls)
+
+    def reference_class(self):
+        """The reference class the configuration's ``reference`` names
+        (``<module>.<Class>`` under ``reference/``)."""
+        return resolve_reference(self.case.get("reference",
+                                               DEFAULT_REFERENCE))
 
     def solver_config(self, workdir: str) -> dict:
         """The solver's configuration: the case with the traffic's solver
@@ -122,10 +196,28 @@ class Cell:
                for k in ("mesh", "flow", "parameters")}
         cfg = deep_merge(cfg, {"parameters": self.traffic["parameters"]})
         cfg["parameters"].update(nt=0, nsave=10 ** 9, nrestart=10 ** 9)
-        cfg["bodies"] = [{"type": "points", "file": self.body()[0]}]
+        bodies = self.bodies()
+        if bodies is not None:
+            cfg["bodies"] = bodies
         cfg.update(directory=workdir, output=os.path.join(workdir, "output"),
                    logs=os.path.join(workdir, "logs"))
         return cfg
+
+
+def resolve_reference(name: str):
+    """``"<module>.<Class>"``: the class in ``reference/<module>.py``."""
+    m = _REFERENCE.match(str(name))
+    if m is None:
+        raise CellError(f"reference {name!r}: write <module>.<Class>")
+    try:
+        mod = importlib.import_module(f"{__package__}.reference.{m[1]}")
+    except ModuleNotFoundError as exc:
+        raise CellError(f"reference {name!r}: no module reference/"
+                        f"{m[1]}.py ({exc})") from None
+    if not isinstance(getattr(mod, m[2], None), type):
+        raise CellError(f"reference {name!r}: reference/{m[1]}.py has no "
+                        f"class {m[2]}")
+    return getattr(mod, m[2])
 
 
 # ----------------------------------------------------------------------
@@ -152,15 +244,14 @@ def forbidden_modules() -> list:
 
 
 def gaps(out: dict, ref: dict) -> dict:
-    """Each field's largest gap between a program state and the
-    reference's, over the reference's largest magnitude."""
+    """Each field both states hold: its largest gap between a program
+    state and the reference's, over the reference's largest
+    magnitude."""
     res = {}
     for key in CHECKED:
-        if key in ("p", "f"):
-            a, b = out.get(key), ref[key]
-        elif key in ref["q"]:
-            a, b = out["q"][key], ref["q"][key]
-        else:
+        a, b = ((out.get(key), ref.get(key)) if key in ("p", "f")
+                else (out["q"].get(key), ref["q"].get(key)))
+        if a is None or b is None:
             continue
         b = np.asarray(b, np.float64)
         scale = float(np.abs(b).max())
@@ -176,9 +267,11 @@ def _to_host(state) -> dict:
 
 
 def _reference_numpy(st: dict) -> dict:
-    return {"q": {k: v.double().cpu().numpy() for k, v in st["q"].items()},
-            "p": st["p"].double().cpu().numpy(),
-            "f": st["f"].double().cpu().numpy()}
+    out = {"q": {k: v.double().cpu().numpy() for k, v in st["q"].items()}}
+    for key in ("p", "f"):
+        if key in st:
+            out[key] = st[key].double().cpu().numpy()
+    return out
 
 
 def _read_metric(cell: Cell, name: str, run) -> float | None:
@@ -218,6 +311,17 @@ class Run:
 
 
 # ----------------------------------------------------------------------
+def start_state(cell: Cell, cfg: dict, body, seed: int) -> dict:
+    """The seeded start (numpy leaves), made by the reference on the
+    host from the case's initial fields and the seed's bumps."""
+    grid = cell.reference_class()(cfg, body, device="cpu")
+    try:
+        fields = inputs.initial_fields(grid, cell.case, seed)
+    except inputs.ExpressionError as exc:
+        raise CellError(f"{cell.config_path}: {exc}") from None
+    return grid.initial_state(fields)
+
+
 def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
              *, t_start: float, device: str = "cuda", fault=None,
              control: bool = False) -> dict:
@@ -236,12 +340,12 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             raise CellError(f"{cell.chips} cards wanted, "
                             f"{torch.cuda.device_count()} present")
     from petibm_tpu_torch.convert import state_from_numpy
-    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
 
+    Solver = cell.solver_class()
     workdir = tempfile.mkdtemp(prefix="petibm-bench-")
     try:
         return _run(cell, seed, seconds, trace, t_start, device, fault,
-                    control, workdir, DecoupledIBPMSolver, state_from_numpy)
+                    control, workdir, Solver, state_from_numpy)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -259,14 +363,18 @@ def _run(cell, seed, seconds, trace, t_start, device, fault, control,
     clock = [("imports", time.perf_counter())]
     cfg = cell.solver_config(workdir)
     _, body = cell.body()
-    grid = DecoupledIBPM(cfg, body, device="cpu")
-    start = grid.initial_state(inputs.initial_velocity(grid, cell.case,
-                                                       seed))
+    start = start_state(cell, cfg, body, seed)
     clock.append(("inputs", time.perf_counter()))
     solver = Solver(cfg, device=device)
     sync()
     clock.append(("solver", time.perf_counter()))
     _same_layout(_to_host(solver.state), start)
+    missing = [f"{key}_gap" for key in CHECKED
+               if (key in start or key in start["q"])
+               and f"{key}_gap" not in cell.limits]
+    if missing:
+        raise CellError(f"{cell.name}: compared with no limit: "
+                        + ", ".join(missing))
     solver.state = state_from_numpy(start, solver.device, solver.dtype)
     ite0, t0 = solver.ite, solver.t
     if fault is not None:
@@ -442,7 +550,8 @@ def _check(cell, cfg, body, device, start_in, from_start, held,
     its limit.  ``control``: the same chunks by the control
     (``precision="tf32"``), its gaps to the reference."""
     k = cell.k
-    ref = DecoupledIBPM(cfg, body, device=device)
+    Reference = cell.reference_class()
+    ref = Reference(cfg, body, device=device)
     want = [ref.advance(ref.load(start_in), k),
             ref.advance(ref.load(held[0]), k)]
     want = [_reference_numpy(w) for w in want]
@@ -456,7 +565,7 @@ def _check(cell, cfg, body, device, start_in, from_start, held,
               for key, val in worst.items()}
     control_gaps = None
     if control:
-        ctl = DecoupledIBPM(cfg, body, device=device, precision="tf32")
+        ctl = Reference(cfg, body, device=device, precision="tf32")
         outs = [ctl.advance(ctl.load(start_in), k),
                 ctl.advance(ctl.load(held[0]), k)]
         control_gaps = {}

@@ -1,6 +1,6 @@
 """Fixtures of the benchmark's tests: the repository's spec, and a
 throwaway benchmark root whose cells are small cuts of the two
-configurations, runnable on the CPU."""
+configurations and a small Taylor-Green vortex, runnable on the CPU."""
 
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 #: the CPU cuts: the cylinder on 32 x 32 stretched cells (24 points,
-#: Re 40), the sphere on 24 x 20 x 16 (100 points, Re 100)
-SMALL2D, SMALL3D = "small2d", "small3d"
+#: Re 40), the sphere on 24 x 20 x 16 (100 points, Re 100); the bodyless
+#: 2D Taylor-Green vortex on 32 x 32 periodic cells
+SMALL2D, SMALL3D, TGV2D = "small2d", "small3d", "tgv2d"
 
 
 @pytest.fixture
@@ -67,6 +68,52 @@ def _write_body(path: str, pts: list) -> None:
             fh.write("\t".join(f"{v:.10e}" for v in p) + "\n")
 
 
+def periodic_bcs(dim: int, walled=()) -> list:
+    """Every face PERIODIC, but the axes in ``walled``: DIRICHLET, the
+    upper face's u 1 (a moving lid), every other value 0."""
+    out = []
+    for d in range(dim):
+        for side, loc in enumerate(("Minus", "Plus")):
+            entry = {"location": "xyz"[d] + loc}
+            for c in range(dim):
+                entry["uvw"[c]] = (
+                    ["DIRICHLET", 1.0 if (c == 0 and side) else 0.0]
+                    if d in walled else ["PERIODIC", 0.0])
+            out.append(entry)
+    return out
+
+
+def tgv_case(dim: int, n: int) -> dict:
+    """The Taylor-Green vortex of the examples (taylorgreenvortex2dRe100,
+    taylorgreenvortex3dRe1600) on n^dim periodic cells of [-pi, pi]^dim:
+    its symbolic initial fields, the port's Navier-Stokes solver and the
+    Navier-Stokes reference, no body; a configuration file's keys."""
+    if dim == 2:
+        vel = ["cos(x) * sin(y)", "- sin(x) * cos(y)"]
+        p, nu = "- (cos(2*x) + cos(2*y)) / 4", 0.01
+    else:
+        vel = ["sin(x) * cos(y) * cos(z)", "- cos(x) * sin(y) * cos(z)", "0"]
+        p, nu = "(cos(2*x) + cos(2*y)) * (cos(2*z) + 2) / 16", 0.000625
+    solve = {"type": "CPU", "atol": 1e-06, "rtol": 0.0, "max_it": 10000}
+    return {
+        "source": "a CPU cut of the Taylor-Green vortex", "case": "tests",
+        "assumed": {"dtype": "float32"}, "reduced": ["mesh"],
+        "solver": "navierstokes", "reference": "navierstokes.NavierStokes",
+        "inputs": {"amplitude": 0.05, "sigma": 0.6, "sites": [2] * dim,
+                   "region": [[-2.0, 2.0]] * dim, "why": "tests"},
+        "mesh": [{"direction": "xyz"[d], "start": -math.pi,
+                  "subDomains": [{"end": math.pi, "cells": n,
+                                  "stretchRatio": 1.0}]}
+                 for d in range(dim)],
+        "flow": {"nu": nu, "initialVelocity": vel, "initialPressure": p,
+                 "boundaryConditions": periodic_bcs(dim)},
+        "parameters": {"dt": 0.01, "startStep": 0, "dtype": "float32",
+                       "convection": "ADAMS_BASHFORTH_2",
+                       "diffusion": "CRANK_NICOLSON",
+                       "velocitySolver": dict(solve),
+                       "poissonSolver": dict(solve, max_it=20000)}}
+
+
 def small_cases() -> dict:
     """The two cuts, as configuration files (the real files' keys)."""
     cyl = load(os.path.join(ROOT, "benchmark", "configs",
@@ -97,7 +144,8 @@ def small_cases() -> dict:
     small3["flow"]["nu"] = 0.01
     small3["parameters"]["dt"] = 0.01
     small3["inputs"]["region"] = [[0.6, 1.5], [-0.6, 0.6], [-0.6, 0.6]]
-    return {SMALL2D: (small2, _circle(24)), SMALL3D: (small3, _sphere(100))}
+    return {SMALL2D: (small2, _circle(24)), SMALL3D: (small3, _sphere(100)),
+            TGV2D: (tgv_case(2, 32), None)}
 
 
 #: the CPU cells: (configuration, traffic, steps a chunk, solver options)
@@ -115,7 +163,8 @@ SMALL_TRAFFIC = {
 }
 SMALL_CELLS = {f"{SMALL2D}.fdm_k4": (SMALL2D, "fdm_k4"),
                f"{SMALL3D}.fdm_k4": (SMALL3D, "fdm_k4"),
-               f"{SMALL2D}.mgcg_k2": (SMALL2D, "mgcg_k2")}
+               f"{SMALL2D}.mgcg_k2": (SMALL2D, "mgcg_k2"),
+               f"{TGV2D}.fdm_k4": (TGV2D, "fdm_k4")}
 #: limits for the CPU cuts (float32 against the float64 reference over a
 #: few steps of a small grid)
 SMALL_LIMITS = {"u_gap": 1e-4, "v_gap": 1e-4, "w_gap": 1e-4,
@@ -138,7 +187,8 @@ def make_small_root(root: str) -> str:
                     ignore=shutil.ignore_patterns("__pycache__"))
     for name, (case, pts) in small_cases().items():
         dump(os.path.join(base, "configs", name + ".json"), case)
-        _write_body(os.path.join(base, "configs", case["body"]), pts)
+        if pts is not None:
+            _write_body(os.path.join(base, "configs", case["body"]), pts)
         spec["configs"].append({"name": name, "source": "a CPU cut",
                                 "file": f"benchmark/configs/{name}.json",
                                 "reduced": case["reduced"], "why": "tests"})

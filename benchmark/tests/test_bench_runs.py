@@ -1,6 +1,7 @@
 """Whole runs on the CPU cuts: the last line's keys, the control that
-must fail, a run with the timed path broken underneath, and a cell,
-traffic mix and per-layer metric added by new files and entries alone."""
+must fail, a run with the timed path broken underneath, the existing
+configurations' set-up as it was, and cells, traffic mixes and per-layer
+metrics added by new files and entries alone."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from conftest import SMALL_CELLS, dump, load
+from conftest import SMALL_CELLS, dump, load, tgv_case
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
@@ -115,7 +116,8 @@ def _altered(step):
 
 @pytest.mark.parametrize("fault", [_unchanged, _altered],
                          ids=["state_unchanged", "answer_altered"])
-@pytest.mark.parametrize("cell", ["small2d.fdm_k4", "small3d.fdm_k4"])
+@pytest.mark.parametrize("cell", ["small2d.fdm_k4", "small3d.fdm_k4",
+                                  "tgv2d.fdm_k4"])
 def test_a_broken_step_is_not_correct(small_root, cell, fault):
     """The rest of a run with the timed path broken underneath: the
     check reads it as not correct.  (A half batch and the exchange
@@ -160,6 +162,96 @@ def test_cells_and_metrics_are_added_by_files(small_root):
     assert steps == 3 * res["attempted"]
     assert "pressure_iters" not in res["metrics"]
     assert "window_overflows" not in res["metrics"]
+
+
+@pytest.mark.parametrize("cell", ["cylinder2d_re200.fdm_k100",
+                                  "sphere3d_re300.fdm_k10"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_the_cells_start_as_before(cell, seed):
+    """The two configurations name no reference and one body: the
+    decoupled solver, ``ibpm.DecoupledIBPM``, the solver configuration
+    the harness always built, and the start ``DecoupledIBPM`` built
+    directly makes, bit for bit."""
+    import numpy as np
+
+    from benchmark import inputs
+    from benchmark.reference.ibpm import DecoupledIBPM
+    from conftest import ROOT
+    from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+
+    c = harness.Cell(ROOT, harness.load_spec(ROOT), cell)
+    assert c.solver_class() is DecoupledIBPMSolver
+    assert c.reference_class() is DecoupledIBPM
+    cfg = c.solver_config("/run")
+    path, body = c.body()
+    want = {k: c.case[k] for k in ("mesh", "flow")}
+    want["parameters"] = dict(c.case["parameters"],
+                              **c.traffic["parameters"], nt=0,
+                              nsave=10 ** 9, nrestart=10 ** 9)
+    want["bodies"] = [{"type": "points", "file": path}]
+    assert {k: v for k, v in cfg.items()
+            if k not in ("directory", "output", "logs")} == want
+    grid = DecoupledIBPM(cfg, body, device="cpu")
+    direct = grid.initial_state(inputs.initial_velocity(grid, c.case, seed))
+    got = harness.start_state(c, cfg, body, seed)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert set(a) == set(b)
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, tuple):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        else:
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    same(got, direct)
+
+
+def _add_tgv3d(root: str) -> str:
+    """A bodyless, fully periodic Navier-Stokes configuration at 16^3
+    with symbolic initial velocity and pressure, BiCGStab + Jacobi
+    velocity and FDM pressure, 3 steps a chunk: new files and entries."""
+    spec = load(os.path.join(root, "BENCHMARK.json"))
+    base = os.path.join(root, spec["paths"][0])
+    case = tgv_case(3, 16)
+    assert "body" not in case and "bodies" not in case
+    dump(os.path.join(base, "configs", "tgv3d.json"), case)
+    dump(os.path.join(base, "traffic", "bicgstab_k3.json"), {
+        "why": "BiCGStab + Jacobi velocity, FDM pressure, 3 steps a chunk",
+        "parameters": {"stepsPerDispatch": 3,
+                       "velocitySolver": {"kspType": "bicgstab",
+                                          "pc": "jacobi"}},
+        "spinup_chunks": 1, "min_chunks": 3, "trace_chunks": 1})
+    dump(os.path.join(base, "limits", "tgv3d.bicgstab_k3.json"),
+         {"u_gap": 1e-4, "v_gap": 1e-4, "w_gap": 1e-4, "p_gap": 1e-4})
+    spec["configs"].append({"name": "tgv3d", "source": "a test",
+                            "file": "benchmark/configs/tgv3d.json",
+                            "reduced": case["reduced"], "why": "a test"})
+    spec["workloads"].append({"name": "tgv3d.bicgstab_k3",
+                              "config": "tgv3d", "traffic": "bicgstab_k3",
+                              "chips": 1, "why": "a test"})
+    dump(os.path.join(root, "BENCHMARK.json"), spec)
+    return "tgv3d.bicgstab_k3"
+
+
+def test_a_navierstokes_cell_is_added_by_files(small_root):
+    """The port's NavierStokesSolver against ``navierstokes.NavierStokes``,
+    added without editing a file: correct, the control fails its limits,
+    and a broken step reads not correct."""
+    cell = _add_tgv3d(small_root)
+    res = _run(small_root, cell, control=True)
+    assert res["correct"], res["checks"]
+    assert list(res["checks"]) == ["u_gap", "v_gap", "w_gap", "p_gap"]
+    limits = {k: c["limit"] for k, c in res["checks"].items()}
+    assert any(v > limits[k] for k, v in res["control"].items())
+    lower = max(c["value"] / c["limit"] for c in res["checks"].values())
+    upper = max(v / limits[k] for k, v in res["control"].items())
+    assert upper > 10 * lower
+    for fault in (_unchanged, _altered):
+        assert _run(small_root, cell, fault=fault)["correct"] is False
 
 
 @pytest.mark.cuda

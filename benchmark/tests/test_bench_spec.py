@@ -117,6 +117,13 @@ def test_bounds_cells_and_metrics(spec):
 
 
 def test_config_files_hold_their_reductions(spec):
+    """Each configuration file: its reductions and source as the spec
+    has them, the keys the harness reads, a solver of ``SOLVERS``, a
+    reference that resolves (``ibpm.DecoupledIBPM`` where none is
+    named), and one ``body``, a ``bodies`` list, or neither."""
+    from benchmark import harness
+
+    assert harness.DEFAULT_REFERENCE == "ibpm.DecoupledIBPM"
     base = spec["paths"][0]
     files = [c["file"] for c in spec["configs"]]
     assert len(files) == len(set(files))
@@ -125,9 +132,18 @@ def test_config_files_hold_their_reductions(spec):
         case = load(os.path.join(ROOT, c["file"]))
         assert case["reduced"] == c["reduced"]
         assert case["source"] == c["source"]
-        for key in ("mesh", "flow", "parameters", "body", "inputs",
-                    "assumed"):
+        for key in ("mesh", "flow", "parameters", "inputs", "assumed",
+                    "solver"):
             assert key in case, key
+        assert set(case) <= {"source", "case", "assumed", "reduced",
+                             "solver", "reference", "body", "bodies",
+                             "inputs", "mesh", "flow", "parameters"}
+        assert not ("body" in case and "bodies" in case)
+        assert case["solver"] in harness.SOLVERS
+        ref = harness.resolve_reference(
+            case.get("reference", "ibpm.DecoupledIBPM"))
+        for attr in ("initial_state", "load", "advance"):
+            assert callable(getattr(ref, attr)), attr
 
 
 def test_every_cell_finds_its_files(spec):
@@ -136,8 +152,13 @@ def test_every_cell_finds_its_files(spec):
     for w in spec["workloads"]:
         cell = harness.Cell(ROOT, spec, w["name"])
         path, pts = cell.body()
-        assert path.startswith(os.path.join(ROOT, spec["paths"][0]))
-        assert pts.shape[1] == len(cell.case["mesh"])
+        bodies = cell.bodies() or []
+        for b in bodies:
+            if "file" in b:
+                assert b["file"].startswith(os.path.join(
+                    ROOT, spec["paths"][0]))
+        if path is not None:
+            assert pts.shape[1] == len(cell.case["mesh"])
         for key in ("spinup_chunks", "min_chunks", "trace_chunks", "why"):
             assert key in cell.traffic
         assert cell.k == cell.traffic["parameters"]["stepsPerDispatch"]
@@ -145,8 +166,9 @@ def test_every_cell_finds_its_files(spec):
             assert os.path.isfile(os.path.join(cell.metrics_dir,
                                                m["name"] + ".py"))
         dims = len(cell.case["mesh"])
-        want = {"u_gap", "v_gap", "p_gap", "f_gap"} | (
-            {"w_gap"} if dims == 3 else set())
+        want = {"u_gap", "v_gap", "p_gap"} | (
+            {"w_gap"} if dims == 3 else set()) | (
+            {"f_gap"} if bodies else set())
         assert want <= set(cell.limits)
 
 
