@@ -94,19 +94,21 @@ __device__ __forceinline__ double clock_since(unsigned long long base) {
 }
 
 // mode 0: rows[*j][col] = t; mode 1 (a step's first stamp): the same, and
-// the three V-cycle columns at `aux` set to 0
+// the regions' `naux` columns from `aux` on set to 0
 __global__ void step_stamp(double* rows, const long long* j, int width,
-                           int col, int aux, unsigned long long base,
-                           int mode) {
+                           int col, int aux, int naux,
+                           unsigned long long base, int mode) {
   double* row = rows + (*j) * static_cast<long long>(width);
   row[col] = clock_since(base);
-  if (mode == 1) row[aux] = row[aux + 1] = row[aux + 2] = 0.0;
+  if (mode == 1)
+    for (int i = 0; i < naux; ++i) row[aux + i] = 0.0;
 }
 
-// mode 0 (open): rows[*j][col] = t; mode 1 (close): rows[*j][col + 1] +=
-// keep * (t - rows[*j][col]), rows[*j][col + 2] += keep, keep 1 or the
-// masked copy's predicate *kept (null: 1)
-__global__ void vcycle_stamp(double* rows, const long long* j, int width,
+// A region's three columns from `col`: its open stamp, its summed ns, its
+// count.  mode 0 (open): rows[*j][col] = t; mode 1 (close):
+// rows[*j][col + 1] += keep * (t - rows[*j][col]), rows[*j][col + 2] +=
+// keep, keep 1 or the masked copy's predicate *kept (null: 1)
+__global__ void region_stamp(double* rows, const long long* j, int width,
                              int col, unsigned long long base, int mode,
                              const bool* kept) {
   double* row = rows + (*j) * static_cast<long long>(width);
@@ -148,17 +150,18 @@ __global__ void clock_steps(long long* out, int n) {
 
 extern "C" int graph_step_stamp(void* stream, double* rows,
                                 const long long* j, int width, int col,
-                                int aux, unsigned long long base, int mode) {
+                                int aux, int naux, unsigned long long base,
+                                int mode) {
   step_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, j, width, col, aux, base, mode);
+      rows, j, width, col, aux, naux, base, mode);
   return cudaGetLastError();
 }
 
-extern "C" int graph_vcycle_stamp(void* stream, double* rows,
+extern "C" int graph_region_stamp(void* stream, double* rows,
                                   const long long* j, int width, int col,
                                   unsigned long long base, int mode,
                                   const bool* kept) {
-  vcycle_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+  region_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       rows, j, width, col, base, mode, kept);
   return cudaGetLastError();
 }

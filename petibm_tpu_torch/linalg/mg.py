@@ -513,7 +513,7 @@ class PoissonMG:
         below the threshold gathered, cycled whole and cut back).  A
         traced step stamps its device time and count
         (``utils/stamps.py``)."""
-        with stamps.vcycle():
+        with stamps.region("vcycle"):
             if self.part is None:
                 return self.vcycle(0, r)
             if self.blocks:

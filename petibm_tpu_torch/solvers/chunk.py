@@ -363,9 +363,10 @@ class ChunkRunner:
                                                         overflow)]
                 return None
             if traced is not None:
+                layout = traced.stamps.layout
                 timers.keep_stamps(StampBlock(
-                    chunk_span, self.solver.ite + 1,
-                    traced.stamps.layout.names, host[:, ends:].copy()))
+                    chunk_span, self.solver.ite + 1, layout.names,
+                    host[:, ends:].copy(), layout.regions))
             self.solver.state = pytree.tree_unflatten(
                 [t.clone() for t in self.static], self.spec)
             return [self.layout.unpack(r) for r in host[:, :width]]

@@ -411,7 +411,8 @@ class NavierStokesSolver:
                     return tmap(lambda a, b: a / b, r, diag_mom)
 
             self.v_solver = make_solver(self.A_momentum, vopts, M=M_mom,
-                                        reduce=self._reduce)
+                                        reduce=self._reduce,
+                                        region="krylov.velocity")
         self.warm_start = bool(params.get("warmStart", True))
         self.warm_start_poisson = bool(params.get("warmStartPoisson", True))
         if not self._skip_base_poisson:
@@ -589,8 +590,10 @@ class NavierStokesSolver:
         gp = self.grad(p)
         rhs1 = tmap(lambda u, g: u / dt - g, q, gp)
         if self.conv_ti.explicit_coeffs:
+            with stamps.region("convection"):
+                nq = self.convect(q, bcstate)
             # history tuple, newest first
-            conv = (tmap(lambda x: -x, self.convect(q, bcstate)),) + conv[:-1]
+            conv = (tmap(lambda x: -x, nq),) + conv[:-1]
             for c, h in zip(self.conv_ti.explicit_coeffs, conv):
                 rhs1 = tmap(lambda r, x: r + c * x, rhs1, h)
         if self.diff_ti.explicit_coeffs:
@@ -748,7 +751,7 @@ class NavierStokesSolver:
                     st.end()
                 timers.keep_stamps(StampBlock(timers.current_span(),
                                               self.ite, st.layout.names,
-                                              st.rows))
+                                              st.rows, st.layout.regions))
         self._record_stats(self.ite, stats, 1)
 
     def _device_allocs(self):

@@ -5,11 +5,17 @@ A traced step writes 2 + P stamps into row ``j`` of a float64 buffer, P
 the step's phases (``solver._profile_phases()``): one at its start, one
 after each phase (``chain_phases``, ``utils/profiling.py``) and one at
 its end, after a chunk step's write-back and stats row
-(``solvers/chunk.py``).  Three more columns hold the V-cycle's open
-stamp, its summed device nanoseconds and its count (``PoissonMG.cycle``,
-``linalg/mg.py``); the step's first stamp sets them to 0.  In a masked
-loop copy (``loops.masked``) a V-cycle counts only where the copy is
-kept, as ``_kernels.count_on_device`` counts its ``kept`` launches.
+(``solvers/chunk.py``).  Then three columns for each accumulating region
+of ``REGIONS``: its open stamp, its summed device nanoseconds and its
+count (``region``); the step's first stamp sets them to 0.  The regions:
+``vcycle``, a V-cycle of the pressure solve (``PoissonMG.cycle``,
+``linalg/mg.py``); ``krylov.velocity``, an iteration of the velocity
+solve's Krylov body (``linalg/krylov.py``, named where
+``solvers/navierstokes.py`` builds the solve); ``convection``, the
+convective term, its ghost extension with K3 or its 2D twin
+(``NavierStokesSolver._rhs_velocity``).  In a masked loop copy
+(``loops.masked``) a region counts only where the copy is kept, as
+``_kernels.count_on_device`` counts its ``kept`` launches.
 
 On the card a stamp is a one-thread kernel (``csrc/graph_cond.cu``) that
 reads ``%globaltimer`` and stores it, less the clock's ``base``, as a
@@ -46,6 +52,9 @@ from .. import _kernels
 TRIES = 20
 #: the stamps of the step being run or captured (``use``), innermost last
 _CURRENT: list = []
+#: the accumulating regions of a traced step, in the order of their
+#: columns (the module docstring)
+REGIONS = ("vcycle", "krylov.velocity", "convection")
 
 
 def current():
@@ -71,8 +80,9 @@ def _entries():
     """The C entry points of the stamp kernels, their signatures set."""
     lib = _kernels.library("graph_cond")
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-    sigs = {"graph_step_stamp": [ptr, ptr, ptr, i32, i32, i32, u64, i32],
-            "graph_vcycle_stamp": [ptr, ptr, ptr, i32, i32, u64, i32, ptr],
+    sigs = {"graph_step_stamp": [ptr, ptr, ptr, i32, i32, i32, i32, u64,
+                                 i32],
+            "graph_region_stamp": [ptr, ptr, ptr, i32, i32, u64, i32, ptr],
             "graph_read_clock": [ptr, ptr],
             "graph_clock_steps": [ptr, ptr, i32]}
     out = {}
@@ -134,13 +144,15 @@ class Clock:
 
 class Layout:
     """The stamp columns of one step: ``start``, one after each phase,
-    ``end``; then the V-cycle's open stamp, nanoseconds and count."""
+    ``end``; then each region's open stamp, nanoseconds and count from
+    its column in ``regions``."""
 
     def __init__(self, phases: list):
         self.phases = list(phases)
         self.names = ["start", *self.phases, "end"]
-        self.vcycle = len(self.names)
-        self.width = self.vcycle + 3
+        self.regions = {name: len(self.names) + 3 * i
+                        for i, name in enumerate(REGIONS)}
+        self.width = len(self.names) + 3 * len(REGIONS)
 
 
 class Stamps:
@@ -169,32 +181,34 @@ class Stamps:
 
     def stamp(self, index: int) -> None:
         """Stamp column ``index`` of the layout (0, the step's start, also
-        sets the V-cycle columns to 0)."""
-        col, aux = self.col0 + index, self.col0 + self.layout.vcycle
+        sets the regions' columns to 0)."""
+        col = self.col0 + index
+        aux = self.col0 + len(self.layout.names)
+        naux = self.layout.width - len(self.layout.names)
         if self.cuda:
             _launch("graph_step_stamp", self.rows.device,
                     self.rows.data_ptr(), self.j.data_ptr(),
-                    self.rows.shape[1], col, aux, self.clock.base,
+                    self.rows.shape[1], col, aux, naux, self.clock.base,
                     int(index == 0))
             return
         row = self.rows[int(self.j[0])]
         row[col] = self._now()
         if index == 0:
-            row[aux:aux + 3] = 0.0
+            row[aux:aux + naux] = 0.0
 
     def end(self) -> None:
         self.stamp(len(self.layout.names) - 1)
 
-    def vcycle(self, close: bool) -> None:
-        """Open (``close`` false) or close a V-cycle: the close adds its
-        device nanoseconds and 1 to the row's V-cycle columns, times the
-        kept flag of the masked copy it runs in."""
+    def region(self, name: str, close: bool) -> None:
+        """Open (``close`` false) or close region ``name``: the close adds
+        its device nanoseconds and 1 to the row's columns of the region,
+        times the kept flag of the masked copy it runs in."""
         from ..linalg.loops import MASK
 
-        col = self.col0 + self.layout.vcycle
+        col = self.col0 + self.layout.regions[name]
         kept = MASK[-1] if MASK else None
         if self.cuda:
-            _launch("graph_vcycle_stamp", self.rows.device,
+            _launch("graph_region_stamp", self.rows.device,
                     self.rows.data_ptr(), self.j.data_ptr(),
                     self.rows.shape[1], col, self.clock.base, int(close),
                     None if kept is None else kept.data_ptr())
@@ -216,13 +230,13 @@ def stamp(index: int) -> None:
 
 
 @contextlib.contextmanager
-def vcycle():
-    """A V-cycle's open and close stamps, if the current step has
-    stamps."""
+def region(name: str):
+    """Region ``name``'s open and close stamps around the block, if the
+    current step has stamps."""
     st = current()
     if st is None:
         yield
         return
-    st.vcycle(False)
+    st.region(name, False)
     yield
-    st.vcycle(True)
+    st.region(name, True)

@@ -82,18 +82,28 @@ class Span:
 class StampBlock:
     """The device stamps of a traced chunk (k rows) or eager step (one):
     ``span`` the id of the span it ran in, ``ite0`` its first step,
-    ``names`` the layout's columns, ``rows`` the stamps (a device tensor
-    until read)."""
+    ``names`` the layout's stamp columns, ``rows`` the stamps (a device
+    tensor until read), ``regions`` each accumulating region's first
+    column (``stamps.Layout.regions``)."""
 
     span: int
     ite0: int
     names: list
     rows: object
+    regions: dict = dataclasses.field(default_factory=dict)
 
     def values(self) -> np.ndarray:
         if isinstance(self.rows, torch.Tensor):
             self.rows = self.rows.cpu().numpy()
         return self.rows
+
+    def region(self, name: str):
+        """Region ``name``'s summed device ns and count of each step (two
+        arrays), or None where the layout has no such region."""
+        if name not in self.regions:
+            return None
+        col = self.regions[name]
+        return self.values()[:, col + 1], self.values()[:, col + 2]
 
 
 class StageTimers:

@@ -7,7 +7,11 @@ profiler, enters no ``record_function``; with tracing on the states and
 stats equal those of tracing off bit for bit; a traced step holds 11
 stamps in phase order, non-decreasing; the V-cycles counted equal the
 stats' (CG's iterations and its first preconditioning a step, in masked
-copies too); spans nest by parent id; an overflowing chunk records
+copies too); on the 32^2 cylinder with BiCGStab velocity and on the 16^3
+Taylor-Green vortex the ``krylov.velocity`` region counts the stats'
+velocity iterations (masked copies too) and ``convection`` once a step,
+inside rhsVelocity's span, and tracing on equals tracing off on the TGV
+too; spans nest by parent id; an overflowing chunk records
 ``chunk.rerun``; ``report()`` and ``dump()`` list the spans and
 counters; a kernel library's load is a span with its build counters.
 
@@ -26,8 +30,9 @@ import torch
 from petibm_tpu_torch import _kernels
 from petibm_tpu_torch.solvers import chunk
 from petibm_tpu_torch.solvers.decoupledibpm import DecoupledIBPMSolver
+from petibm_tpu_torch.solvers.navierstokes import NavierStokesSolver
 from petibm_tpu_torch.utils import stamps, timers
-from test_torch_chunked import cylinder, leaves
+from test_torch_chunked import cylinder, leaves, tgv3d
 
 torch.set_num_threads(2)
 
@@ -35,9 +40,18 @@ PHASES = ["moveIB", "rhsVelocity", "solveVelocity", "rhsForces",
           "solveForces", "applyNoSlip", "rhsPoisson", "solvePoisson",
           "update"]
 CASES = {"fdm": {}, "mgcg": {"fdm": False}}
+#: the traced step's stamp columns: start, the nine phases, end, then
+#: three columns (open, ns, count) for each region
+STAMPS = 11 + 3 * len(stamps.REGIONS)
+#: the 32^2 cylinder's velocity solve by BiCGStab + Jacobi
+BICGSTAB = {"type": "CPU", "max_it": 100, "kspType": "bicgstab"}
 
 
 def _solver(tmp_path, name, case, device="cpu", **params):
+    if case == "tgv3d":
+        cfg = tgv3d(tmp_path, name, dtype="float32", nt=4, nsave=1000,
+                    nrestart=1000, stepsPerDispatch=4, **params)
+        return NavierStokesSolver(cfg, device=device)
     cfg = cylinder(tmp_path, name, dtype="float32", nt=4, nsave=1000,
                    nrestart=1000, stepsPerDispatch=4,
                    **dict(CASES[case], **params))
@@ -81,7 +95,7 @@ def test_no_profiler_no_record_function(on, tmp_path, monkeypatch):
     width = runner.layout.width + len(runner.sites)
     assert runner.rows.shape == (4, width)
     if on:
-        assert runner.traced.rows.shape == (4, width + 14)
+        assert runner.traced.rows.shape == (4, width + STAMPS)
         assert len(solver.timers.spans()) > 0
     else:
         assert runner.traced is None
@@ -110,7 +124,7 @@ def test_profiler_holds_the_spans(tmp_path, monkeypatch):
     solver.close()
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + ["tgv3d"])
 def test_traced_chunks_equal_plain(case, tmp_path):
     """Chunks with tracing on between chunks with it off: states and stats
     bit-equal to a run never traced."""
@@ -171,8 +185,52 @@ def test_vcycle_count_matches_stats(masked, tmp_path, monkeypatch):
     fdm = _solver(tmp_path, "fdm", "fdm")
     fdm.trace_spans(True)
     _chunks(fdm, 1)
-    assert fdm.timers.stamp_blocks()[0].values()[:, 12:].sum() == 0
+    assert fdm.timers.stamp_blocks()[0].values()[:, 12:14].sum() == 0
     fdm.close()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["if", "masked"])
+@pytest.mark.parametrize("case", ["cylinder", "tgv3d"])
+def test_krylov_velocity_count_matches_stats(case, masked, tmp_path,
+                                             monkeypatch):
+    """The velocity solve's BiCGStab iterations a step are its stats'
+    v_iters, each with its device time; with every copy run masked only
+    the kept copies count.  The convective term is one region a step,
+    inside rhsVelocity's span; the V-cycle columns stay those of the
+    V-cycle (none: the pressure solve is the FDM's)."""
+    _check_krylov_velocity(case, masked, tmp_path, monkeypatch, "cpu")
+
+
+def _check_krylov_velocity(case, masked, tmp_path, monkeypatch, device):
+    if masked:
+        monkeypatch.setattr(chunk, "masks_loops", lambda solver: True)
+    solver = (_solver(tmp_path, "run", "tgv3d", device=device)
+              if case == "tgv3d" else
+              _solver(tmp_path, "run", "fdm", device=device,
+                      velocitySolver=BICGSTAB, fdm={"velocity": False}))
+    solver.trace_spans(True)
+    _chunks(solver, 2)
+    blocks = solver.timers.stamp_blocks()
+    assert len(blocks) == 2
+    ns, counts = (np.concatenate(a) for a in zip(
+        *[b.region("krylov.velocity") for b in blocks]))
+    hist = solver.stats_history
+    assert len(hist) == 8
+    assert counts.tolist() == [h["v_iters"] for h in hist]
+    assert counts.sum() > 0
+    assert (ns[counts > 0] > 0).all() and (ns[counts == 0] == 0).all()
+    conv_ns, conv_counts = (np.concatenate(a) for a in zip(
+        *[b.region("convection") for b in blocks]))
+    assert conv_counts.tolist() == [1.0] * 8
+    for b in blocks:
+        t = b.values()
+        phase = b.names.index("rhsVelocity")
+        opened = t[:, b.regions["convection"]]
+        assert (t[:, phase - 1] <= opened).all()
+        assert (opened + b.region("convection")[0] <= t[:, phase]).all()
+        assert sum(a.sum() for a in b.region("vcycle")) == 0
+        assert b.region("nothing") is None
+    solver.close()
 
 
 def test_spans_nest_by_parent(tmp_path):
@@ -344,7 +402,7 @@ def test_cuda_eager_traced_steps_equal_plain(case, tmp_path):
     blocks = traced.timers.stamp_blocks()
     assert [b.ite0 for b in blocks] == [1, 2, 3]
     rows = np.concatenate([b.values() for b in blocks])
-    assert rows.shape == (3, 14)
+    assert rows.shape == (3, STAMPS)
     t = rows[:, :11]
     assert (np.diff(t, axis=1) >= 0).all() and (t[:, -1] > t[:, 0]).all()
     assert (t.ravel()[1:] >= t.ravel()[:-1]).all()
@@ -353,6 +411,19 @@ def test_cuda_eager_traced_steps_equal_plain(case, tmp_path):
         assert rows[:, 13].tolist() == [h["p_iters"] + 1 for h in hist]
     plain.close()
     traced.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["if", "masked"])
+@pytest.mark.parametrize("case", ["cylinder", "tgv3d"])
+def test_cuda_krylov_velocity_count_matches_stats(case, masked, tmp_path,
+                                                  monkeypatch):
+    """``test_krylov_velocity_count_matches_stats`` on the card: the
+    region and step stamps are the captured chunk's device kernels, held
+    to the stats' v_iters with the loops run as conditional nodes or
+    masked."""
+    _card()
+    _check_krylov_velocity(case, masked, tmp_path, monkeypatch, "cuda")
 
 
 @pytest.mark.cuda
